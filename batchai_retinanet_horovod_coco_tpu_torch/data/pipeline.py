@@ -1,9 +1,13 @@
-"""What serving needs of the JAX package's ``data/pipeline.py``.
+"""What serving and training need of the JAX package's ``data/pipeline.py``.
 
 Normalization, the resize rule, the shape buckets, the pad pixel and its
 template, and the stop-gated queue handoff — the same geometry the JAX
 package's eval pipeline and serve router share, so a served image lands in
-the same bucket at the same size.  The bilinear resize runs in torch on the
+the same bucket at the same size.  For training, ``Batch``,
+``PipelineStats`` and :func:`assemble`, which pads a list of examples into
+one batch: images to the bucket, gt lists to ``max_gt`` rows with a mask.
+File decoding and the dataset readers are not ported yet.  The bilinear
+resize runs in torch on the
 host (``F.interpolate``, no antialias, rounded back to uint8) in place of
 ``cv2.INTER_LINEAR``: the two agree in shape and scale exactly and in
 pixels within one grey level.
@@ -11,8 +15,10 @@ pixels within one grey level.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -143,3 +149,74 @@ def _pad_template(bh: int, bw: int) -> np.ndarray:
             tmpl.setflags(write=False)
             _PAD_TEMPLATES[(bh, bw)] = tmpl
         return tmpl
+
+
+def paste_image(slot: np.ndarray, image: np.ndarray, pad: np.ndarray) -> None:
+    """Copy ``image`` into the top-left of the (bh, bw, 3) ``slot`` and fill
+    the margins from the pad template ``pad`` of the same shape."""
+    h, w = image.shape[:2]
+    bh, bw = slot.shape[:2]
+    slot[:h, :w] = image
+    if h < bh:
+        slot[h:] = pad[h:]
+    if w < bw:
+        slot[:h, w:] = pad[:h, w:]
+
+
+@dataclasses.dataclass
+class PipelineStats:
+    """Counters of boxes lost to ``max_gt`` padding: an image with more
+    boxes than ``max_gt`` loses the overflow from its training targets."""
+
+    truncated_boxes: int = 0
+    truncated_images: int = 0
+
+
+class Batch(NamedTuple):
+    images: np.ndarray  # (B, H, W, 3) uint8 (the device normalizes)
+    gt_boxes: np.ndarray  # (B, max_gt, 4) float32, resized coords
+    gt_labels: np.ndarray  # (B, max_gt) int32
+    gt_mask: np.ndarray  # (B, max_gt) bool
+    image_ids: np.ndarray  # (B,) int64
+    scales: np.ndarray  # (B,) float32: resized / original
+    valid: np.ndarray  # (B,) bool: False for eval padding rows
+
+
+def assemble(
+    examples: list[tuple[np.ndarray, np.ndarray, np.ndarray, float]],
+    image_ids: list[int],
+    bucket: tuple[int, int],
+    max_gt: int = 100,
+    stats: PipelineStats | None = None,
+) -> Batch:
+    """Pad ``(image, boxes (N, 4), labels (N,), scale)`` examples into one
+    ``Batch`` at ``bucket``: uint8 images with pad-pixel margins, and the gt
+    lists cut or padded to ``max_gt`` rows (zeros, mask False).  Boxes past
+    ``max_gt`` are counted in ``stats``."""
+    b = len(examples)
+    bh, bw = bucket
+    pad = _pad_template(bh, bw)
+    images = np.empty((b, bh, bw, 3), dtype=np.uint8)
+    gt_boxes = np.zeros((b, max_gt, 4), dtype=np.float32)
+    gt_labels = np.zeros((b, max_gt), dtype=np.int32)
+    gt_mask = np.zeros((b, max_gt), dtype=bool)
+    scales = np.zeros((b,), dtype=np.float32)
+    for i, (img, boxes, labels, scale) in enumerate(examples):
+        paste_image(images[i], img, pad)
+        n = min(len(boxes), max_gt)
+        if stats is not None and len(boxes) > n:
+            stats.truncated_boxes += len(boxes) - n
+            stats.truncated_images += 1
+        gt_boxes[i, :n] = boxes[:n]
+        gt_labels[i, :n] = labels[:n]
+        gt_mask[i, :n] = True
+        scales[i] = scale
+    return Batch(
+        images=images,
+        gt_boxes=gt_boxes,
+        gt_labels=gt_labels,
+        gt_mask=gt_mask,
+        image_ids=np.asarray(image_ids, dtype=np.int64),
+        scales=scales,
+        valid=np.ones((b,), dtype=bool),
+    )

@@ -60,10 +60,11 @@ def postprocess(
 
 
 def anchors_on(
-    image_hw: tuple[int, int], config: DetectConfig, device: torch.device
+    image_hw: tuple[int, int], config: anchors_lib.AnchorConfig, device: torch.device
 ) -> torch.Tensor:
+    """The (A, 4) f32 anchors of a padded image shape, on ``device``."""
     return torch.from_numpy(
-        np.array(anchors_lib.anchors_for_image_shape(image_hw, config.anchor))
+        np.array(anchors_lib.anchors_for_image_shape(image_hw, config))
     ).to(device)
 
 
@@ -92,7 +93,7 @@ def make_detect_fn(
     result with ``.cpu()``."""
     device = resolve_device(device)
     model = model.to(device).eval()
-    anchors = anchors_on(image_hw, config, device)
+    anchors = anchors_on(image_hw, config.anchor, device)
 
     def detect(images) -> nms_lib.Detections:
         x = to_device_images(images, device)

@@ -5,9 +5,11 @@ geometry, spatial sizes ceil(H/stride)), a plain 7x7/2 stem with (3, 3)
 padding and a 3x3/2 max pool with (1, 1) padding, and a pluggable norm:
 
 - ``"gn"``: GroupNorm(32), eps 1e-6 (flax's default, not torch's 1e-5);
-- ``"bn"`` / ``"frozen_bn"``: BatchNorm over running statistics, eps 1e-5.
-  This slice serves only, so ``"bn"`` runs in inference mode like
-  ``"frozen_bn"``; batch statistics come with the training slice.
+- ``"bn"``: BatchNorm, eps 1e-5; in training mode (``module.train()``) it
+  normalizes with the batch's statistics and updates the running ones as
+  flax does (momentum 0.9, the biased variance), in eval mode it uses the
+  running statistics;
+- ``"frozen_bn"``: BatchNorm over the running statistics in either mode.
 
 The JAX package's ``space_to_depth`` stems and ``pack_width`` stage are
 exact TPU reformulations over the same ``(7, 7, C, 64)`` stem parameter,
@@ -101,21 +103,41 @@ class GroupNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over running statistics, eps 1e-5, computed in f32."""
+    """BatchNorm, eps 1e-5, computed in f32, output in ``dtype``.
 
-    def __init__(self, channels: int, dtype: torch.dtype):
+    In training mode (unless ``frozen``) the statistics are the batch's, as
+    flax's ``nn.BatchNorm`` computes them: ``mean`` and ``mean(x^2) - mean^2``
+    (the biased variance, floored at 0) over (B, H, W), and the running
+    statistics move by ``0.9 * running + 0.1 * batch``.  The update is done
+    here by hand: ``F.batch_norm(training=True)`` would weight the batch by
+    its ``momentum`` (torch's 0.1 is flax's 1 - 0.9) and store the unbiased
+    variance, n / (n - 1) times flax's.
+    """
+
+    MOMENTUM = 0.9
+
+    def __init__(self, channels: int, dtype: torch.dtype, frozen: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.frozen = frozen
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight,
-            self.bias, training=False, eps=1e-5,
-        )
+        xf = x.float()
+        if self.frozen or not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + 1e-5) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype)
 
 
@@ -131,7 +153,7 @@ class NormFactory:
     def __call__(self, channels: int) -> nn.Module:
         if self.kind == "gn":
             return GroupNorm(channels, self.dtype)
-        return BatchNorm(channels, self.dtype)
+        return BatchNorm(channels, self.dtype, frozen=self.kind == "frozen_bn")
 
 
 class BottleneckBlock(nn.Module):

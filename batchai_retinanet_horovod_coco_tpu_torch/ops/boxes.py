@@ -1,8 +1,8 @@
-"""Box decoding and clipping, as the JAX package's ``ops/boxes.py``.
+"""Box encoding, decoding and clipping, as the JAX package's ``ops/boxes.py``.
 
-Center-form deltas (dx, dy, dw, dh) with normalization stds; dw/dh are
-clamped with a max only, at ``log(1000/16)``.  Encoding belongs to training
-and is not part of the serving slice.
+Center-form deltas (dx, dy, dw, dh) with normalization stds; decoding
+clamps dw/dh with a max only, at ``log(1000/16)``.  The JAX package's
+coordinate-planar encode is a TPU layout and is not carried over.
 """
 
 from __future__ import annotations
@@ -28,6 +28,29 @@ def _to_center_form(boxes: torch.Tensor) -> tuple[torch.Tensor, ...]:
     cx = boxes[..., 0] + 0.5 * w
     cy = boxes[..., 1] + 0.5 * h
     return cx, cy, w, h
+
+
+def encode_boxes(
+    anchors: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    config: BoxCodecConfig = BoxCodecConfig(),
+) -> torch.Tensor:
+    """Regression targets for ``gt_boxes`` w.r.t. ``anchors``; both (..., 4).
+    Widths and heights are floored at 1e-6 (padded boxes; callers mask
+    them), and the log takes the ratio: ``log(gw / aw)``, as JAX does."""
+    acx, acy, aw, ah = _to_center_form(anchors)
+    gcx, gcy, gw, gh = _to_center_form(gt_boxes)
+    aw = torch.clamp_min(aw, 1e-6)
+    ah = torch.clamp_min(ah, 1e-6)
+    gw = torch.clamp_min(gw, 1e-6)
+    gh = torch.clamp_min(gh, 1e-6)
+    deltas = torch.stack(
+        [(gcx - acx) / aw, (gcy - acy) / ah, torch.log(gw / aw), torch.log(gh / ah)],
+        dim=-1,
+    )
+    means = constant(config.means, deltas.dtype, deltas.device)
+    stds = constant(config.stds, deltas.dtype, deltas.device)
+    return (deltas - means) / stds
 
 
 def decode_boxes(

@@ -30,6 +30,7 @@ import numpy as np
 
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
     _pad_template,
+    paste_image,
     stop_gated_put,
 )
 from batchai_retinanet_horovod_coco_tpu_torch.serve.common import (
@@ -123,13 +124,7 @@ def assemble_requests(
     scales = np.ones((batch_size,), dtype=np.float32)
     valid = np.zeros((batch_size,), dtype=bool)
     for i, req in enumerate(requests):
-        img = req.image
-        h, w = img.shape[:2]
-        images[i, :h, :w] = img
-        if h < bh:
-            images[i, h:] = pad[h:]
-        if w < bw:
-            images[i, :h, w:] = pad[:h, w:]
+        paste_image(images[i], req.image, pad)
         scales[i] = req.scale
         valid[i] = True
     for i in range(len(requests), batch_size):

@@ -26,5 +26,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A small constant tensor on ``device``, made once and shared (do not
     write to it): made anew on every call it would be copied from pageable
-    host memory, which on a card waits for the stream."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    host memory, which on a card waits for the stream.  It is made outside
+    inference mode even when first asked for inside it (serving), so that
+    autograd may save it later (training)."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)

@@ -2,30 +2,53 @@
 
     python3 chip_smoke.py
 
-Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in five
+Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in nine
 phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
-2. build: compiles every CUDA kernel of the serving path from the sources
-   in this checkout and prints each ``-Xptxas -v`` report;
-3. kernel against plain: the NMS kernel and its plain PyTorch version on
-   the same card tensors (B 8, K 1000: dup-heavy fields of three seeds,
+2. build: compiles every CUDA kernel (NMS, matching, focal) from the
+   sources in this checkout, one ``nvcc`` each, all started together, and
+   prints each ``-Xptxas -v`` report;
+3. NMS kernel against plain: the NMS kernel and its plain PyTorch version
+   on the same card tensors (B 8, K 1000: dup-heavy fields of three seeds,
    tied scores, an all-padding image, and a K 300 case) must give EQUAL
    keep masks; both are timed with CUDA events;
 4. serving: a full-width ResNet-50 RetinaNet (FPN 256, heads 256 x 4, 80
    classes, bf16 activations, weights from a seeded generator) behind
    ``DetectEngine.from_state`` on both default buckets at batch 8 and a
    ``DetectionServer`` answers 24 requests of mixed sizes and orientations.
-   The kernel counters are zeroed just before and read just after: the
+   The NMS counters are zeroed just before and read just after: the
    kernel must have launched at least once per dispatched batch and the
    plain version never.  One batch's forward outputs, re-run through the
    plain NMS, must give Detections identical to the kernel path's.  That
    batch's time is split into device forward, device post-processing,
    host resize, fetch and result conversion;
-5. reference: a small f32 model (cuDNN TF32 off) gives the same forward
-   outputs on the card as on the CPU within 1e-4 of their range, and the
-   card's kernel-path Detections equal the CPU plain path's bit for bit
-   on the same decoded boxes and scores.
+5. serving reference: a small f32 model (cuDNN TF32 off) gives the same
+   forward outputs on the card as on the CPU within 1e-4 of their range,
+   and the card's kernel-path Detections equal the CPU plain path's bit
+   for bit on the same decoded boxes and scores;
+6. matching kernel against plain: at B 16, A 201 600 (the (800, 1344)
+   bucket; not a multiple of the kernel's anchor tile), G 100, on fields
+   with ragged gt counts and padded rows, an image with no gt, duplicated
+   gts and tiny gts, all five outputs must be EQUAL; both are timed;
+7. focal kernels against plain: at B 16, A 201 600, K 80 with logits in
+   [-12, 12] and some beyond +-20, the forward sums agree within rel 1e-5
+   and repeat bit for bit, the backward with f64 autograd of the plain
+   version within 1e-6 of the largest gradient; all four are timed;
+8. training: the full-width model (GroupNorm, bf16 activations, f32
+   parameters) with ``OptimizerConfig()`` at global batch 16 (8 if 16
+   does not fit) runs ``train/loop.py`` for 6 steps of seeded synthetic
+   batches at (800, 1344), 0-40 boxes an image padded to 100.  The
+   counters are zeroed just before and read just after: each training
+   kernel launched once a step, the plain versions never.  Every loss is
+   finite, and the first equals the same step through the plain versions
+   on the card within rel 1e-4.  Two more steps are split by CUDA events
+   into forward, targets, loss, backward and optimizer;
+9. training reference: the golden configuration of the JAX package's
+   tests (resnet_test, 64 x 64, 3 classes, FPN and heads 16 x 1, sgd 1e-2
+   with momentum 0.9) in f32 with TF32 off takes 5 steps on the card and
+   on the CPU: the loss falls every step and the trajectories agree within
+   rel 1e-4.
 
 Then it prints one JSON line with each kernel's launches, error, times and
 bound, and as its last line ``{"ok": true, "device": {...}}``.
@@ -38,10 +61,13 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from batchai_retinanet_horovod_coco_tpu_torch import losses as losses_lib
+from batchai_retinanet_horovod_coco_tpu_torch.data import pipeline as pipeline_lib
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
     default_buckets,
     normalize_images,
@@ -51,9 +77,17 @@ from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import (
     RetinaNetConfig,
     build_retinanet,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as matching_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as nms_lib
+from batchai_retinanet_horovod_coco_tpu_torch.ops.anchors import AnchorConfig
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import build
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import focal as focal_cuda
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import matching as matching_cuda
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import nms as nms_cuda
+from batchai_retinanet_horovod_coco_tpu_torch.train import loop as loop_lib
+from batchai_retinanet_horovod_coco_tpu_torch.train import optim as optim_lib
+from batchai_retinanet_horovod_coco_tpu_torch.train import state as state_lib
+from batchai_retinanet_horovod_coco_tpu_torch.train import step as step_lib
 from batchai_retinanet_horovod_coco_tpu_torch.serve.batcher import assemble_requests
 from batchai_retinanet_horovod_coco_tpu_torch.serve.common import ServeRequest
 from batchai_retinanet_horovod_coco_tpu_torch.serve.engine import DetectEngine
@@ -70,6 +104,23 @@ F32_OPS_PER_S = 67e12
 OPS_PER_PAIR = 15
 OPS_PER_BOX = 5
 IOU_THRESHOLD = 0.5
+# f32 operations of one (anchor, real gt) pair in the matching kernel: the
+# IoU (14, with the gt's area counted once per gt) and the two running
+# max/argmax compares.
+MATCH_OPS_PER_PAIR = 16
+# f32 operations of one logit in the focal kernels, counting each exp and
+# log1p as one: forward softplus 5, focal term 8, sum 1; backward softplus
+# pair 6, three exps, closed form 9, cotangent 1.
+FOCAL_FWD_OPS = 14
+FOCAL_BWD_OPS = 19
+TRAIN_HW = (800, 1344)  # the landscape bucket of the (800, 1333) resize rule
+MAX_GT = 100
+GOLDEN_HW = (64, 64)
+GOLDEN_MODEL = dict(num_classes=3, backbone="resnet_test", fpn_channels=16,
+                    head_width=16, head_depth=1, dtype=torch.float32)
+# optax.sgd(1e-2, momentum=0.9): no decay, no warmup, a clip that never engages.
+GOLDEN_OPT = dict(base_lr=0.01, global_batch_size=256, warmup_steps=0,
+                  schedule="constant", weight_decay=0.0, clip_global_norm=1e9)
 SERVE_SIZES = [  # (h, w) of the served images: both orientations, some as-is
     (480, 640), (640, 480), (800, 1200), (1200, 800), (375, 500), (500, 375),
     (600, 900), (900, 600), (427, 640), (640, 427), (768, 1024), (1024, 768),
@@ -83,8 +134,21 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+_PHASE_START: list[float] = []
+
+
 def phase(n: int, title: str) -> None:
+    """Start phase ``n``, printing how long the one before it took."""
+    now = time.perf_counter()
+    if _PHASE_START:
+        print(f"(phase {n - 1}: {now - _PHASE_START[0]:.1f} s)")
+        _PHASE_START.clear()
+    _PHASE_START.append(now)
     print(f"== phase {n}: {title}", flush=True)
+
+
+def end_phases() -> None:
+    print(f"(last phase: {time.perf_counter() - _PHASE_START.pop():.1f} s)")
 
 
 def random_candidates(batch, k, num_classes, seed, device, tied=False, pad_images=()):
@@ -137,8 +201,74 @@ def nms_bound_ms(cand_scores: torch.Tensor, class_idx: torch.Tensor) -> tuple[fl
     same = (class_idx[:, :, None] == class_idx[:, None, :]) & valid[:, :, None] & valid[:, None, :]
     pairs = int(torch.triu(same, diagonal=1).sum().item())
     ops = OPS_PER_PAIR * pairs + OPS_PER_BOX * int(valid.sum().item())
+    return bound(bytes_moved, ops)
+
+
+def gt_scene(batch, num_gt, seed, hw=TRAIN_HW, counts=(1, 40), empty=(), dup=(), tiny=()):
+    """Padded gts at ``hw``: boxes (B, G, 4) f32, labels (B, G) int32 in
+    0..79, mask (B, G) bool, with ``counts`` real rows an image (none for
+    ``empty`` images), junk in the padded rows, the first box repeated
+    under other labels on ``dup`` images, and 2-4 pixel boxes on ``tiny``
+    images."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    boxes = rng.uniform(0, 60, (batch, num_gt, 4)).astype(np.float32)
+    labels = rng.integers(0, 80, (batch, num_gt)).astype(np.int32)
+    mask = np.zeros((batch, num_gt), bool)
+    for b in range(batch):
+        n = 0 if b in empty else int(rng.integers(counts[0], counts[1] + 1))
+        size = (2.0, 4.0) if b in tiny else (8.0, 500.0)
+        xy = rng.uniform(0, [w - 10, h - 10], (n, 2))
+        wh = rng.uniform(*size, (n, 2))
+        boxes[b, :n] = np.concatenate([xy, np.minimum(xy + wh, [w, h])], 1)
+        if b in dup and n >= 3:
+            boxes[b, 1:3] = boxes[b, 0]
+            labels[b, 1:3] = (labels[b, 0] + np.array([1, 2])) % 80
+        mask[b, :n] = True
+    return boxes, labels, mask
+
+
+def train_batch(batch_size: int, seed: int) -> pipeline_lib.Batch:
+    """A seeded synthetic batch at TRAIN_HW: uint8 images of 600-800 by
+    900-1344 pixels padded by the pipeline's ``assemble``, 0-40 boxes an
+    image with labels 0-79, padded to MAX_GT rows."""
+    rng = np.random.default_rng(1000 + seed)
+    boxes, labels, mask = gt_scene(batch_size, 40, seed, counts=(0, 40))
+    examples = []
+    for b in range(batch_size):
+        h, w = int(rng.integers(600, 801)), int(rng.integers(900, 1345))
+        n = int(mask[b].sum())
+        img_boxes = np.minimum(boxes[b, :n], [w, h, w, h]).astype(np.float32)
+        examples.append((rng.integers(0, 256, (h, w, 3), dtype=np.uint8), img_boxes,
+                         labels[b, :n], 1.0))
+    return pipeline_lib.assemble(examples, list(range(batch_size)), TRAIN_HW, max_gt=MAX_GT)
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def matching_bound_ms(num_anchors: int, gt_mask: torch.Tensor) -> tuple[float, str]:
+    """Anchors and gts read once, the five outputs written once; the IoU
+    work of the real (unmasked) gts, which is all the kernel computes."""
+    b, g = gt_mask.shape
+    bytes_moved = num_anchors * 16 + b * g * (16 + 4 + 1) + b * num_anchors * (16 + 4 + 4) + b * g * 8
+    ops = MATCH_OPS_PER_PAIR * num_anchors * int(gt_mask.sum().item())
+    return bound(bytes_moved, ops)
+
+
+def focal_bound_ms(logits: torch.Tensor, state: torch.Tensor, backward: bool) -> tuple[float, str]:
+    """States read for every anchor, labels and logits only for the
+    non-ignored ones (the kernels skip the rest), the sums (forward) or the
+    whole gradient (backward) written once."""
+    b, a, k = logits.shape
+    live = int((state != matching_lib.IGNORE).sum().item())
+    bytes_moved = b * a * 4 + live * 4 + live * k * 4 + b * 4
+    if backward:
+        bytes_moved += b * 4 + b * a * k * 4
+    ops = (FOCAL_BWD_OPS if backward else FOCAL_FWD_OPS) * live * k
+    return bound(bytes_moved, ops)
 
 
 def check_results(results: list[list[dict]], sizes) -> None:
@@ -170,9 +300,14 @@ def main() -> int:
 
     phase(2, "build")
     t0 = time.perf_counter()
-    build.compile_library("nms")
-    print(f"built ops/cuda/nms.cu in {time.perf_counter() - t0:.1f} s")
-    print(build.build_logs.get("nms", "(already built)"))
+    sources = ("nms", "matching", "focal")
+    # watchdog: three nvcc builds started together and joined right here; a
+    # failed build raises through map(), and no thread outlives the phase.
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.compile_library, sources))
+    print(f"built ops/cuda/{{{','.join(sources)}}}.cu in {time.perf_counter() - t0:.1f} s")
+    for name in sources:
+        print(f"-- {name}.cu\n{build.build_logs.get(name, '(already built)')}")
 
     phase(3, "NMS kernel against its plain version")
     cases = [
@@ -249,7 +384,7 @@ def main() -> int:
         req.scale = np.float32(scale)
         reqs.append(req)
     batch = assemble_requests(reqs, hw, 8)
-    anchors = detect_lib.anchors_on(hw, dconfig, device)
+    anchors = detect_lib.anchors_on(hw, dconfig.anchor, device)
     with torch.inference_mode():
         x = detect_lib.to_device_images(batch.images, device)
         outputs = model(normalize_images(x))
@@ -328,7 +463,7 @@ def main() -> int:
     # The same decoded boxes and scores (made on the CPU: the card's exp may
     # differ by an ulp) through the kernel path on the card and the plain
     # path on the CPU.
-    anchors_cpu = detect_lib.anchors_on(hw_small, dconfig, torch.device("cpu"))
+    anchors_cpu = detect_lib.anchors_on(hw_small, dconfig.anchor, torch.device("cpu"))
     scores = torch.sigmoid(out_cpu["cls_logits"])
     boxes = detect_lib.boxes_lib.clip_boxes(
         detect_lib.boxes_lib.decode_boxes(anchors_cpu[None], out_cpu["box_deltas"]), hw_small
@@ -342,8 +477,7 @@ def main() -> int:
                 f"card Detections.{field} differ from the CPU's")
     print(f"Detections on the card equal the CPU's: {int(det_cpu.valid.sum())} kept")
 
-    print(smi)
-    print(json.dumps({"kernels": [{
+    nms_row = {
         "name": "nms_keep_mask",
         "route": "cuda",
         "source": "batchai_retinanet_horovod_coco_tpu_torch/ops/cuda/nms.cu",
@@ -355,11 +489,281 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }
+    del engine, model, outputs, x, scores, boxes, kernel_det, plain_det, cpu_model, gpu_model
+    torch.cuda.empty_cache()
+
+    batches = [train_batch(16, seed) for seed in range(6)]
+    anchors = detect_lib.anchors_on(TRAIN_HW, AnchorConfig(), device)
+    phase(6, "matching kernel against its plain version")
+    match_row = matching_phase(anchors, batches[0], device)
+    phase(7, "focal kernels against their plain versions")
+    fwd_row, bwd_row = focal_phase(anchors, batches[0], device)
+    phase(8, "training: ResNet-50 RetinaNet, train/loop.py")
+    launches_by_kernel = training_phase(anchors, batches, device, kind, smi)
+    for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
+        row["launches"] = launches_by_kernel[key]
+    phase(9, "training reference: the card against the CPU in f32")
+    golden_phase(device)
+    end_phases()
+
+    print(smi)
+    print(json.dumps({"kernels": [nms_row, match_row, fwd_row, bwd_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def matching_phase(anchors: torch.Tensor, batch: pipeline_lib.Batch, device) -> dict:
+    """Kernel and plain version on seeded fields and on the first training
+    batch's gts: all five outputs equal; times on the training batch."""
+    num_anchors = anchors.shape[0]
+    fields = [
+        ("ragged 1-100 gts, image 3 without gt, dups on 4-5, tiny on 6-7",
+         gt_scene(16, MAX_GT, 0, counts=(1, 100), empty=(3,), dup=(4, 5), tiny=(6, 7))),
+        ("ragged 0-40 gts, dups on 0-7", gt_scene(16, MAX_GT, 1, counts=(0, 40), dup=range(8))),
+        ("first training batch", (batch.gt_boxes, batch.gt_labels, batch.gt_mask)),
+    ]
+    max_err = 0.0
+    for name, arrays in fields:
+        gts = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+        got = matching_cuda.assign_fused(anchors, *gts)
+        want = matching_cuda.assign_fused_plain(anchors, *gts)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            require(g.dtype == w.dtype and g.shape == w.shape, f"matching output {g.dtype} {g.shape}")
+            max_err = max(max_err, float((g.double() - w.double()).abs().max()))
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"{name}: B {gts[0].shape[0]} A {num_anchors} G {gts[0].shape[1]}, "
+              f"{int(gts[2].sum())} real gts; outputs equal: {equal}")
+        require(equal, f"matching kernel and plain version differ ({name})")
+    kernel_ms = time_ms(lambda: matching_cuda.assign_fused(anchors, *gts), 50, 5)
+    plain_ms = time_ms(lambda: matching_cuda.assign_fused_plain(anchors, *gts), 5, 1)
+    bound_ms, bound_by = matching_bound_ms(num_anchors, gts[2])
+    print(f"matching at the training shapes: kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by})")
+    return {
+        "name": "assign_fused",
+        "route": "cuda",
+        "source": "batchai_retinanet_horovod_coco_tpu_torch/ops/cuda/matching.cu",
+        "replaces": "batchai_retinanet_horovod_coco_tpu/ops/pallas/matching.py:177",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def focal_phase(anchors: torch.Tensor, batch: pipeline_lib.Batch, device) -> tuple[dict, dict]:
+    """Forward and backward kernels against the plain version and autograd,
+    on the first training batch's targets with random logits."""
+    gts = tuple(torch.from_numpy(a).to(device) for a in (batch.gt_boxes, batch.gt_labels, batch.gt_mask))
+    targets = matching_lib.anchor_targets_compact_batched(anchors, *gts)
+    labels, state = targets.matched_labels.contiguous(), targets.state.contiguous()
+    b, a = state.shape
+    gen = torch.Generator(device=device).manual_seed(0)
+    logits = torch.rand((b, a, 80), generator=gen, device=device) * 24 - 12
+    far = torch.rand(logits.shape, generator=gen, device=device) < 0.01
+    logits = torch.where(far, torch.sign(logits) * 25, logits).contiguous()
+    weights = torch.linspace(0.5, 2.0, b, device=device)
+    print(f"B {b} A {a} K 80: {int((state == 1).sum())} positive, "
+          f"{int((state == -1).sum())} ignored anchors; {int(far.sum())} logits at +-25")
+
+    sums = focal_cuda.focal_fwd(logits, labels, state, 0.25, 2.0)
+    again = focal_cuda.focal_fwd(logits, labels, state, 0.25, 2.0)
+    with torch.no_grad():
+        plain = focal_cuda.focal_sums_plain(logits, labels, state)
+    torch.cuda.synchronize()
+    rel = float(((sums - plain).abs() / plain.abs()).max())
+    print(f"forward: max rel err {rel:.3e} (limit 1e-05); two launches identical: "
+          f"{torch.equal(sums, again)}")
+    require(torch.equal(sums, again), "the focal forward kernel is not deterministic")
+    require(rel <= 1e-5, f"focal forward differs from the plain version by rel {rel}")
+
+    # The reference gradient is autograd of the plain version in f64: in f32
+    # its own rounding (about 1e-6 of the largest gradient) exceeds the
+    # kernel's closed form's.
+    grad = focal_cuda.focal_bwd(logits, labels, state, weights, 0.25, 2.0)
+    x64 = logits.double().requires_grad_()
+    (want_grad,) = torch.autograd.grad(
+        focal_cuda.focal_sums_plain(x64, labels, state), x64, weights.double()
+    )
+    x = logits.clone().requires_grad_()
+    plain_sums = focal_cuda.focal_sums_plain(x, labels, state)
+    (grad32,) = torch.autograd.grad(plain_sums, x, weights, retain_graph=True)
+    torch.cuda.synchronize()
+    err = float((grad.double() - want_grad).abs().max())
+    err32 = float((grad32.double() - want_grad).abs().max())
+    scale = float(want_grad.abs().max())
+    del x64, want_grad
+    print(f"backward against f64 autograd of the plain version: max abs err {err:.3e}, "
+          f"{err / scale:.3e} of max |grad| {scale:.3f} (limit 1e-06); f32 autograd's own "
+          f"{err32 / scale:.3e}")
+    require(err <= 1e-6 * scale, "focal backward differs from autograd of the plain version")
+
+    fwd_ms = time_ms(lambda: focal_cuda.focal_fwd(logits, labels, state, 0.25, 2.0), 50, 5)
+    bwd_ms = time_ms(lambda: focal_cuda.focal_bwd(logits, labels, state, weights, 0.25, 2.0), 50, 5)
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: focal_cuda.focal_sums_plain(logits, labels, state), 5, 1)
+    plain_bwd_ms = time_ms(
+        lambda: torch.autograd.grad(plain_sums, x, weights, retain_graph=True), 5, 1
+    )
+    del plain_sums, x
+    rows = []
+    for name, line, ms, pms, backward, e in (
+        ("focal_fwd", 143, fwd_ms, plain_fwd_ms, False, float((sums - plain).abs().max())),
+        ("focal_bwd", 183, bwd_ms, plain_bwd_ms, True, err),
+    ):
+        bound_ms, bound_by = focal_bound_ms(logits, state, backward)
+        print(f"{name}: kernel {ms:.4f} ms, plain {pms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "batchai_retinanet_horovod_coco_tpu_torch/ops/cuda/focal.cu",
+            "replaces": f"batchai_retinanet_horovod_coco_tpu/ops/pallas/focal.py:{line}",
+            "launches": None,
+            "max_abs_err": e,
+            "ms": ms,
+            "plain_ms": pms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    return rows[0], rows[1]
+
+
+def plain_step_loss(model, arrays: dict, anchors: torch.Tensor) -> float:
+    """The first step's loss through the plain versions on the card: the
+    same forward, the plain matching and the plain focal sums."""
+    with torch.no_grad():
+        out = model(normalize_images(arrays["images"]))
+        t = matching_lib.anchor_targets_compact(
+            anchors, arrays["gt_boxes"], arrays["gt_labels"], arrays["gt_mask"]
+        )
+        cls = losses_lib._normalize_per_image(
+            losses_lib.focal_sums_compact(out["cls_logits"], t.matched_labels, t.state), t.state
+        )
+        box = losses_lib.smooth_l1_loss(out["box_deltas"], t.box_targets, t.state)
+    return float(cls + box)
+
+
+def training_phase(anchors, batches, device, kind: str, smi: str) -> dict[str, int]:
+    """6 steps of train/loop.py at full width; returns each training
+    kernel's launches in that run."""
+    for batch_size in (16, 8):
+        cut = [b._replace(**{f: getattr(b, f)[:batch_size] for f in b._fields}) for b in batches]
+        try:
+            return train_full_width(anchors, cut, device, kind, smi)
+        except torch.cuda.OutOfMemoryError:
+            print(f"global batch {batch_size} does not fit in the card's memory")
+        torch.cuda.empty_cache()  # outside the handler: its frames are gone
+    raise SystemExit("chip_smoke: FAILED: training fits at neither batch 16 nor 8")
+
+
+def train_full_width(anchors, batches, device, kind: str, smi: str) -> dict[str, int]:
+    batch_size = batches[0].images.shape[0]
+    t0 = time.perf_counter()
+    model = build_retinanet(RetinaNetConfig(), device=device, seed=0)  # gn, bf16
+    state = state_lib.create_train_state(model, optim_lib.OptimizerConfig(), device)
+    model.train()
+    plain_loss = plain_step_loss(model, loop_lib.device_batch(batches[0], device), anchors)
+    print(f"model built in {time.perf_counter() - t0:.1f} s; global batch {batch_size} at "
+          f"{TRAIN_HW}, {[int(b.gt_mask.sum()) for b in batches]} gts a batch; first-step "
+          f"loss through the plain versions {plain_loss:.6f}")
+
+    logged: list[dict] = []
+    matching_cuda.reset_counts()
+    focal_cuda.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop_lib.run_training(
+        state, iter(batches), 80, loop_lib.LoopConfig(total_steps=len(batches), log_every=1),
+        log=lambda step, scalars: logged.append(scalars),
+    )
+    wall = time.perf_counter() - t0
+    launches = {
+        "matching": matching_cuda.kernel_launches,
+        "focal_fwd": focal_cuda.fwd_launches,
+        "focal_bwd": focal_cuda.bwd_launches,
+    }
+    plain = {"matching": matching_cuda.plain_calls, "focal": focal_cuda.plain_calls}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(batches)
+    print(f"{steps} steps in {wall:.2f} s; kernel launches {launches}, plain calls {plain}")
+    for i, sc in enumerate(logged, 1):
+        print(f"step {i}: loss {sc['loss']:.6f} (cls {sc['cls_loss']:.6f}, box {sc['box_loss']:.6f}), "
+              f"num_pos {sc['num_pos']:.0f}, grad_norm {sc['grad_norm']:.4f}, param_norm "
+              f"{sc['param_norm']:.4f}, lr {sc['lr']:.3e}, {sc['step_time_ms']:.1f} ms")
+    require(all(n == steps for n in launches.values()), f"launches {launches} for {steps} steps")
+    require(all(n == 0 for n in plain.values()), f"the plain versions ran on the card: {plain}")
+    require(all(np.isfinite([sc["loss"], sc["grad_norm"], sc["param_norm"]]).all() for sc in logged),
+            "a non-finite loss or norm")
+    rel = abs(logged[0]["loss"] - plain_loss) / abs(plain_loss)
+    print(f"first-step loss {logged[0]['loss']:.6f} against the plain versions' {plain_loss:.6f}: "
+          f"rel err {rel:.3e} (limit 1e-04)")
+    require(rel <= 1e-4, "the first step's loss differs from the plain versions'")
+
+    # Two more steps, split by CUDA events at the step's phase boundaries.
+    step_fn = step_lib.make_train_step(model, TRAIN_HW, 80, device=device)
+    totals = dict.fromkeys(step_lib.PHASES, 0.0)
+    timed = 2
+    for batch in batches[:timed]:
+        arrays = loop_lib.device_batch(batch, device)
+        torch.cuda.synchronize()
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(name):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            marks.append((name, event))
+
+        step_fn(state, arrays, mark)
+        torch.cuda.synchronize()
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            totals[name] += a.elapsed_time(b) / timed
+    step_ms = sum(totals.values())
+    rates = [sc["images_per_sec"] for sc in logged[1:]]
+    print("step split (ms, mean of 2 steps, CUDA events): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in totals.items()) + f"; total {step_ms:.3f}")
+    print(f"images/s: {batch_size * 1e3 / step_ms:.2f} from the split, median "
+          f"{float(np.median(rates)):.2f} over steps 2-{steps} of the loop (host clock, with "
+          f"the metrics read every step); peak memory {peak_gb:.2f} GiB; {kind}, {smi}")
+    del state, model, step_fn
+    torch.cuda.empty_cache()
+    return launches
+
+
+def golden_phase(device) -> None:
+    """The golden configuration, 5 steps on the card and on the CPU, f32."""
+    rng = np.random.default_rng(42)
+    batch = pipeline_lib.Batch(
+        images=rng.normal(0, 1, (4, *GOLDEN_HW, 3)).astype(np.float32),
+        gt_boxes=np.tile(np.array([[[10.0, 10.0, 50.0, 50.0]]], np.float32), (4, 1, 1)),
+        gt_labels=np.ones((4, 1), np.int32),
+        gt_mask=np.ones((4, 1), bool),
+        image_ids=np.arange(4), scales=np.ones(4, np.float32), valid=np.ones(4, bool),
+    )
+    torch.backends.cudnn.allow_tf32 = False  # f32 convolutions in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trajectories = {}
+    for dev in (torch.device("cpu"), device):
+        model = build_retinanet(RetinaNetConfig(**GOLDEN_MODEL), device=dev, seed=42)
+        state = state_lib.create_train_state(model, optim_lib.OptimizerConfig(**GOLDEN_OPT), dev)
+        losses = []
+        loop_lib.run_training(state, iter([batch] * 5), 3, loop_lib.LoopConfig(total_steps=5, log_every=1),
+                              log=lambda step, scalars: losses.append(scalars["loss"]))
+        trajectories[dev.type] = losses
+    cpu, gpu = np.array(trajectories["cpu"]), np.array(trajectories["cuda"])
+    rel = float(np.max(np.abs(gpu - cpu) / np.abs(cpu)))
+    print(f"losses on the card {[f'{v:.7f}' for v in gpu]}, on the CPU "
+          f"{[f'{v:.7f}' for v in cpu]}: max rel err {rel:.3e} (limit 1e-04)")
+    require(bool(np.all(np.diff(gpu) < 0)), "the loss does not fall every step on the card")
+    require(rel <= 1e-4, "the card's trajectory differs from the CPU's")
 
 
 if __name__ == "__main__":

@@ -19,6 +19,8 @@ import batchai_retinanet_horovod_coco_tpu_torch as port
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate import detect as t_detect
 from batchai_retinanet_horovod_coco_tpu_torch.models import retinanet as t_retinanet
 from batchai_retinanet_horovod_coco_tpu_torch.serve.engine import DetectEngine
+from batchai_retinanet_horovod_coco_tpu_torch.train import state as t_state
+from batchai_retinanet_horovod_coco_tpu_torch.train import step as t_step
 
 PACKAGE_DIR = Path(port.__file__).resolve().parent
 REPO_ROOT = PACKAGE_DIR.parent
@@ -50,14 +52,20 @@ def test_sources_import_nothing_forbidden():
     assert "batchai_retinanet_horovod_coco_tpu_torch.ops" in imported_modules(
         PACKAGE_DIR / "ops" / "cuda" / "nms.py"
     )
+    scanned = {str(path.relative_to(PACKAGE_DIR)) for path in SOURCES[:-1]}
+    assert {"losses.py", "ops/matching.py", "ops/cuda/matching.py", "ops/cuda/focal.py",
+            "train/optim.py", "train/state.py", "train/step.py", "train/loop.py"} <= scanned
 
 
-def test_serving_modules_load_without_jax():
+def test_serving_and_training_modules_load_without_jax():
     code = (
         "import sys\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.serve.frontend\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.evaluate.detect\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.models.convert\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.train.loop\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.ops.cuda.matching\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.ops.cuda.focal\n"
         f"roots = {FORBIDDEN!r}\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & set(roots)))\n"
     )
@@ -82,7 +90,10 @@ def test_every_device_default_is_cuda():
                 if arg.arg == "device" and value is not None:
                     defaults.append((path.name, node.name, ast.literal_eval(value)))
     assert {d[2] for d in defaults} == {"cuda"}, defaults
-    assert {d[1] for d in defaults} >= {"make_detect_fn", "from_state", "build_retinanet"}
+    assert {d[1] for d in defaults} >= {
+        "make_detect_fn", "from_state", "build_retinanet", "make_train_step",
+        "create_train_state",
+    }
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
@@ -92,6 +103,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         lambda: DetectEngine.from_state(model, ((64, 64),), (1,), min_side=64, max_side=64),
         lambda: t_detect.make_detect_fn(model, (64, 64)),
         lambda: t_retinanet.build_retinanet(t_retinanet.RetinaNetConfig(**SMALL)),
+        lambda: t_step.make_train_step(model, (64, 64), 3),
+        lambda: t_state.create_train_state(model),
     ]
     if torch.cuda.is_available():
         engine = calls[0]()

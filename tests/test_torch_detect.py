@@ -114,7 +114,7 @@ def test_postprocess_on_jax_forward(jax_run):
     outputs, _, _, det = jax_run
     got = t_detect.postprocess(
         {k: torch.from_numpy(np.array(v)) for k, v in outputs.items()},
-        t_detect.anchors_on(HW, t_detect.DetectConfig(), torch.device("cpu")),
+        t_detect.anchors_on(HW, t_detect.DetectConfig().anchor, torch.device("cpu")),
         HW,
         t_detect.DetectConfig(**NMS),
     )

@@ -170,7 +170,7 @@ def test_norm_epsilons(norm_kind):
             "params": {"scale": np.ones(64, np.float32), "bias": np.zeros(64, np.float32)},
             "batch_stats": {"mean": np.zeros(64, np.float32), "var": np.full(64, 1e-6, np.float32)},
         }
-        port = t_resnet.BatchNorm(64, torch.float32)
+        port = t_resnet.BatchNorm(64, torch.float32, frozen=True)
         port.running_var.fill_(1e-6)
     want = np.asarray(layer.apply(variables, x))
     got = port(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
