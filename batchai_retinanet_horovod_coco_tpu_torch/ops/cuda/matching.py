@@ -7,13 +7,18 @@ image, reduced per anchor (max IoU, first argmax gt, that gt's box and
 label) and per gt (best IoU, lowest anchor reaching it).  Thresholds, the
 force-match patch and the encode stay in ``ops/matching.py``.
 
-What bounds it on this card: about 16 f32 operations a (anchor, real gt)
-pair, some 0.077 ms at B 16, A 201 600 with 100 real gts an image; its
-bytes (anchors, gts and the outputs, some 81 MB there) take about a third
-of that, and bound it when most gt rows are padding.  The kernel keeps
-anchors in registers and the gts in shared memory, so the pair loop reads
-no device memory, and reduces the per-gt argmax with a 64-bit
-(IoU bits, ~anchor) key and ``atomicMax``: deterministic, no float atomics.
+What bounds it on this card: its bytes, the anchors, the gts and the
+outputs (some 81 MB at B 16, A 201 600, G 100, about 0.024 ms).  The
+kernel keeps anchors in registers and the gts in shared memory, so the
+pair loop reads no device memory.  Each block of 256 anchors (a run of
+positions along one row of a pyramid level) first lists the gts that are real
+and overlap its anchors' bounding box, and walks only those, and for each
+listed gt only the warps' chunks of 32 anchors whose box it overlaps: a
+skipped pair has an IoU of exactly 0 (the argument is in the source
+note), so the outputs stay equal to the plain version's.
+:func:`tile_gt_lists` states that test in plain PyTorch.  The per-gt
+argmax is a 64-bit (IoU bits, ~anchor) key and ``atomicMax``:
+deterministic, no float atomics.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.  ``kernel_launches`` and ``plain_calls``
@@ -56,9 +61,17 @@ def _library() -> ctypes.CDLL:
     lib.match_launch.restype = ctypes.c_int
     lib.match_max_gt.argtypes = []
     lib.match_max_gt.restype = ctypes.c_int
+    lib.match_tile.argtypes = []
+    lib.match_tile.restype = ctypes.c_int
     lib.match_error_string.argtypes = [ctypes.c_int]
     lib.match_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_tile() -> int:
+    """Anchors a block of the kernel takes (its ``kTile``), read from the
+    library, which this builds on first use."""
+    return _library().match_tile()
 
 
 def _check_inputs(anchors, gt_boxes, gt_labels, gt_mask) -> None:
@@ -100,6 +113,29 @@ def assign_fused_plain(
     matched_boxes = torch.gather(gt_boxes, 1, matched_gt[..., None].expand(*matched_gt.shape, 4))
     matched_labels = torch.gather(gt_labels, 1, matched_gt)
     return matched_boxes, matched_labels, max_iou, gt_best_iou, gt_best_anchor.to(torch.int32)
+
+
+def tile_gt_lists(
+    anchors: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_mask: torch.Tensor,
+    tile: int,
+) -> torch.Tensor:
+    """(B, T, G) bool: the gt rows that the kernel's block for each tile of
+    ``tile`` anchors (:func:`kernel_tile` for the kernel's own) walks: real,
+    and overlapping the bounding box of the tile's anchors strictly on both
+    axes.  The last tile may be ragged.  The kernel computes this itself;
+    this is its test in plain PyTorch."""
+    a = anchors.shape[0]
+    t = -(-a // tile)
+    pad = t * tile - a
+    lo = torch.cat([anchors[:, :2], anchors.new_full((pad, 2), float("inf"))])
+    hi = torch.cat([anchors[:, 2:], anchors.new_full((pad, 2), float("-inf"))])
+    lo = lo.view(t, tile, 2).amin(1)[None, :, None]  # (1, T, 1, 2)
+    hi = hi.view(t, tile, 2).amax(1)[None, :, None]
+    g = gt_boxes[:, None]  # (B, 1, G, 4)
+    overlap = (torch.minimum(hi, g[..., 2:]) > torch.maximum(lo, g[..., :2])).all(-1)
+    return overlap & gt_mask[:, None, :]
 
 
 def assign_fused(

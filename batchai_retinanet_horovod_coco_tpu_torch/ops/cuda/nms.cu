@@ -5,144 +5,237 @@
 // already sorted by descending score, candidate i is kept iff it is valid
 // (not padding) and no KEPT candidate j < i of the same class has
 // IoU(j, i) > t.  The Pallas kernel's blocked fixed point and identity-matmul
-// transposes exist for the TPU's (8, 128) tiles; here the work is split the
-// classic GPU way into a parallel bitmask pass and a sequential scan:
+// transposes exist for the TPU's (8, 128) tiles; here the work is split into
+// a parallel bitmask pass and a blocked scan, two launches:
 //
 //   nms_mask_kernel  grid (ceil(K/64) row blocks, ceil(K/64) column blocks, B),
-//                    64 threads.  Thread r owns row j = 64*row_block + r and
-//                    writes ONE uint64 word: bit c is set iff j < i (i = the
-//                    c-th column of the block), same class, IoU(j, i) > t.
-//                    Blocks wholly below the diagonal write zeros.
-//   nms_scan_kernel  one warp per image.  Validity is staged once as a bitset
-//                    in shared memory; the `removed` bitset lives in the
-//                    lanes' registers (word w on lane w % 32); for i = 0..K-1
-//                    in order the owning lane tests bit i, the decision is
-//                    broadcast with a shuffle, and a kept row's mask words are
-//                    OR-ed into `removed` by all lanes.  This is the unique
-//                    greedy solution, which the JAX fixed point converges to.
+//                    256 threads.  Row j = 64*row_block + r gets ONE uint64
+//                    word: bit c is set iff j < i (i = the c-th column of
+//                    the block), same class, IoU(j, i) > t.  Four
+//                    neighbouring lanes share a row, every fourth column each,
+//                    unrolled and branch-free (areas precomputed, bits
+//                    masked afterwards) so that a thread's IoUs overlap, and
+//                    OR their bits with two shuffles.  Blocks below the
+//                    diagonal write nothing: the scan never reads them.
+//   nms_scan_kernel  one block of kScanThreads an image, walking the K
+//                    candidates a 64-candidate word at a time.  `removed`
+//                    (the candidates suppressed by kept rows of earlier
+//                    words) and the validity bits live in shared memory as
+//                    one uint64 a word, and so do the mask rows of the
+//                    current word and of the next one (two row blocks,
+//                    1 KB a word each).  For word w:
+//                      1. thread 0 resolves the word from its staged
+//                         diagonal words mask[64w + r][w]: live = valid &
+//                         ~removed[w]; for r in order, if bit r of live is
+//                         set, live &= ~diag[r].  What is left of live is the
+//                         kept set (a diagonal word only has bits above r).
+//                         Meanwhile warps 1.. start asynchronous copies
+//                         (cp.async) of row block w + 1 from device memory;
+//                      2. after a barrier the kept set is read by all; the
+//                         threads write the 64 keep flags, spread the (kept
+//                         row, later word) pairs among themselves and OR the
+//                         rows' staged words into `removed` with a shared
+//                         64-bit atomicOr;
+//                    then each thread waits for its copies and a barrier
+//                    follows.  The loop over words is uniform across the
+//                    block, and the serial part reads no device memory.
+//
+// Exactness: when word w is resolved, removed[w] holds exactly the bits of
+// the kept candidates of words < w (each kept row was OR-ed into every later
+// word, and OR does not depend on order), and the in-word loop applies the
+// kept rows r' < r of word w before deciding r.  So candidate i is kept iff
+// it is valid and no kept j < i of its class suppresses it: the greedy
+// solution, which the JAX fixed point converges to.  Padding is never valid,
+// hence never kept, hence never suppresses.
 //
 // Bound on this card: the inputs and the output are ~25 bytes a candidate
 // (200 KB at B 8, K 1000), so the least time is set by the IoU operations
-// (~15 f32 operations a same-class pair) and, in practice, by the scan's
-// sequential dependency: each kept row's mask is read from L2 before the
-// next decision.  The design keeps the scan to one warp with no block-wide
-// barriers and reads a mask row only when its candidate is kept.
+// (~15 f32 operations a same-class pair), a few microseconds of the card at
+// most.  What the bound does not count is the greedy order's dependency
+// chain.  Walked a candidate at a time, with a device-memory round trip
+// for each kept candidate's mask row, that chain would cost some 0.3 us a
+// kept candidate; here it is 64 dependent steps a word (a shared-memory
+// read and a bit test each), with the next word's device memory traffic
+// behind it.
 //
 // IoU arithmetic is op for op ops/iou.py (max/min corners → clamped w, h →
 // product → (area_a + area_b) - inter → union > 0 ? inter / max(union, 1e-12)
 // : 0) with round-to-nearest intrinsics, so no FMA contraction can move a
 // decision at the threshold; the build also passes --fmad=false.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlock = 64;           // candidates per mask block / word
-constexpr int kMaxWordsPerLane = 4;  // mask words a lane keeps in registers
-constexpr int kMaxK = 32 * kMaxWordsPerLane * kBlock;  // 8192 candidates
+constexpr int kBlock = 64;       // candidates per mask block / word
+constexpr int kMaxWords = 128;   // words of the scan's shared bitsets
+constexpr int kMaxK = kMaxWords * kBlock;  // 8192 candidates
+constexpr int kMaskThreads = 4 * kBlock;  // four threads a row
+constexpr int kScanThreads = 256;
 
-__device__ __forceinline__ float area(float x1, float y1, float x2, float y2) {
-  return __fmul_rn(fmaxf(__fsub_rn(x2, x1), 0.0f), fmaxf(__fsub_rn(y2, y1), 0.0f));
+__device__ __forceinline__ float area(float4 b) {
+  return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.0f), fmaxf(__fsub_rn(b.w, b.y), 0.0f));
 }
 
-__device__ __forceinline__ float iou(float ax1, float ay1, float ax2, float ay2,
-                                     float bx1, float by1, float bx2, float by2) {
-  float iw = fmaxf(__fsub_rn(fminf(ax2, bx2), fmaxf(ax1, bx1)), 0.0f);
-  float ih = fmaxf(__fsub_rn(fminf(ay2, by2), fmaxf(ay1, by1)), 0.0f);
+// IoU of a against b, with their areas precomputed by area().
+__device__ __forceinline__ float iou(float4 a, float area_a, float4 b, float area_b) {
+  float iw = fmaxf(__fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x)), 0.0f);
+  float ih = fmaxf(__fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y)), 0.0f);
   float inter = __fmul_rn(iw, ih);
-  float uni = __fsub_rn(__fadd_rn(area(ax1, ay1, ax2, ay2), area(bx1, by1, bx2, by2)),
-                        inter);
-  return uni > 0.0f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.0f;
+  float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
+  // No overlap gives 0 without the divide (0 / union is 0 up to its sign,
+  // which no comparison sees): a zero dividend takes __fdiv_rn's slow path.
+  return inter > 0.0f && uni > 0.0f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.0f;
 }
 
-__global__ void nms_mask_kernel(const float* __restrict__ boxes,  // (B, K, 4)
-                                const int* __restrict__ cls,      // (B, K)
-                                int k, int words, float threshold,
-                                unsigned long long* __restrict__ mask) {  // (B, K, words)
+__device__ __forceinline__ float4 load_box(const float* p) {
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+__global__ void __launch_bounds__(kMaskThreads)
+nms_mask_kernel(const float* __restrict__ boxes,  // (B, K, 4)
+                const int* __restrict__ cls,      // (B, K)
+                int k, int words, float threshold,
+                unsigned long long* __restrict__ mask) {  // (B, K, words)
   const int row_block = blockIdx.x;
   const int col_block = blockIdx.y;
   const int b = blockIdx.z;
-  const int j = row_block * kBlock + threadIdx.x;
-  unsigned long long* out = mask + ((size_t)b * k + j) * words + col_block;
-  if (col_block < row_block) {  // every column precedes every row: no bits
-    if (j < k) *out = 0ull;
-    return;
-  }
-  __shared__ float col_box[kBlock][4];
+  if (col_block < row_block) return;  // every column precedes every row
+  __shared__ float4 col_box[kBlock];
+  __shared__ float col_area[kBlock];
   __shared__ int col_cls[kBlock];
   const int i0 = col_block * kBlock;
   const int n_cols = min(kBlock, k - i0);
-  if (threadIdx.x < n_cols) {
-    const float* src = boxes + ((size_t)b * k + i0 + threadIdx.x) * 4;
-    col_box[threadIdx.x][0] = src[0];
-    col_box[threadIdx.x][1] = src[1];
-    col_box[threadIdx.x][2] = src[2];
-    col_box[threadIdx.x][3] = src[3];
-    col_cls[threadIdx.x] = cls[(size_t)b * k + i0 + threadIdx.x];
+  if (threadIdx.x < kBlock) {
+    // Columns past K get an empty box; their bits are cleared below.
+    const int c = threadIdx.x;
+    const float4 box = c < n_cols ? load_box(boxes + ((size_t)b * k + i0 + c) * 4)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    col_box[c] = box;
+    col_area[c] = area(box);
+    col_cls[c] = c < n_cols ? cls[(size_t)b * k + i0 + c] : 0;
   }
   __syncthreads();
-  if (j >= k) return;
-  const float* rb = boxes + ((size_t)b * k + j) * 4;
-  const float x1 = rb[0], y1 = rb[1], x2 = rb[2], y2 = rb[3];
-  const int c_row = cls[(size_t)b * k + j];
+  // Four neighbouring lanes share row r, a quarter of the columns each.
+  const int r = threadIdx.x >> 2;
+  const int quarter = threadIdx.x & 3;
+  const int j = row_block * kBlock + r;
+  const float4 row = j < k ? load_box(boxes + ((size_t)b * k + j) * 4)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float row_area = area(row);
+  const int c_row = j < k ? cls[(size_t)b * k + j] : 0;
+  // The lane's 16 columns (every fourth, so that the four lanes read
+  // neighbouring shared words) unrolled and branch-free: their IoUs overlap.
   unsigned long long bits = 0ull;
-  for (int c = 0; c < n_cols; ++c) {
-    if (j < i0 + c) {
-      // Cross-class IoU is zeroed BEFORE the threshold, as in ops/nms.py.
-      float v = col_cls[c] == c_row
-                    ? iou(x1, y1, x2, y2, col_box[c][0], col_box[c][1],
-                          col_box[c][2], col_box[c][3])
-                    : 0.0f;
-      if (v > threshold) bits |= 1ull << c;
-    }
+#pragma unroll
+  for (int n = 0; n < kBlock / 4; ++n) {
+    const int c = 4 * n + quarter;
+    // Cross-class IoU is zeroed BEFORE the threshold, as in ops/nms.py.
+    const float v_iou = iou(row, row_area, col_box[c], col_area[c]);
+    const float v = col_cls[c] == c_row ? v_iou : 0.0f;
+    bits |= static_cast<unsigned long long>(v > threshold) << c;
   }
-  *out = bits;
+  bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+  bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+  if (n_cols < kBlock) bits &= (1ull << n_cols) - 1ull;  // columns past K
+  if (col_block == row_block) bits &= r == kBlock - 1 ? 0ull : ~0ull << (r + 1);  // i > j only
+  if (quarter == 0 && j < k) mask[((size_t)b * k + j) * words + col_block] = bits;
 }
 
-__global__ void nms_scan_kernel(const float* __restrict__ scores,  // (B, K)
-                                const unsigned long long* __restrict__ mask,
-                                int k, int words, float pad_score,
-                                bool* __restrict__ keep) {  // (B, K)
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x;  // one warp
-  const unsigned long long* rows = mask + (size_t)b * k * words;
-  // Validity (score above the padding level) as a bitset in shared memory,
-  // loaded coalesced up front so the sequential loop below never waits on
-  // a score read from device memory.
-  __shared__ unsigned int valid_bits[kMaxK / 32];
-  for (int base = 0; base < k; base += 32) {
-    const int i = base + lane;
-    const bool v = i < k && scores[(size_t)b * k + i] > pad_score;
-    const unsigned int ballot = __ballot_sync(0xffffffffu, v);
-    if (lane == 0) valid_bits[base / 32] = ballot;
+// Row block w of the mask (its words w onward) into shared memory, zeros
+// past K, by `threads` threads numbered from `t`, as asynchronous copies:
+// each thread waits for its own with __pipeline_wait_prior(0).
+__device__ __forceinline__ void stage_rows(const unsigned long long* __restrict__ rows,
+                                           unsigned long long* __restrict__ dst, int w, int k,
+                                           int words, int t, int threads) {
+  const int span = words - w;
+  for (int p = t; p < kBlock * span; p += threads) {
+    const int r = p / span;
+    const int ww = w + p % span;
+    const int row = w * kBlock + r;
+    if (row < k)
+      __pipeline_memcpy_async(dst + r * words + ww, rows + (size_t)row * words + ww,
+                              sizeof(unsigned long long));
+    else
+      dst[r * words + ww] = 0ull;
   }
-  __syncwarp();
-  unsigned long long removed[kMaxWordsPerLane];
-#pragma unroll
-  for (int t = 0; t < kMaxWordsPerLane; ++t) removed[t] = 0ull;
-  for (int i = 0; i < k; ++i) {
-    const int w = i / kBlock;
-    const int slot = w / 32;
-    unsigned long long word = 0ull;
-#pragma unroll
-    for (int t = 0; t < kMaxWordsPerLane; ++t)
-      if (t == slot) word = removed[t];
-    int kept = 0;
-    if (lane == w % 32) {
-      const bool valid = (valid_bits[i / 32] >> (i % 32)) & 1u;
-      kept = valid && !((word >> (i % kBlock)) & 1ull);
-      keep[(size_t)b * k + i] = kept;
+  __pipeline_commit();
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+nms_scan_kernel(const float* __restrict__ scores,  // (B, K)
+                const unsigned long long* __restrict__ mask,  // (B, K, words)
+                int k, int words, float pad_score,
+                bool* __restrict__ keep) {  // (B, K)
+  // Two row blocks of the mask, [2][kBlock][words]: the current word's
+  // rows and the next word's, staged while the current one resolves.
+  extern __shared__ unsigned long long staged[];
+  __shared__ unsigned long long removed[kMaxWords];
+  __shared__ unsigned long long valid[kMaxWords];
+  __shared__ unsigned long long kept_word;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const unsigned long long* rows = mask + (size_t)b * k * words;
+
+  // Validity (score above the padding level), a warp a word.
+  for (int w = tid >> 5; w < words; w += kScanThreads / 32) {
+    const int i = w * kBlock + lane;
+    const unsigned lo = __ballot_sync(0xffffffffu, i < k && scores[(size_t)b * k + i] > pad_score);
+    const unsigned hi =
+        __ballot_sync(0xffffffffu, i + 32 < k && scores[(size_t)b * k + i + 32] > pad_score);
+    if (lane == 0) {
+      valid[w] = (static_cast<unsigned long long>(hi) << 32) | lo;
+      removed[w] = 0ull;
     }
-    kept = __shfl_sync(0xffffffffu, kept, w % 32);
-    if (kept) {
-      const unsigned long long* row = rows + (size_t)i * words;
+  }
+  stage_rows(rows, staged, 0, k, words, tid, kScanThreads);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  for (int w = 0; w < words; ++w) {
+    const unsigned long long* cur = staged + (w & 1) * kBlock * words;
+    if (tid == 0) {
+      // The serial part: resolve word w from its staged diagonal, read
+      // into a local array first (reading it inside the chain measured
+      // twice as slow on the card).
+      unsigned long long diag[kBlock];
 #pragma unroll
-      for (int t = 0; t < kMaxWordsPerLane; ++t) {
-        const int ww = lane + 32 * t;
-        if (ww >= w && ww < words) removed[t] |= row[ww];
+      for (int r = 0; r < kBlock; ++r) diag[r] = cur[r * words + w];
+      unsigned long long live = valid[w] & ~removed[w];
+#pragma unroll
+      for (int r = 0; r < kBlock; ++r)
+        if ((live >> r) & 1ull) live &= ~diag[r];
+      kept_word = live;
+    } else if (tid >= 32 && w + 1 < words) {
+      // Meanwhile warps 1.. start copying the next row block into the other
+      // buffer, last read before the previous barrier.
+      stage_rows(rows, staged + ((w + 1) & 1) * kBlock * words, w + 1, k, words, tid - 32,
+                 kScanThreads - 32);
+    }
+    __syncthreads();
+    const unsigned long long kept = kept_word;
+    const int i0 = w * kBlock;
+    if (tid < kBlock && i0 + tid < k) keep[(size_t)b * k + i0 + tid] = (kept >> tid) & 1ull;
+    // (kept row r, later word ww) pairs: thread tid takes word
+    // w + 1 + tid % later (neighbouring threads read neighbouring words of
+    // a row) and the rows r = tid / later + n * groups.
+    const int later = words - 1 - w;
+    if (later > 0 && kept != 0ull) {
+      const int groups = kScanThreads / later;  // >= 2: words <= 128
+      const int first = tid / later;
+      if (first < groups) {
+        const int ww = w + 1 + tid % later;
+        unsigned long long acc = 0ull;
+        for (int r = first; r < kBlock; r += groups)
+          if ((kept >> r) & 1ull) acc |= cur[r * words + ww];
+        if (acc != 0ull) atomicOr(&removed[ww], acc);
       }
     }
+    __pipeline_wait_prior(0);  // the next row block has landed
+    __syncthreads();
   }
 }
 
@@ -152,17 +245,30 @@ extern "C" {
 
 int nms_max_k() { return kMaxK; }
 
-// Launches both kernels on `stream`; returns the launch error code (0 = ok).
-int nms_keep_mask_launch(const float* boxes, const float* scores, const int* cls,
-                         int batch, int k, float threshold, float pad_score,
-                         unsigned long long* mask, bool* keep, void* stream) {
+// The mask pass on `stream`: (B, K, words) uint64 suppression bits, upper
+// blocks only.  Returns the launch error code (0 = ok).
+int nms_mask_launch(const float* boxes, const int* cls, int batch, int k, float threshold,
+                    unsigned long long* mask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int words = (k + kBlock - 1) / kBlock;
   dim3 grid(words, words, batch);
-  nms_mask_kernel<<<grid, kBlock, 0, s>>>(boxes, cls, k, words, threshold, mask);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nms_scan_kernel<<<batch, 32, 0, s>>>(scores, mask, k, words, pad_score, keep);
+  nms_mask_kernel<<<grid, kMaskThreads, 0, s>>>(boxes, cls, k, words, threshold, mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scan on `stream`, after nms_mask_launch on the same stream: the (B, K)
+// keep flags.  Returns the launch error code (0 = ok).
+int nms_scan_launch(const float* scores, const unsigned long long* mask, int batch, int k,
+                    float pad_score, bool* keep, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int words = (k + kBlock - 1) / kBlock;
+  const size_t smem = 2 * sizeof(unsigned long long) * kBlock * words;  // 128 KB at K 8192
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  nms_scan_kernel<<<batch, kScanThreads, smem, s>>>(scores, mask, k, words, pad_score, keep);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,12 +10,16 @@ What bounds it on this card: the inputs and output are ~25 bytes a
 candidate (200 KB at B 8, K 1000) and the IoU work is ~15 f32 operations a
 same-class pair, a few microseconds of the card at most; what is left is
 the greedy order itself, one decision after another.  The design splits
-the work in two launches: a parallel pass writes every "j suppresses i"
-bit of the upper triangle as uint64 words, then one warp per image scans
-the candidates in score order, keeping the suppressed set in registers and
-reading a mask row only for a candidate it keeps.  The TPU kernel's
-blocked fixed point and identity-matmul transposes are not carried over:
-they exist for the TPU's (8, 128) tiles.
+the work in two launches (``nms_mask_launch``, ``nms_scan_launch``): a
+parallel pass writes every "j suppresses i" bit of the upper block
+triangle as uint64 words, then one block per image scans the candidates a
+64-candidate word at a time, with the suppressed set in shared memory.
+One thread resolves a word from its 64 diagonal words (the only serial
+part) while the other warps stage the next word's mask rows in shared
+memory; then the block ORs the kept rows' later words into the
+suppressed set with shared atomics.  No device memory read waits on the
+serial chain.  The TPU kernel's blocked fixed point and identity-matmul
+transposes are not carried over: they exist for the TPU's (8, 128) tiles.
 
 On a CPU tensor the wrapper runs the plain version (the ported
 ``greedy_keep``); on a CUDA tensor it launches the kernel or raises.  The
@@ -52,17 +56,28 @@ def reset_counts() -> None:
 def _library() -> ctypes.CDLL:
     """The kernel library (built on first use) with its C signatures."""
     lib = build.load("nms")
-    lib.nms_keep_mask_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    lib.nms_mask_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
-    lib.nms_keep_mask_launch.restype = ctypes.c_int
+    lib.nms_mask_launch.restype = ctypes.c_int
+    lib.nms_scan_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.nms_scan_launch.restype = ctypes.c_int
     lib.nms_max_k.argtypes = []
     lib.nms_max_k.restype = ctypes.c_int
     lib.nms_error_string.argtypes = [ctypes.c_int]
     lib.nms_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check(lib: ctypes.CDLL, which: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"NMS {which} kernel launch failed: {lib.nms_error_string(err).decode()}"
+        )
 
 
 def _check_inputs(
@@ -127,16 +142,14 @@ def nms_keep_mask(
     words = -(-k // _BLOCK)
     with torch.cuda.device(device):
         mask = torch.empty((b, k, words), dtype=torch.int64, device=device)
-        err = lib.nms_keep_mask_launch(
-            cand_boxes.data_ptr(), cand_scores.data_ptr(), class_idx.data_ptr(),
-            b, k, float(iou_threshold), _PAD_SCORE,
-            mask.data_ptr(), keep.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"NMS kernel launch failed: {lib.nms_error_string(err).decode()}"
-        )
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check(lib, "mask", lib.nms_mask_launch(
+            cand_boxes.data_ptr(), class_idx.data_ptr(), b, k, float(iou_threshold),
+            mask.data_ptr(), stream,
+        ))
+        _check(lib, "scan", lib.nms_scan_launch(
+            cand_scores.data_ptr(), mask.data_ptr(), b, k, _PAD_SCORE, keep.data_ptr(), stream,
+        ))
     kernel_launches += 1
     return keep
 

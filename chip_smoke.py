@@ -11,8 +11,11 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    prints each ``-Xptxas -v`` report;
 3. NMS kernel against plain: the NMS kernel and its plain PyTorch version
    on the same card tensors (B 8, K 1000: dup-heavy fields of three seeds,
-   tied scores, an all-padding image, and a K 300 case) must give EQUAL
-   keep masks; both are timed with CUDA events;
+   tied scores, an all-padding image; K 300; and aimed at the blocked
+   scan: K 65 and K 129 with a ragged last word, one box repeated K times,
+   K disjoint boxes, a suppression chain across words) must give EQUAL
+   keep masks; the kernel is timed on the device (a replayed CUDA graph),
+   its mask pass and scan apart, and the plain version with CUDA events;
 4. serving: a full-width ResNet-50 RetinaNet (FPN 256, heads 256 x 4, 80
    classes, bf16 activations, weights from a seeded generator) behind
    ``DetectEngine.from_state`` on both default buckets at batch 8 and a
@@ -30,7 +33,12 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
 6. matching kernel against plain: at B 16, A 201 600 (the (800, 1344)
    bucket; not a multiple of the kernel's anchor tile), G 100, on fields
    with ragged gt counts and padded rows, an image with no gt, duplicated
-   gts and tiny gts, all five outputs must be EQUAL; both are timed;
+   gts and tiny gts, and fields aimed at the kernel's culling (real rows
+   after padded ones, real gts that overlap no anchor or lie outside the
+   image, gt edges on tile box edges, G 1000 all real at B 2, an image
+   whose only gt overlaps only the last tile), all five outputs must be
+   EQUAL; on the first training batch it prints the share of (tile, gt)
+   rows the kernel walks and times the kernel and the plain version;
 7. focal kernels against plain: at B 16, A 201 600, K 80 with logits in
    [-12, 12] and some beyond +-20, the forward sums agree within rel 1e-5
    and repeat bit for bit, the backward with f64 autograd of the plain
@@ -51,7 +59,10 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    rel 1e-4.
 
 Then it prints one JSON line with each kernel's launches, error, times and
-bound, and as its last line ``{"ok": true, "device": {...}}``.
+bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
+``ms`` there is CUDA events around wrapper calls made back to back, as the
+plain version's ``plain_ms``; ``device_ms`` is the same call's device time
+from a replayed CUDA graph, without the host's time to launch it.
 """
 
 from __future__ import annotations
@@ -81,6 +92,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as matching_li
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as nms_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops.anchors import AnchorConfig
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import build
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import cases as cases_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import focal as focal_cuda
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import matching as matching_cuda
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import nms as nms_cuda
@@ -189,6 +201,62 @@ def time_ms(fn, reps: int, warmup: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time of one ``fn()``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so that the
+    host's time to launch them (ctypes, allocation) does not enter."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (calls * replays)
+
+
+def nms_pass_ms(cb: torch.Tensor, cs: torch.Tensor, ci: torch.Tensor) -> tuple[float, float]:
+    """Device ms of the NMS kernel's mask pass and of its scan, each through
+    its own C launch function on preallocated buffers."""
+    lib = nms_cuda._library()
+    b, k = cs.shape
+    mask = torch.empty((b, k, -(-k // nms_cuda._BLOCK)), dtype=torch.int64, device=cs.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=cs.device)
+
+    def mask_pass():
+        require(lib.nms_mask_launch(cb.data_ptr(), ci.data_ptr(), b, k, IOU_THRESHOLD, mask.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream) == 0, "NMS mask launch")
+
+    def scan():
+        require(lib.nms_scan_launch(cs.data_ptr(), mask.data_ptr(), b, k, nms_cuda._PAD_SCORE,
+                                    keep.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0,
+                "NMS scan launch")
+
+    mask_ms = device_ms(mask_pass)  # also leaves the mask that the scan reads
+    scan_ms = device_ms(scan)
+    require(torch.equal(keep, nms_cuda.nms_keep_mask_plain(cb, cs, ci, IOU_THRESHOLD)),
+            "the scan launched on its own differs from the plain version")
+    return mask_ms, scan_ms
+
+
+def nms_case(kind: str, device) -> tuple[torch.Tensor, ...]:
+    """Sorted candidates aimed at the NMS kernel's blocked scan."""
+    arrays = {
+        "one box repeated": lambda: cases_lib.one_box_repeated(8, 1000),
+        "disjoint boxes": lambda: cases_lib.disjoint_boxes(8, 1000),
+        "cross-word chain": cases_lib.suppression_chain,
+    }[kind]()
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
 def nms_bound_ms(cand_scores: torch.Tensor, class_idx: torch.Tensor) -> tuple[float, str]:
@@ -301,10 +369,11 @@ def main() -> int:
     phase(2, "build")
     t0 = time.perf_counter()
     sources = ("nms", "matching", "focal")
-    # watchdog: three nvcc builds started together and joined right here; a
-    # failed build raises through map(), and no thread outlives the phase.
+    # watchdog: the nvcc builds started together and joined right here; a
+    # failed build raises through result(), and no thread outlives the phase.
     with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(build.compile_library, sources))
+        for future in [pool.submit(build.compile_library, name) for name in sources]:
+            future.result()
     print(f"built ops/cuda/{{{','.join(sources)}}}.cu in {time.perf_counter() - t0:.1f} s")
     for name in sources:
         print(f"-- {name}.cu\n{build.build_logs.get(name, '(already built)')}")
@@ -317,23 +386,38 @@ def main() -> int:
         ("tied scores", dict(batch=8, k=1000, num_classes=8, seed=3, tied=True)),
         ("image 0 all padding", dict(batch=8, k=1000, num_classes=8, seed=4, pad_images=(0,))),
         ("K 300", dict(batch=8, k=300, num_classes=8, seed=5)),
+        # Aimed at the blocked scan: a ragged last word, one kept of K, all
+        # kept, and suppression across words.
+        ("K 65", dict(batch=8, k=65, num_classes=3, seed=6)),
+        ("K 129", dict(batch=8, k=129, num_classes=3, seed=7)),
+        ("one box repeated", None),
+        ("disjoint boxes", None),
+        ("cross-word chain", None),
     ]
     max_err = 0
     for name, kw in cases:
-        cb, cs, ci = random_candidates(device=device, **kw)
+        cb, cs, ci = random_candidates(device=device, **kw) if kw else nms_case(name, device)
         got = nms_cuda.nms_keep_mask(cb, cs, ci, IOU_THRESHOLD)
         want = nms_cuda.nms_keep_mask_plain(cb, cs, ci, IOU_THRESHOLD)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max().item())
         max_err = max(max_err, err)
         kernel_ms = time_ms(lambda: nms_cuda.nms_keep_mask(cb, cs, ci, IOU_THRESHOLD), 200, 10)
+        kernel_device_ms = device_ms(lambda: nms_cuda.nms_keep_mask(cb, cs, ci, IOU_THRESHOLD))
+        mask_ms, scan_ms = nms_pass_ms(cb, cs, ci)
         plain_ms = time_ms(lambda: nms_cuda.nms_keep_mask_plain(cb, cs, ci, IOU_THRESHOLD), 10, 2)
         print(f"{name}: B {cb.shape[0]} K {cb.shape[1]} kept {int(got.sum())} "
               f"of {int((cs > nms_cuda._PAD_SCORE).sum())} valid; mismatches "
-              f"{int((got != want).sum())}; kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms")
+              f"{int((got != want).sum())}; kernel {kernel_ms:.4f} ms a wrapper call back to back, "
+              f"{kernel_device_ms:.4f} ms on the device (mask pass {mask_ms:.4f}, scan "
+              f"{scan_ms:.4f}); plain {plain_ms:.3f} ms")
         require(torch.equal(got, want), f"kernel and plain keep masks differ ({name})")
         if "padding" in name:
             require(not got[0].any().item(), "an all-padding image kept a candidate")
+        if name == "one box repeated":
+            require(bool((got.sum(-1) == 1).all()), "a repeated box was kept more than once")
+        if name == "disjoint boxes":
+            require(bool(got.all()), "a disjoint box was suppressed")
 
     phase(4, "serving: ResNet-50 RetinaNet behind DetectionServer")
     cfg = RetinaNetConfig()  # ResNet-50, FPN 256, heads 256 x 4, 80 classes, bf16
@@ -409,15 +493,18 @@ def main() -> int:
 
     # The kernel's row of the result line: this batch's candidates.
     kernel_ms = time_ms(lambda: nms_cuda.nms_keep_mask(cb, cs, ci, IOU_THRESHOLD), 200, 10)
+    kernel_device_ms = device_ms(lambda: nms_cuda.nms_keep_mask(cb, cs, ci, IOU_THRESHOLD))
+    mask_ms, scan_ms = nms_pass_ms(cb, cs, ci)
     plain_ms = time_ms(lambda: nms_cuda.nms_keep_mask_plain(cb, cs, ci, IOU_THRESHOLD), 10, 2)
     keep_k = nms_cuda.nms_keep_mask(cb, cs, ci, IOU_THRESHOLD)
     keep_p = nms_cuda.nms_keep_mask_plain(cb, cs, ci, IOU_THRESHOLD)
     max_err = max(max_err, int((keep_k.int() - keep_p.int()).abs().max().item()))
     require(torch.equal(keep_k, keep_p), "kernel and plain differ on the served batch")
     bound_ms, bound_by = nms_bound_ms(cs, ci)
-    print(f"NMS at the served shapes (B {cs.shape[0]}, K {cs.shape[1]}): kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by}); {kind}, {smi}")
+    print(f"NMS at the served shapes (B {cs.shape[0]}, K {cs.shape[1]}, {int(keep_k.sum())} kept): "
+          f"kernel {kernel_ms:.4f} ms a wrapper call back to back, {kernel_device_ms:.4f} ms on the "
+          f"device (mask pass {mask_ms:.4f}, scan {scan_ms:.4f}); plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}); {kind}, {smi}")
 
     # Where a served batch's time goes: device forward and post-processing
     # (CUDA events), host resize and result conversion (host clock).
@@ -485,6 +572,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
+        "device_ms": kernel_device_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -515,17 +603,35 @@ def main() -> int:
     return 0
 
 
+def culling_field(edit: str, seed: int, anchors: torch.Tensor):
+    """B 16, G 100 at TRAIN_HW, 1-60 real gts an image, reshaped by the
+    culling edit ``edit`` of ``ops/cuda/cases.py`` against the kernel's
+    tiles."""
+    boxes, labels, mask = gt_scene(16, MAX_GT, seed, counts=(1, 60))
+    rng = np.random.default_rng(seed)
+    cases_lib.CULLING_EDITS[edit](boxes, mask, rng, anchors.cpu().numpy(), matching_cuda.kernel_tile())
+    return boxes, labels, mask
+
+
 def matching_phase(anchors: torch.Tensor, batch: pipeline_lib.Batch, device) -> dict:
     """Kernel and plain version on seeded fields and on the first training
-    batch's gts: all five outputs equal; times on the training batch."""
+    batch's gts: all five outputs equal; times and the culled share on the
+    training batch."""
     num_anchors = anchors.shape[0]
     fields = [
         ("ragged 1-100 gts, image 3 without gt, dups on 4-5, tiny on 6-7",
          gt_scene(16, MAX_GT, 0, counts=(1, 100), empty=(3,), dup=(4, 5), tiny=(6, 7))),
         ("ragged 0-40 gts, dups on 0-7", gt_scene(16, MAX_GT, 1, counts=(0, 40), dup=range(8))),
+        ("real rows after padded ones", culling_field("scatter", 2, anchors)),
+        ("real gts that overlap no anchor or lie outside the image",
+         culling_field("off anchors", 3, anchors)),
+        ("gt edges on tile box edges", culling_field("tile edges", 4, anchors)),
+        ("G 1000, every row real", gt_scene(2, 1000, 5, counts=(1000, 1000))),
+        ("image 0's only gt overlaps only the last, ragged tile", culling_field("last tile", 6, anchors)),
         ("first training batch", (batch.gt_boxes, batch.gt_labels, batch.gt_mask)),
     ]
     max_err = 0.0
+    tile = matching_cuda.kernel_tile()
     for name, arrays in fields:
         gts = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
         got = matching_cuda.assign_fused(anchors, *gts)
@@ -535,14 +641,30 @@ def matching_phase(anchors: torch.Tensor, batch: pipeline_lib.Batch, device) -> 
             require(g.dtype == w.dtype and g.shape == w.shape, f"matching output {g.dtype} {g.shape}")
             max_err = max(max_err, float((g.double() - w.double()).abs().max()))
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        walked = int(matching_cuda.tile_gt_lists(anchors, gts[0], gts[2], tile).sum())
         print(f"{name}: B {gts[0].shape[0]} A {num_anchors} G {gts[0].shape[1]}, "
-              f"{int(gts[2].sum())} real gts; outputs equal: {equal}")
+              f"{int(gts[2].sum())} real gts, {walked} (tile, gt) pairs walked; outputs equal: {equal}")
         require(equal, f"matching kernel and plain version differ ({name})")
+    # gts and want: the first training batch, the last field.
+    b, g = gts[0].shape[:2]
+    chunk = torch.arange(num_anchors, device=device) // 32  # a warp's chunk of anchors
+    chunk_lists = matching_cuda.tile_gt_lists(anchors, gts[0], gts[2], 32)[:, chunk]
+    for size in (tile, 1024):  # the kernel's tile and the first port's
+        lists = matching_cuda.tile_gt_lists(anchors, gts[0], gts[2], size)
+        rows, walked = lists.shape[1] * b * g, int(lists.sum())
+        ious = int((lists[:, torch.arange(num_anchors, device=device) // size] & chunk_lists).sum())
+        print(f"culling on the first training batch at {size}-anchor tiles: blocks walk {walked} of "
+              f"{rows} (tile, gt row) pairs ({walked / rows:.2%}; {lists.shape[1] * int(gts[2].sum())} "
+              f"are real gts), and {ious} (anchor, gt) IoUs in chunks the gt overlaps")
+    del chunk_lists
+
     kernel_ms = time_ms(lambda: matching_cuda.assign_fused(anchors, *gts), 50, 5)
+    kernel_device_ms = device_ms(lambda: matching_cuda.assign_fused(anchors, *gts))
     plain_ms = time_ms(lambda: matching_cuda.assign_fused_plain(anchors, *gts), 5, 1)
     bound_ms, bound_by = matching_bound_ms(num_anchors, gts[2])
-    print(f"matching at the training shapes: kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by})")
+    print(f"matching at the training shapes ({tile}-anchor tiles): kernel {kernel_ms:.4f} ms a wrapper "
+          f"call back to back, {kernel_device_ms:.4f} ms on the device; plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
     return {
         "name": "assign_fused",
         "route": "cuda",
@@ -551,6 +673,7 @@ def matching_phase(anchors: torch.Tensor, batch: pipeline_lib.Batch, device) -> 
         "launches": None,
         "max_abs_err": max_err,
         "ms": kernel_ms,
+        "device_ms": kernel_device_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -605,8 +728,14 @@ def focal_phase(anchors: torch.Tensor, batch: pipeline_lib.Batch, device) -> tup
           f"{err32 / scale:.3e}")
     require(err <= 1e-6 * scale, "focal backward differs from autograd of the plain version")
 
-    fwd_ms = time_ms(lambda: focal_cuda.focal_fwd(logits, labels, state, 0.25, 2.0), 50, 5)
-    bwd_ms = time_ms(lambda: focal_cuda.focal_bwd(logits, labels, state, weights, 0.25, 2.0), 50, 5)
+    def fwd():
+        return focal_cuda.focal_fwd(logits, labels, state, 0.25, 2.0)
+
+    def bwd():
+        return focal_cuda.focal_bwd(logits, labels, state, weights, 0.25, 2.0)
+
+    fwd_ms, bwd_ms = time_ms(fwd, 50, 5), time_ms(bwd, 50, 5)
+    fwd_device_ms, bwd_device_ms = device_ms(fwd, 5, 4), device_ms(bwd, 5, 4)
     with torch.no_grad():
         plain_fwd_ms = time_ms(lambda: focal_cuda.focal_sums_plain(logits, labels, state), 5, 1)
     plain_bwd_ms = time_ms(
@@ -614,12 +743,13 @@ def focal_phase(anchors: torch.Tensor, batch: pipeline_lib.Batch, device) -> tup
     )
     del plain_sums, x
     rows = []
-    for name, line, ms, pms, backward, e in (
-        ("focal_fwd", 143, fwd_ms, plain_fwd_ms, False, float((sums - plain).abs().max())),
-        ("focal_bwd", 183, bwd_ms, plain_bwd_ms, True, err),
+    for name, line, ms, dms, pms, backward, e in (
+        ("focal_fwd", 143, fwd_ms, fwd_device_ms, plain_fwd_ms, False, float((sums - plain).abs().max())),
+        ("focal_bwd", 183, bwd_ms, bwd_device_ms, plain_bwd_ms, True, err),
     ):
         bound_ms, bound_by = focal_bound_ms(logits, state, backward)
-        print(f"{name}: kernel {ms:.4f} ms, plain {pms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        print(f"{name}: kernel {ms:.4f} ms a wrapper call back to back, {dms:.4f} ms on the device; "
+              f"plain {pms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by})")
         rows.append({
             "name": name,
             "route": "cuda",
@@ -628,6 +758,7 @@ def focal_phase(anchors: torch.Tensor, batch: pipeline_lib.Batch, device) -> tup
             "launches": None,
             "max_abs_err": e,
             "ms": ms,
+            "device_ms": dms,
             "plain_ms": pms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,

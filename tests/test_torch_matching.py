@@ -17,9 +17,11 @@ labels and force-match routing; box targets agree within 1e-5 abs (the
 encode's divide and log may round an ulp apart).  Scenes hold ragged gt
 counts with padded rows, an all-padding image, duplicated gts (IoU ties
 and two gts forced onto one anchor) and tiny gts below the positive
-threshold.  Tests marked ``gpu`` hold the CUDA kernel against the plain
-version on a card; JAX is imported inside the tests that compare with it,
-so those run where only PyTorch is installed
+threshold.  ``test_tile_culling_is_exact`` checks, on the real anchors,
+the argument that lets the CUDA kernel skip the gts that miss a tile's or
+a warp's bounding box.  Tests marked ``gpu`` hold the CUDA kernel against
+the plain version on a card; JAX is imported inside the tests that compare
+with it, so those run where only PyTorch is installed
 (``python -m pytest -m gpu --noconftest tests/test_torch_matching.py``).
 """
 
@@ -28,25 +30,30 @@ import pytest
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch.ops import anchors as t_anchors
+from batchai_retinanet_horovod_coco_tpu_torch.ops.iou import pairwise_iou
 from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as t_matching
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import matching as matching_cuda
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda.cases import CULLING_EDITS
 
 HW = (96, 128)  # A = 2313: not a multiple of a 512 anchor tile
 
 
-def scene(batch, num_gt, seed, empty=(), dup=(), tiny=(), hw=HW, grid=True):
+def scene(batch, num_gt, seed, empty=(), dup=(), tiny=(), hw=HW, grid=True,
+          full=False, sizes=(4.0, 60.0), culling=(), tile=256):
     """Padded gts (boxes (B, G, 4) f32, labels (B, G) int32, mask (B, G)
-    bool) with 1..G real rows an image; ``dup`` images repeat their first
-    box (with other labels), ``tiny`` images get 2-4 pixel boxes, and
-    ``grid`` rounds the coordinates to 1/4 pixel."""
+    bool) with 1..G real rows an image (all G if ``full``); ``dup`` images
+    repeat their first box (with other labels), ``tiny`` images get 2-4
+    pixel boxes, ``grid`` rounds the coordinates to 1/4 pixel, and each
+    edit named in ``culling`` (``CULLING_EDITS``) then reshapes the scene
+    against the tiles of ``tile`` anchors (the kernel's on the card)."""
     rng = np.random.default_rng(seed)
     h, w = hw
     boxes = np.zeros((batch, num_gt, 4), np.float32)
     labels = rng.integers(0, 5, (batch, num_gt)).astype(np.int32)
     mask = np.zeros((batch, num_gt), bool)
     for b in range(batch):
-        n = 0 if b in empty else int(rng.integers(1, num_gt + 1))
-        size = (2.0, 4.0) if b in tiny else (4.0, 60.0)
+        n = 0 if b in empty else num_gt if full else int(rng.integers(1, num_gt + 1))
+        size = (2.0, 4.0) if b in tiny else sizes
         xy = rng.uniform(0, [w - 8, h - 8], (n, 2))
         wh = rng.uniform(*size, (n, 2))
         boxes[b, :n, :2] = xy
@@ -60,6 +67,8 @@ def scene(batch, num_gt, seed, empty=(), dup=(), tiny=(), hw=HW, grid=True):
         boxes[b, n:] = rng.uniform(0, 50, (num_gt - n, 4))
     if grid:
         boxes = np.round(boxes * 4) / 4
+    for kind in culling:
+        CULLING_EDITS[kind](boxes, mask, rng, anchors_np(hw, grid), tile)
     return boxes, labels, mask
 
 
@@ -69,7 +78,15 @@ SCENES = {  # one (B, G), so that JAX compiles each function once
     "duplicated gts": dict(batch=3, num_gt=6, seed=2, dup=(0, 1)),
     "tiny gts": dict(batch=3, num_gt=6, seed=3, tiny=(0, 1)),
 }
-CARD_SCENES = dict(SCENES, **{"G 1": dict(batch=2, num_gt=1, seed=4)})
+CARD_SCENES = dict(SCENES, **{
+    "G 1": dict(batch=2, num_gt=1, seed=4),
+    # Aimed at the kernel's culling of gt rows per anchor tile:
+    "real rows after padded ones": dict(batch=3, num_gt=6, seed=5, culling=("scatter",)),
+    "gts that overlap no anchor": dict(batch=3, num_gt=8, seed=6, culling=("off anchors",)),
+    "gt edges on tile box edges": dict(batch=3, num_gt=12, seed=7, culling=("tile edges",)),
+    "G 1000 all real": dict(batch=2, num_gt=1000, seed=8, full=True),
+    "only gt in the last tile": dict(batch=2, num_gt=6, seed=9, culling=("last tile",)),
+})
 
 
 def anchors_np(hw=HW, grid=True):
@@ -142,6 +159,58 @@ def ieee_iou(anchors, boxes, mask):
     union = (area(anchors)[None, :, None] + area(boxes)[:, None, :]) - inter
     iou = np.where(union > 0, inter / np.maximum(union, f32(1e-12)), f32(0))
     return np.where(mask[:, None, :], iou, f32(0)).astype(f32)
+
+
+TRAIN_HW = (800, 1344)  # the training bucket: A = 201 600, ragged at 1024 and 256
+CHUNK = 32  # anchors a warp of the kernel culls together: aligned runs of 32
+
+
+@pytest.mark.parametrize("tile", [1024, 256, CHUNK])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tile_culling_is_exact(seed, tile):
+    """The matching kernel's culling on the real anchors: a gt that fails
+    the strict overlap test with the bounding box of a tile (or of a chunk
+    of 32 anchors) gets an IoU of exactly 0 from every anchor in it, and the
+    kernel's walk (only the gts listed for the tile, only the pairs whose
+    chunk box the gt overlaps, per anchor a strict > from (0, g 0), per gt
+    only IoUs above 0 with (0, anchor 0) when there is none) gives the
+    plain version's first argmax and all five of its outputs.  Gt edges lie
+    on the boxes of tiles of ``tile`` anchors."""
+    boxes, labels, mask = scene(
+        1, 48, seed, hw=TRAIN_HW, grid=False, sizes=(8.0, 500.0), tile=tile,
+        culling=("off anchors", "tile edges", "scatter"),
+    )
+    anchors, gt_boxes, gt_labels, gt_mask = (
+        torch.from_numpy(x) for x in (anchors_np(TRAIN_HW, grid=False), boxes, labels, mask)
+    )
+    iou = pairwise_iou(anchors, gt_boxes)  # (1, A, G)
+    anchor = torch.arange(anchors.shape[0])
+    for size in {tile, CHUNK}:
+        overlap = matching_cuda.tile_gt_lists(anchors, gt_boxes, torch.ones_like(gt_mask), size)
+        culled = ~overlap[:, anchor // size]  # (1, A, G): the gt misses the anchor's tile box
+        assert culled.any() and overlap.any()
+        assert bool((iou[culled] == 0).all())
+
+    walked = (
+        matching_cuda.tile_gt_lists(anchors, gt_boxes, gt_mask, tile)[:, anchor // tile]
+        & matching_cuda.tile_gt_lists(anchors, gt_boxes, gt_mask, CHUNK)[:, anchor // CHUNK]
+    )
+    walked_iou = torch.where(walked, iou, 0.0)
+    best = walked_iou.amax(-1)  # from 0
+    best_g = ((walked_iou == best[..., None]) & (best[..., None] > 0)).int().argmax(-1)
+    col = torch.where(walked & (iou > 0), iou, 0.0)
+    gt_best = col.amax(-2)
+    gt_anchor = ((col == gt_best[:, None]) & (gt_best[:, None] > 0)).int().argmax(-2)
+    assert bool((gt_mask & (gt_best == 0)).any())  # real gts that reach no anchor
+
+    want = matching_cuda.assign_fused_plain(anchors, gt_boxes, gt_labels, gt_mask)
+    first = torch.where(gt_mask[:, None], iou, 0.0).max(-1).indices
+    assert torch.equal(best_g, first)
+    assert torch.equal(torch.gather(gt_boxes, 1, best_g[..., None].expand(-1, -1, 4)), want[0])
+    assert torch.equal(torch.gather(gt_labels, 1, best_g), want[1])
+    assert torch.equal(best, want[2])
+    assert torch.equal(gt_best, want[3])
+    assert torch.equal(gt_anchor.int(), want[4])
 
 
 def assert_targets_equal(got, want):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as t_nms
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import cases
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import nms as nms_cuda
 
 NEG_INF = t_nms._NEG_INF
@@ -70,6 +71,10 @@ def pallas_keep(cb, cs, ci, block_k=128):
     return np.asarray(keep)
 
 
+def as_torch(arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
 def port_keep(cb, cs, ci):
     before = nms_cuda.plain_calls
     keep = nms_cuda.nms_keep_mask(cb, cs, ci, 0.5)
@@ -98,26 +103,35 @@ def test_cross_block_suppression_chain():
     the kernel's 64-wide mask words and the Pallas kernel's 128-wide
     blocks), while a suppressed box suppresses nothing."""
     block = 128
-    k = 3 * block
-    rng = np.random.default_rng(7)
-    xy = rng.uniform(0, 1000, (k, 2)).astype(np.float32)
-    wh = rng.uniform(500, 600, (k, 2)).astype(np.float32)
-    boxes = np.concatenate([xy, xy + wh], axis=-1)
-    base = np.array([10.0, 10.0, 100.0, 100.0], np.float32)
-    shifted = base + np.array([20.0, 0.0, 20.0, 0.0], np.float32)  # IoU ≈ 0.64
-    boxes[0] = base
-    boxes[1] = shifted
-    boxes[block + 1] = base
-    boxes[2 * block + 2] = base
-    boxes[2 * block + 5] = shifted
-    scores = np.linspace(1.0, 0.5, k).astype(np.float32)
-    cls = np.zeros((k,), np.int32)
-    cb, cs, ci = (torch.from_numpy(a[None].copy()) for a in (boxes, scores, cls))
+    cb, cs, ci = as_torch(cases.suppression_chain(block))
     got = port_keep(cb, cs, ci)
     np.testing.assert_array_equal(got, pallas_keep(cb, cs, ci, block))
     keep = got[0]
     assert keep[0] and not keep[1]
     assert not keep[block + 1] and not keep[2 * block + 2] and not keep[2 * block + 5]
+
+
+# Cases aimed at the kernel's blocked scan (64-candidate words), as
+# builders of sorted (boxes, scores, class ids) on the CPU, with the kept
+# count an image where it is known.
+SCAN_CASES = {
+    "one box repeated": (lambda: as_torch(cases.one_box_repeated(2, 1000)), 1),
+    "disjoint boxes": (lambda: as_torch(cases.disjoint_boxes(2, 1000)), 1000),
+    "K 65": (lambda: candidates(2, 65, 3, seed=65), None),
+    "K 129": (lambda: candidates(2, 129, 3, seed=129), None),
+    "cross-word chain": (lambda: as_torch(cases.suppression_chain()), None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_CASES))
+def test_scan_cases_bit_identical_to_pallas(name):
+    build, kept = SCAN_CASES[name]
+    cb, cs, ci = build()
+    got = port_keep(cb, cs, ci)
+    np.testing.assert_array_equal(got, pallas_keep(cb, cs, ci))
+    if kept is not None:
+        assert (got.sum(-1) == kept).all()
+    assert got.any() and (kept is not None or not got.all())
 
 
 def test_same_class_masking():
@@ -188,14 +202,20 @@ def _cuda_or_skip():
     return torch.device("cuda")
 
 
+CARD_CASES = {
+    "B 8 K 1000": lambda: candidates(8, 1000, 8, seed=0),
+    "B 8 K 1000 tied": lambda: candidates(8, 1000, 8, seed=1, tied=True),
+    "B 3 K 300": lambda: candidates(3, 300, 8, seed=2),
+    "B 2 K 8192": lambda: candidates(2, 8192, 8, seed=3),
+    **{name: build for name, (build, _) in SCAN_CASES.items()},
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "batch,k,seed,tied",
-    [(8, 1000, 0, False), (8, 1000, 1, True), (3, 300, 2, False), (2, 8192, 3, False)],
-)
-def test_kernel_equals_plain_on_card(batch, k, seed, tied):
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+def test_kernel_equals_plain_on_card(name):
     dev = _cuda_or_skip()
-    cb, cs, ci = (t.to(dev) for t in candidates(batch, k, 8, seed=seed, tied=tied))
+    cb, cs, ci = (t.to(dev) for t in CARD_CASES[name]())
     before = nms_cuda.kernel_launches
     got = nms_cuda.nms_keep_mask(cb, cs, ci, 0.5)
     torch.cuda.synchronize()
