@@ -5,7 +5,8 @@ template, and the stop-gated queue handoff — the same geometry the JAX
 package's eval pipeline and serve router share, so a served image lands in
 the same bucket at the same size.  For training, ``Batch``,
 ``PipelineStats`` and :func:`assemble`, which pads a list of examples into
-one batch: images to the bucket, gt lists to ``max_gt`` rows with a mask.
+one batch: images to the bucket, gt lists to ``max_gt`` rows with a mask;
+for eval, :func:`pad_batch`, which fills a short batch with padding rows.
 File decoding and the dataset readers are not ported yet.  The bilinear
 resize runs in torch on the
 host (``F.interpolate``, no antialias, rounded back to uint8) in place of
@@ -219,4 +220,23 @@ def assemble(
         image_ids=np.asarray(image_ids, dtype=np.int64),
         scales=scales,
         valid=np.ones((b,), dtype=bool),
+    )
+
+
+def pad_batch(batch: Batch, batch_size: int) -> Batch:
+    """Pad a short eval batch to ``batch_size`` rows of zeros with
+    ``valid=False`` (the JAX package's ``_pad_batch``)."""
+    pad = batch_size - batch.images.shape[0]
+
+    def pad0(x: np.ndarray) -> np.ndarray:
+        return np.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
+
+    return Batch(
+        images=pad0(batch.images),
+        gt_boxes=pad0(batch.gt_boxes),
+        gt_labels=pad0(batch.gt_labels),
+        gt_mask=pad0(batch.gt_mask),
+        image_ids=pad0(batch.image_ids),
+        scales=pad0(batch.scales),
+        valid=np.concatenate([batch.valid, np.zeros(pad, dtype=bool)]),
     )

@@ -1,27 +1,59 @@
-"""Detection: normalize → forward → sigmoid → decode → clip → batched NMS.
+"""Detection: normalize → forward → sigmoid → decode → clip → batched NMS,
+and the dataset-level eval driver.
 
-The JAX package's ``evaluate/detect.py::_detect_body`` and
-``detections_to_coco``.  The NMS suppression stage is
+The JAX package's ``evaluate/detect.py``.  The NMS suppression stage is
 ``ops.cuda.nms.batched_multiclass_nms_cuda``: the hand-written CUDA kernel
 on a card, the plain ``greedy_keep`` on the CPU — decided by the device the
 tensors are on, never by a fallback.  The schedule registry of the JAX
 package (``tune/``) is not ported: the knobs are the fixed defaults below.
+
+``run_coco_eval`` streams eval batches, detects per shape bucket (one
+detect function each), rescales boxes to the original images and scores
+them with the numpy mAP oracle (``evaluate/coco_eval.py``).  Pipelined (the
+default), it runs three stages, and gives the same results in the same
+order as the sequential path (``pipelined=False``):
+
+1. **device prefetch**: a thread pins each batch's images and starts their
+   copy to the card on a side stream, ``EVAL_PREFETCH_DEPTH`` batches
+   ahead (``data/prefetch.py``);
+2. **one-behind fetch**: batch N is dispatched before batch N-1's
+   detections are fetched.  An event is recorded after each batch's
+   detect; N-1's detections are copied into pinned host memory on a copy
+   stream that waits on N-1's event, and only that copy is waited for, so
+   the fetch overlaps N's forward (a plain ``.cpu()`` on the compute
+   stream would wait for N's forward too);
+3. **a consumer thread** converts to COCO result dicts and scores each
+   image as its batch arrives (``StreamingCocoEval``), behind a bounded
+   queue, FIFO, with the error contract of the prefetch thread.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import queue
+import threading
+from collections.abc import Callable, Iterable, Sequence
 
 import numpy as np
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch.data import pipeline as pipeline_lib
+from batchai_retinanet_horovod_coco_tpu_torch.data.coco import CocoDataset
+from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import Batch
+from batchai_retinanet_horovod_coco_tpu_torch.data.prefetch import prefetch_map
+from batchai_retinanet_horovod_coco_tpu_torch.evaluate.coco_eval import (
+    StreamingCocoEval,
+    evaluate_detections,
+)
+from batchai_retinanet_horovod_coco_tpu_torch.evaluate.voc_eval import evaluate_detections_voc
 from batchai_retinanet_horovod_coco_tpu_torch.ops import anchors as anchors_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import boxes as boxes_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as nms_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import nms as nms_cuda
-from batchai_retinanet_horovod_coco_tpu_torch.utils.device import resolve_device
+from batchai_retinanet_horovod_coco_tpu_torch.utils.device import resolve_device, stage, take
+
+# Eval batches staged on the card ahead of the detect in flight (pipelined).
+EVAL_PREFETCH_DEPTH = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,11 +105,9 @@ def to_device_images(images, device: torch.device) -> torch.Tensor:
     pinned so the copy to a card does not block the host."""
     if isinstance(images, np.ndarray):
         images = torch.from_numpy(np.ascontiguousarray(images))
-    if images.device == device:
-        return images
-    if device.type == "cuda":
+    if images.device.type == "cpu" and device.type == "cuda":
         return images.pin_memory().to(device, non_blocking=True)
-    return images.to(device)
+    return images.to(device)  # a no-op for a tensor already there
 
 
 def make_detect_fn(
@@ -151,3 +181,237 @@ def detections_to_coco(
                 }
             )
     return results
+
+
+def coco_gt_from_dataset(dataset: CocoDataset) -> tuple[list[dict], list[int]]:
+    """Ground-truth annotation dicts and the image ids of a ``CocoDataset``;
+    crowd annotations come through with ``iscrowd=1`` and each keeps its
+    area, so the oracle's ignore and area-range rules match pycocotools'."""
+    gts: list[dict] = []
+    ann_id = 1
+    for rec in dataset.records:
+        for boxes, labels, areas, iscrowd in (
+            (rec.boxes, rec.labels, rec.areas, 0),
+            (rec.crowd_boxes, rec.crowd_labels, rec.crowd_areas, 1),
+        ):
+            for box, label, area in zip(boxes, labels, areas):
+                x1, y1, x2, y2 = (float(v) for v in box)
+                gts.append({
+                    "id": ann_id,
+                    "image_id": rec.image_id,
+                    "category_id": dataset.label_to_cat_id[int(label)],
+                    "bbox": [x1, y1, x2 - x1, y2 - y1],
+                    "area": float(area),
+                    "iscrowd": iscrowd,
+                })
+                ann_id += 1
+    return gts, [rec.image_id for rec in dataset.records]
+
+
+class _EvalConsumer:
+    """Stage 3: fetched Detections → COCO result dicts (and the optional
+    per-batch scoring hook) in one thread behind a bounded queue.
+
+    A crash in the thread re-raises in the driver at its next ``put()`` or
+    ``finish()``; ``close()`` stops the thread promptly and may be called
+    twice; batches are taken FIFO by one thread, so ``results`` is ordered
+    as the sequential path orders it.
+    """
+
+    _DONE = object()
+
+    def __init__(
+        self,
+        label_to_cat_id: dict[int, int],
+        image_sizes: dict[int, tuple[int, int]] | None,
+        on_batch: Callable[[list[dict], Sequence[int]], None] | None = None,
+        maxsize: int = 4,
+    ):
+        self._label_to_cat_id = label_to_cat_id
+        self._image_sizes = image_sizes
+        self._on_batch = on_batch
+        self._queue: queue.Queue = queue.Queue(maxsize=max(1, maxsize))
+        self._stop = threading.Event()
+        self._error: BaseException | None = None
+        self.results: list[dict] = []
+        self._thread = threading.Thread(target=self._run, daemon=True, name="eval-consumer")
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            while not self._stop.is_set():
+                try:
+                    item = self._queue.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+                if item is self._DONE:
+                    return
+                det, image_ids, scales, valid = item
+                batch_results = detections_to_coco(
+                    det, image_ids, scales, valid, self._label_to_cat_id,
+                    image_sizes=self._image_sizes,
+                )
+                self.results.extend(batch_results)
+                if self._on_batch is not None:
+                    self._on_batch(batch_results, [int(i) for i, v in zip(image_ids, valid) if v])
+        except BaseException as exc:  # re-raised in the driver
+            self._error = exc
+            self._stop.set()  # unblocks a driver waiting on a full queue
+
+    def _raise_pending(self) -> None:
+        if self._error is not None:
+            raise RuntimeError("eval consumer thread failed") from self._error
+
+    def put(self, det, image_ids, scales, valid) -> None:
+        """Hand one fetched batch to the thread; raises its pending error."""
+        self._raise_pending()
+        if not pipeline_lib.stop_gated_put(self._queue, (det, image_ids, scales, valid), self._stop):
+            self._raise_pending()
+            raise RuntimeError("eval consumer stopped")
+
+    def finish(self) -> list[dict]:
+        """Drain, join and surface the thread's error → the ordered results."""
+        pipeline_lib.stop_gated_put(self._queue, self._DONE, self._stop)
+        self._thread.join()
+        self._raise_pending()
+        return self.results
+
+    def close(self) -> None:
+        """Stop without draining (the driver is unwinding on its own error)."""
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+class _Fetcher:
+    """Stage 2's fetch: Detections to numpy.  On a card the copy runs on its
+    own stream into pinned host memory, after the event recorded behind the
+    batch's detect, and only that copy is waited for."""
+
+    def __init__(self, device: torch.device):
+        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def fetch(self, det: nms_lib.Detections, done: torch.cuda.Event | None) -> nms_lib.Detections:
+        if self._stream is None:
+            return nms_lib.Detections(*(f.numpy() for f in det))
+        self._stream.wait_event(done)
+        with torch.cuda.stream(self._stream):
+            host = [torch.empty(f.shape, dtype=f.dtype, pin_memory=True) for f in det]
+            for h, f in zip(host, det):
+                h.copy_(f, non_blocking=True)
+                f.record_stream(self._stream)
+            copied = torch.cuda.Event()
+            copied.record(self._stream)
+        copied.synchronize()
+        return nms_lib.Detections(*(h.numpy() for h in host))
+
+
+def collect_detections(
+    model: torch.nn.Module,
+    dataset: CocoDataset,
+    batches: Iterable[Batch],
+    config: DetectConfig = DetectConfig(),
+    device: str | torch.device = "cuda",
+    *,
+    pipelined: bool = True,
+    detect_fns: dict[tuple[int, int], Callable] | None = None,
+    on_batch: Callable[[list[dict], Sequence[int]], None] | None = None,
+) -> list[dict]:
+    """Detect over an eval batch stream → COCO result dicts, in batch order.
+
+    One detect function of ``model`` is built per shape bucket; pass
+    ``detect_fns`` to share them between calls on the same model.
+    ``pipelined`` selects the three-stage driver (module docstring),
+    ``False`` the sequential one; both give identical results in identical
+    order.  Padding rows (``valid=False``) add nothing.  ``on_batch``, if
+    given, sees each batch's results and the image ids it completed (in the
+    consumer thread when pipelined).
+    """
+    device = resolve_device(device)
+    if detect_fns is None:
+        detect_fns = {}
+    image_sizes = {rec.image_id: (rec.width, rec.height) for rec in dataset.records}
+
+    def fn_for(hw: tuple[int, int]) -> Callable:
+        fn = detect_fns.get(hw)
+        if fn is None:
+            fn = detect_fns[hw] = make_detect_fn(model, hw, config, device)
+        return fn
+
+    if not pipelined:
+        results: list[dict] = []
+        for batch in batches:
+            det = fn_for(tuple(batch.images.shape[1:3]))(batch.images)
+            det = nms_lib.Detections(*(f.cpu().numpy() for f in det))
+            batch_results = detections_to_coco(
+                det, batch.image_ids, batch.scales, batch.valid, dataset.label_to_cat_id,
+                image_sizes=image_sizes,
+            )
+            results.extend(batch_results)
+            if on_batch is not None:
+                on_batch(batch_results, [int(i) for i, v in zip(batch.image_ids, batch.valid) if v])
+        return results
+
+    h2d_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    fetcher = _Fetcher(device)
+    consumer = _EvalConsumer(dataset.label_to_cat_id, image_sizes, on_batch=on_batch)
+    staged = prefetch_map(
+        batches,
+        lambda b: (tuple(b.images.shape[1:3]), stage({"images": b.images}, device, h2d_stream),
+                   (b.image_ids, b.scales, b.valid)),
+        depth=EVAL_PREFETCH_DEPTH,
+        thread_name="eval-device-prefetch",
+    )
+    pending: tuple | None = None
+    try:
+        for hw, images, meta in staged:
+            det = fn_for(hw)(take(images)["images"])
+            done = None
+            if device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+            if pending is not None:
+                consumer.put(fetcher.fetch(*pending[:2]), *pending[2])
+            pending = (det, done, meta)
+        if pending is not None:
+            consumer.put(fetcher.fetch(*pending[:2]), *pending[2])
+            pending = None
+        return consumer.finish()
+    finally:
+        staged.close()
+        consumer.close()
+
+
+def run_coco_eval(
+    model: torch.nn.Module,
+    dataset: CocoDataset,
+    batches: Iterable[Batch],
+    config: DetectConfig = DetectConfig(),
+    device: str | torch.device = "cuda",
+    *,
+    voc_metrics: bool = False,
+    pipelined: bool = True,
+    detect_fns: dict[tuple[int, int], Callable] | None = None,
+) -> dict[str, float]:
+    """A full eval pass: detect everything, then COCO mAP's 12 stats
+    (``AP``, ``AP50``, ...) from the numpy oracle.
+
+    Pipelined, the consumer thread scores each image as its batch arrives
+    (``StreamingCocoEval``); the metrics equal the one-shot scoring's.
+    ``voc_metrics`` adds PASCAL-VOC AP@0.5 (``voc_*`` keys) from the same
+    detections.
+    One process: the JAX package's cross-process gather of detections is
+    the identity here.
+    """
+    gt, img_ids = coco_gt_from_dataset(dataset)
+    scorer = None
+    if pipelined:
+        scorer = StreamingCocoEval(gt, img_ids, cat_ids=list(dataset.label_to_cat_id.values()))
+    dt = collect_detections(
+        model, dataset, batches, config, device,
+        pipelined=pipelined, detect_fns=detect_fns,
+        on_batch=scorer.add if scorer is not None else None,
+    )
+    metrics = scorer.finish() if scorer is not None else evaluate_detections(gt, dt, img_ids=img_ids)
+    if voc_metrics:
+        metrics.update(evaluate_detections_voc(gt, dt))
+    return metrics

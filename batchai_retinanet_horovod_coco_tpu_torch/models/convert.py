@@ -1,4 +1,4 @@
-"""Carry a flax RetinaNet's variables into the port's ``RetinaNet``.
+"""Carry a flax RetinaNet's variables into the port's ``RetinaNet``, and back.
 
 Input: the JAX package's nested trees as numpy arrays — ``params`` and
 ``batch_stats`` as ``jax.device_get(model_variables(state))`` gives them
@@ -16,6 +16,10 @@ The conv transpose is the inverse of the JAX package's
 and every torch parameter and buffer is set exactly once: a leaf with no
 torch counterpart, a torch tensor with no leaf, or a shape that differs
 raises.
+
+:func:`flax_from_state_dict` is the exact inverse (a torch ``weight`` of
+four dimensions is a conv ``kernel``, of one a norm ``scale``), which the
+checkpoint format shared with the JAX package is written through.
 """
 
 from __future__ import annotations
@@ -52,6 +56,19 @@ def torch_name(collection: str, path: tuple[str, ...]) -> str:
     return ".".join((*path[:-1], leaf))
 
 
+def flax_path(name: str, ndim: int) -> tuple[str, tuple[str, ...]]:
+    """``(collection, path)`` of the port's state-dict entry ``name`` of
+    ``ndim`` dimensions: the inverse of :func:`torch_name`."""
+    *scope, leaf = name.split(".")
+    for (collection, flax_leaf), torch_leaf in _LEAF_NAMES.items():
+        if torch_leaf != leaf:
+            continue
+        if leaf == "weight" and (flax_leaf == "kernel") != (ndim == 4):
+            continue
+        return collection, (*scope, flax_leaf)
+    raise ValueError(f"no flax counterpart for {name} ({ndim} dimensions)")
+
+
 def _convert_leaf(path: tuple[str, ...], value) -> np.ndarray:
     array = np.array(value, dtype=np.float32)  # a writable copy
     if path[-1] == "kernel":
@@ -73,6 +90,27 @@ def variables_from_flax(
                 raise ValueError(f"two flax leaves map to {name}")
             state[name] = torch.from_numpy(_convert_leaf(path, value))
     return state
+
+
+def flax_from_state_dict(
+    state: Mapping[str, torch.Tensor],
+) -> tuple[dict[str, Any], dict[str, Any]]:
+    """A torch state dict → flax ``params`` and ``batch_stats`` trees of
+    numpy f32 arrays (conv kernels OIHW → HWIO); the exact inverse of
+    :func:`variables_from_flax`."""
+    trees: dict[str, dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for name, tensor in state.items():
+        array = tensor.detach().to("cpu", torch.float32, copy=True).numpy()
+        collection, path = flax_path(name, array.ndim)
+        if path[-1] == "kernel":
+            array = np.ascontiguousarray(array.transpose(2, 3, 1, 0))  # OIHW → HWIO
+        node = trees[collection]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if path[-1] in node:
+            raise ValueError(f"two torch tensors map to {collection}/{'/'.join(path)}")
+        node[path[-1]] = array
+    return trees["params"], trees["batch_stats"]
 
 
 def load_flax_variables(

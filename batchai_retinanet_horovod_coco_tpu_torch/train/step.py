@@ -117,7 +117,7 @@ def make_train_step(
             mark("backward")
         grads = [p.grad for p in params if p.grad is not None]
         metrics["grad_norm"] = optim.global_norm(grads)
-        state.apply_gradients(metrics["grad_norm"])
+        state.apply_gradients(metrics["grad_norm"], metrics["loss"].detach())
         with torch.no_grad():
             metrics["param_norm"] = optim.global_norm(params)
         if mark is not None:

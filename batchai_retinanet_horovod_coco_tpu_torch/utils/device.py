@@ -1,10 +1,14 @@
-"""Device resolution for the port's entry points: CUDA by default, never a
-silent fallback to the CPU."""
+"""Device resolution for the port's entry points (CUDA by default, never a
+silent fallback to the CPU), and the staged host-to-device copy that the
+training loop's and the eval driver's prefetch threads share."""
 
 from __future__ import annotations
 
 import functools
+from collections.abc import Mapping
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -31,3 +35,40 @@ def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.T
     autograd may save it later (training)."""
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype, device=device)
+
+
+class Staged(NamedTuple):
+    """Tensors whose copy to the device was started on a side stream;
+    ``ready`` is recorded after the copy (None on the CPU)."""
+
+    tensors: dict[str, torch.Tensor]
+    ready: torch.cuda.Event | None
+
+
+def stage(arrays: Mapping[str, np.ndarray], device: torch.device,
+          stream: torch.cuda.Stream | None) -> Staged:
+    """Start copying host ``arrays`` to ``device`` without waiting: on a
+    card each is pinned (a copy from pageable memory would be synchronous)
+    and copied on ``stream``.  Meant for a prefetch thread; the consumer
+    calls :func:`take`."""
+    host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
+    if device.type != "cuda":
+        return Staged({k: v.to(device) for k, v in host.items()}, None)
+    with torch.cuda.stream(stream):
+        tensors = {k: v.pin_memory().to(device, non_blocking=True) for k, v in host.items()}
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return Staged(tensors, ready)
+
+
+def take(staged: Staged) -> dict[str, torch.Tensor]:
+    """The staged tensors, for use on the current stream: it waits for the
+    copy, and each tensor is recorded as used there, so that the caching
+    allocator does not hand its memory out again while that stream may
+    still read it."""
+    if staged.ready is not None:
+        current = torch.cuda.current_stream()
+        current.wait_event(staged.ready)
+        for t in staged.tensors.values():
+            t.record_stream(current)
+    return staged.tensors

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in nine
+Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in ten
 phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
@@ -56,7 +56,34 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    tests (resnet_test, 64 x 64, 3 classes, FPN and heads 16 x 1, sgd 1e-2
    with momentum 0.9) in f32 with TF32 off takes 5 steps on the card and
    on the CPU: the loss falls every step and the trajectories agree within
-   rel 1e-4.
+   rel 1e-4;
+10. a training run with checkpoints, eval and resume: the full-width model
+   with ``OptimizerConfig()`` runs ``train/loop.py`` for 6 steps of phase
+   8's batches with a checkpoint and an asynchronous COCO eval every 3
+   steps (12 seeded validation images of 600-800 x 900-1344 pixels, 0-40
+   boxes each, some crowd, and 5 detections of the initial model each so
+   that the stats are not all 0, read through ``data/coco.py``, batched
+   at 8 so the second batch has padding rows), device prefetch 2, 2 checkpoints
+   kept, and a profiler trace of step 5.  The counters are zeroed just
+   before and read just after: each training kernel launched once a step,
+   NMS once for each eval batch, the plain versions never.  The async eval
+   of step 3 gives the same 12 COCO stats, within 1e-6, and the same
+   weights as a synchronous ``run_coco_eval`` of ``ckpt-3`` restored into
+   a model built from other weights, whose every leaf equals the saved one
+   bit for bit; ``collect_detections`` pipelined and sequential give
+   identical results on the final state; a state built from other weights
+   and resumed from ``ckpt-3`` takes steps 4-6 with the uninterrupted
+   run's losses within rel 1e-4; only ``ckpt-3`` and ``ckpt-6`` remain.
+   It prints the checkpoint's size, save time (host snapshot and write
+   apart) and restore time, eval seconds and a detect batch's device ms,
+   ``data_wait_ms``, peak memory, step ms (to a sync of the training
+   stream) with an async eval in flight against without one, the async
+   eval's wall time against the same steps and a synchronous eval, the
+   training stream's kernel time a step in profiled steps with and
+   without an eval in flight (the card's share of the slowdown, the rest
+   the host's), and the 10 CUDA kernels that took the most device time in
+   the loop's profiled step (which overlaps step 3's eval) and in steps
+   with no eval in flight.
 
 Then it prints one JSON line with each kernel's launches, error, times and
 bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
@@ -68,8 +95,12 @@ from a replayed CUDA graph, without the host's time to launch it.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -79,6 +110,7 @@ import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch import losses as losses_lib
 from batchai_retinanet_horovod_coco_tpu_torch.data import pipeline as pipeline_lib
+from batchai_retinanet_horovod_coco_tpu_torch.data.coco import CocoDataset
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
     default_buckets,
     normalize_images,
@@ -104,6 +136,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.serve.batcher import assemble_requ
 from batchai_retinanet_horovod_coco_tpu_torch.serve.common import ServeRequest
 from batchai_retinanet_horovod_coco_tpu_torch.serve.engine import DetectEngine
 from batchai_retinanet_horovod_coco_tpu_torch.serve.frontend import DetectionServer
+from batchai_retinanet_horovod_coco_tpu_torch.utils.checkpoint import CheckpointManager
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
     bucket_for_source,
     resize_for_bucket,
@@ -133,6 +166,11 @@ GOLDEN_MODEL = dict(num_classes=3, backbone="resnet_test", fpn_channels=16,
 # optax.sgd(1e-2, momentum=0.9): no decay, no warmup, a clip that never engages.
 GOLDEN_OPT = dict(base_lr=0.01, global_batch_size=256, warmup_steps=0,
                   schedule="constant", weight_decay=0.0, clip_global_norm=1e9)
+VAL_IMAGES = 12
+VAL_FOUND = 5  # detections of the initial model added to each image's gts
+EVAL_BATCH = 8
+COCO_STATS = ("AP", "AP50", "AP75", "APsmall", "APmedium", "APlarge",
+              "AR1", "AR10", "AR100", "ARsmall", "ARmedium", "ARlarge")
 SERVE_SIZES = [  # (h, w) of the served images: both orientations, some as-is
     (480, 640), (640, 480), (800, 1200), (1200, 800), (375, 500), (500, 375),
     (600, 900), (900, 600), (427, 640), (640, 427), (768, 1024), (1024, 768),
@@ -588,11 +626,14 @@ def main() -> int:
     phase(7, "focal kernels against their plain versions")
     fwd_row, bwd_row = focal_phase(anchors, batches[0], device)
     phase(8, "training: ResNet-50 RetinaNet, train/loop.py")
-    launches_by_kernel = training_phase(anchors, batches, device, kind, smi)
-    for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
-        row["launches"] = launches_by_kernel[key]
+    launches_by_kernel, batch_size = training_phase(anchors, batches, device, kind, smi)
     phase(9, "training reference: the card against the CPU in f32")
     golden_phase(device)
+    phase(10, "a training run with checkpoints, eval and resume")
+    run_launches = run_phase([cut_batch(b, batch_size) for b in batches], device, kind, smi)
+    for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
+        row["launches"] = launches_by_kernel[key] + run_launches[key]
+    nms_row["launches"] = launches + run_launches["nms"]
     end_phases()
 
     print(smi)
@@ -782,13 +823,17 @@ def plain_step_loss(model, arrays: dict, anchors: torch.Tensor) -> float:
     return float(cls + box)
 
 
-def training_phase(anchors, batches, device, kind: str, smi: str) -> dict[str, int]:
+def cut_batch(batch: pipeline_lib.Batch, batch_size: int) -> pipeline_lib.Batch:
+    return batch._replace(**{f: getattr(batch, f)[:batch_size] for f in batch._fields})
+
+
+def training_phase(anchors, batches, device, kind: str, smi: str) -> tuple[dict[str, int], int]:
     """6 steps of train/loop.py at full width; returns each training
-    kernel's launches in that run."""
+    kernel's launches in that run, and the global batch that fitted."""
     for batch_size in (16, 8):
-        cut = [b._replace(**{f: getattr(b, f)[:batch_size] for f in b._fields}) for b in batches]
+        cut = [cut_batch(b, batch_size) for b in batches]
         try:
-            return train_full_width(anchors, cut, device, kind, smi)
+            return train_full_width(anchors, cut, device, kind, smi), batch_size
         except torch.cuda.OutOfMemoryError:
             print(f"global batch {batch_size} does not fit in the card's memory")
         torch.cuda.empty_cache()  # outside the handler: its frames are gone
@@ -895,6 +940,346 @@ def golden_phase(device) -> None:
           f"{[f'{v:.7f}' for v in cpu]}: max rel err {rel:.3e} (limit 1e-04)")
     require(bool(np.all(np.diff(gpu) < 0)), "the loss does not fall every step on the card")
     require(rel <= 1e-4, "the card's trajectory differs from the CPU's")
+
+
+def validation_set(root: str, model: torch.nn.Module, dconfig, device) -> tuple[CocoDataset, list[pipeline_lib.Batch]]:
+    """VAL_IMAGES seeded uint8 images of 600-800 by 900-1344 pixels with
+    0-40 boxes each (about a tenth crowd) of 80 categories: the COCO
+    annotations are written to ``root`` and read back by the port's
+    ``CocoDataset``; the images are resized into TRAIN_HW and batched at
+    EVAL_BATCH, the last batch padded with ``valid=False`` rows.
+
+    Random weights find none of those boxes, and every COCO stat would be
+    0 whatever the weights: so each image also gets, as ground truth, its
+    VAL_FOUND highest-scored detections of ``model`` (jittered by up to
+    10%), and the stats depend on the weights."""
+    rng = np.random.default_rng(2000)
+    images, annotations, pixels = [], [], {}
+    for img_id in range(1, VAL_IMAGES + 1):
+        h, w = int(rng.integers(600, 801)), int(rng.integers(900, 1345))
+        images.append({"id": img_id, "file_name": f"{img_id:012d}.jpg", "width": w, "height": h})
+        pixels[img_id] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        for _ in range(int(rng.integers(0, 41))):
+            bw, bh = rng.uniform(8, w / 2), rng.uniform(8, h / 2)
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            annotations.append({"id": len(annotations) + 1, "image_id": img_id,
+                                "category_id": int(rng.integers(1, 81)), "bbox": [x, y, bw, bh],
+                                "area": bw * bh, "iscrowd": int(rng.random() < 0.1)})
+    blob = {"images": images, "annotations": annotations,
+            "categories": [{"id": c, "name": f"class{c}"} for c in range(1, 81)]}
+    path = os.path.join(root, "instances_val.json")
+
+    def write() -> CocoDataset:
+        with open(path, "w") as f:
+            json.dump(blob, f)
+        return CocoDataset(path, keep_empty=True)
+
+    dataset = write()
+    examples = []
+    for rec in dataset.records:
+        image, scale = resize_for_bucket(pixels[rec.image_id], TRAIN_HW, 800, 1333)
+        examples.append((rec.image_id, (image, rec.boxes * scale, rec.labels, scale)))
+    batches = []
+    for i in range(0, len(examples), EVAL_BATCH):
+        chunk = examples[i:i + EVAL_BATCH]
+        batch = pipeline_lib.assemble([e for _, e in chunk], [k for k, _ in chunk], TRAIN_HW, MAX_GT)
+        batches.append(pipeline_lib.pad_batch(batch, EVAL_BATCH))
+    found: dict[int, list[dict]] = {}
+    for d in detect_lib.collect_detections(model, dataset, batches, dconfig, device):
+        found.setdefault(d["image_id"], []).append(d)
+    for dets in found.values():
+        for d in sorted(dets, key=lambda d: -d["score"])[:VAL_FOUND]:
+            x, y, w, h = (float(v) for v in np.asarray(d["bbox"]) * rng.uniform(0.9, 1.1, 4))
+            annotations.append({"id": len(annotations) + 1, "image_id": d["image_id"],
+                                "category_id": d["category_id"], "bbox": [x, y, w, h],
+                                "area": w * h, "iscrowd": 0})
+    return write(), batches
+
+
+def weights_digest(model: torch.nn.Module) -> float:
+    """The sum of every parameter and buffer in f64: equal weights give an
+    equal digest (the reduction's order is fixed)."""
+    with torch.no_grad():
+        return float(sum(t.double().sum() for t in model.state_dict().values()))
+
+
+def saved_leaves(ckpt_dir: str) -> list[tuple[str, np.ndarray]]:
+    with open(os.path.join(ckpt_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    return [(e["path"], np.load(os.path.join(ckpt_dir, e["file"]))) for e in manifest["leaves"]]
+
+
+def run_phase(batches, device, kind: str, smi: str) -> dict[str, int]:
+    """Phase 10 at the global batch of ``batches`` (8 if that does not
+    fit); returns each kernel's launches in the run."""
+    for batch_size in sorted({batches[0].images.shape[0], 8}, reverse=True):
+        root = tempfile.mkdtemp(prefix="chip_smoke_run_")
+        try:
+            return train_eval_resume([cut_batch(b, batch_size) for b in batches], root, device, kind, smi)
+        except torch.cuda.OutOfMemoryError:
+            print(f"global batch {batch_size} does not fit in the card's memory with an eval")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    raise SystemExit("chip_smoke: FAILED: the training run fits at neither batch 16 nor 8")
+
+
+def train_eval_resume(batches, root: str, device, kind: str, smi: str) -> dict[str, int]:
+    steps, every = len(batches), 3
+    dconfig = detect_lib.DetectConfig(score_threshold=0.001)
+    t0 = time.perf_counter()
+    state = state_lib.create_train_state(
+        build_retinanet(RetinaNetConfig(), device=device, seed=0), optim_lib.OptimizerConfig(), device
+    )
+    print(f"model built in {time.perf_counter() - t0:.1f} s; global batch {batches[0].images.shape[0]}")
+    dataset, val_batches = validation_set(root, state.model, dconfig, device)
+    eval_spans: list[tuple[float, float]] = []
+
+    def eval_fn(model: torch.nn.Module) -> dict[str, float]:
+        t0 = time.perf_counter()
+        metrics = detect_lib.run_coco_eval(model, dataset, val_batches, dconfig, device)
+        metrics["weights_digest"] = weights_digest(model)
+        eval_spans.append((t0, time.perf_counter()))
+        return metrics
+
+    ckpt_dir, prof_dir = os.path.join(root, "ckpt"), os.path.join(root, "profile")
+    config = loop_lib.LoopConfig(
+        total_steps=steps, log_every=1, checkpoint_every=every, eval_every=every, async_eval=True,
+        device_prefetch=2, max_to_keep=2, checkpoint_dir=ckpt_dir, profile_dir=prof_dir,
+        profile_start_step=5, profile_steps=1,
+    )
+    gts = sum(len(r.boxes) + len(r.crowd_boxes) for r in dataset.records)
+    print(f"validation set: {len(dataset)} images, {gts} gt boxes ({VAL_FOUND} an image from the "
+          f"initial model's detections), batches of {[int(b.valid.sum()) for b in val_batches]} real "
+          f"rows in {EVAL_BATCH}")
+
+    logged: list[tuple[int, dict]] = []
+    matching_cuda.reset_counts()
+    focal_cuda.reset_counts()
+    nms_cuda.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop_lib.run_training(state, iter(batches), 80, config, log=lambda step, sc: logged.append((step, sc)),
+                          eval_fn=eval_fn)
+    wall = time.perf_counter() - t0
+    launches = {"matching": matching_cuda.kernel_launches, "focal_fwd": focal_cuda.fwd_launches,
+                "focal_bwd": focal_cuda.bwd_launches, "nms": nms_cuda.kernel_launches}
+    plain = {"matching": matching_cuda.plain_calls, "focal": focal_cuda.plain_calls,
+             "nms": nms_cuda.plain_calls}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    train_logs = {step: sc for step, sc in logged if "loss" in sc}
+    eval_logs = {step: sc for step, sc in logged if "eval/AP" in sc}
+    eval_batches = len(eval_logs) * len(val_batches)
+    print(f"{steps} steps with evals at {sorted(eval_logs)} in {wall:.2f} s; kernel launches {launches} "
+          f"({eval_batches} eval batches dispatched), plain calls {plain}")
+    for step, sc in sorted(train_logs.items()):
+        print(f"step {step}: loss {sc['loss']:.6f}, {sc['step_time_ms']:.1f} ms, data wait "
+              f"{sc['data_wait_ms']:.3f} ms, lr {sc['lr']:.3e}")
+    for step, sc in sorted(eval_logs.items()):
+        print(f"eval at step {step}: " + ", ".join(f"{k} {sc['eval/' + k]:.6f}" for k in COCO_STATS))
+    require(sorted(train_logs) == list(range(1, steps + 1)) and sorted(eval_logs) == [every, steps],
+            f"logged steps {sorted(train_logs)}, evals {sorted(eval_logs)}")
+    require(all(launches[k] == steps for k in ("matching", "focal_fwd", "focal_bwd")),
+            f"launches {launches} for {steps} steps")
+    require(launches["nms"] == eval_batches, f"{launches['nms']} NMS launches for {eval_batches} eval batches")
+    require(all(n == 0 for n in plain.values()), f"the plain versions ran on the card: {plain}")
+    require(sorted(os.listdir(ckpt_dir)) == [f"ckpt-{every}", f"ckpt-{steps}"],
+            f"checkpoints {sorted(os.listdir(ckpt_dir))} with max_to_keep 2")
+    waits = [train_logs[s]["data_wait_ms"] for s in range(2, steps + 1)]
+    print(f"data_wait_ms over steps 2-{steps}: median {float(np.median(waits)):.3f}, max {max(waits):.3f}; "
+          f"peak memory {peak_gb:.2f} GiB; {kind}, {smi}")
+
+    # The async eval of step 3 against a synchronous eval of ckpt-3 restored
+    # into a model built from other weights.
+    fresh = state_lib.create_train_state(
+        build_retinanet(RetinaNetConfig(), device=device, seed=1), optim_lib.OptimizerConfig(), device
+    )
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt_dir).restore(fresh, step=every)
+    restore_s = time.perf_counter() - t0
+    saved = saved_leaves(os.path.join(ckpt_dir, f"ckpt-{every}"))
+    got = state_lib.snapshot(fresh)
+    require([p for p, _ in got] == [p for p, _ in saved], "restored leaves differ in their paths")
+    unequal = [p for (p, a), (_, b) in zip(got, saved) if a.dtype != b.dtype or not np.array_equal(a, b)]
+    require(not unequal, f"restored leaves differ from the saved ones: {unequal[:3]}")
+    t0 = time.perf_counter()
+    sync = eval_fn(fresh.model)
+    eval_s = time.perf_counter() - t0
+    async_metrics = eval_logs[every]
+    gap = max(abs(sync[k] - async_metrics["eval/" + k]) for k in COCO_STATS)
+    print(f"ckpt-{every} restored in {restore_s:.3f} s, all {len(saved)} leaves equal to the saved ones "
+          f"bit for bit; synchronous eval of it in {eval_s:.2f} s: max stat gap to the async eval "
+          f"{gap:.3e} (limit 1e-06), weights digest {sync['weights_digest']!r} against "
+          f"{async_metrics['eval/weights_digest']!r}")
+    require(gap <= 1e-6, "the async eval differs from a synchronous eval of its checkpoint")
+    require(async_metrics["eval/AP"] > 0, "every COCO stat is 0: the eval compares nothing")
+    require(sync["weights_digest"] == async_metrics["eval/weights_digest"],
+            "the async eval saw other weights than its step's checkpoint")
+    del fresh
+
+    # Resume from ckpt-3 on a state built from other weights.
+    resume_dir = os.path.join(root, "resume")
+    shutil.copytree(os.path.join(ckpt_dir, f"ckpt-{every}"), os.path.join(resume_dir, f"ckpt-{every}"))
+    resumed = state_lib.create_train_state(
+        build_retinanet(RetinaNetConfig(), device=device, seed=1), optim_lib.OptimizerConfig(), device
+    )
+    resumed_logs: dict[int, dict] = {}
+    loop_lib.run_training(
+        resumed, iter(batches[every:]), 80,
+        loop_lib.LoopConfig(total_steps=steps, log_every=1, checkpoint_every=every, checkpoint_dir=resume_dir),
+        log=lambda step, sc: resumed_logs.setdefault(step, sc),
+    )
+    rel = max(abs(resumed_logs[s]["loss"] - train_logs[s]["loss"]) / abs(train_logs[s]["loss"])
+              for s in range(every + 1, steps + 1))
+    print(f"resumed from ckpt-{every}: losses {[round(resumed_logs[s]['loss'], 6) for s in sorted(resumed_logs)]} "
+          f"against {[round(train_logs[s]['loss'], 6) for s in range(every + 1, steps + 1)]}: max rel err "
+          f"{rel:.3e} (limit 1e-04)")
+    require(sorted(resumed_logs) == list(range(every + 1, steps + 1)) and rel <= 1e-4,
+            "the resumed run's losses differ from the uninterrupted run's")
+    del resumed
+
+    # Pipelined and sequential eval drivers on the final state.
+    t0 = time.perf_counter()
+    pipelined = detect_lib.collect_detections(state.model, dataset, val_batches, dconfig, device)
+    t1 = time.perf_counter()
+    sequential = detect_lib.collect_detections(state.model, dataset, val_batches, dconfig, device,
+                                               pipelined=False)
+    t2 = time.perf_counter()
+    print(f"collect_detections: {len(pipelined)} results pipelined in {t1 - t0:.3f} s, sequential in "
+          f"{t2 - t1:.3f} s; identical: {pipelined == sequential}")
+    require(pipelined == sequential, "pipelined and sequential eval drivers differ")
+    require(all(d["image_id"] >= 1 for d in pipelined), "a padding row produced a detection")
+
+    # Where the time goes: the checkpoint, a detect batch, the eval.
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, f"ckpt-{steps}", n))
+                     for n in os.listdir(os.path.join(ckpt_dir, f"ckpt-{steps}")))
+    manager = CheckpointManager(os.path.join(root, "timing"))
+    t0 = time.perf_counter()
+    manager.save(state, step=state.step)
+    t1 = time.perf_counter()
+    manager.close()
+    t2 = time.perf_counter()
+    detect = detect_lib.make_detect_fn(state.model, TRAIN_HW, dconfig, device)
+    images = detect_lib.to_device_images(val_batches[0].images, device)
+    detect_ms = time_ms(lambda: detect(images), 10, 2)
+    async_s = eval_spans[0][1] - eval_spans[0][0]
+    print(f"checkpoint: {ckpt_bytes} bytes in {len(saved)} leaves; save: host snapshot {t1 - t0:.3f} s, "
+          f"write {t2 - t1:.3f} s; restore {restore_s:.3f} s; eval: async at step {every} "
+          f"{async_s:.2f} s, synchronous {eval_s:.2f} s for {len(val_batches)} batches; detect batch of "
+          f"{EVAL_BATCH} {detect_ms:.3f} ms on the device; {kind}, {smi}")
+
+    # A step's time with an async eval in flight against without one, each
+    # step timed to a sync of the training stream alone (the eval runs on
+    # its own stream), and the async eval against a synchronous one.
+    step_fn = step_lib.make_train_step(state.model, TRAIN_HW, 80, device=device)
+    arrays = [loop_lib.device_batch(b, device) for b in batches[:3]]
+
+    def one_step(i: int) -> float:
+        t = time.perf_counter()
+        step_fn(state, arrays[i % len(arrays)])
+        torch.cuda.current_stream(device).synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    done = threading.Event()
+    runner = loop_lib._AsyncEvalRunner(lambda m: (eval_fn(m), done.set())[0], lambda *_: None, device)
+
+    def async_eval(during_eval) -> float:
+        """Launch an async eval, call ``during_eval()`` until it ends;
+        returns the seconds from the launch to the eval's join."""
+        done.clear()
+        t0 = time.perf_counter()
+        runner.launch(state.model, state.step)
+        while not done.is_set():
+            during_eval()
+        runner.join()
+        return time.perf_counter() - t0
+
+    async_eval(lambda: time.sleep(0.01))  # the runner makes its snapshot model at its first launch
+    t0 = time.perf_counter()
+    eval_fn(state.model)
+    sync_eval_s = time.perf_counter() - t0
+    alone = [one_step(i) for i in range(5)]
+    during: list[float] = []
+    async_wall = async_eval(lambda: during.append(one_step(len(during))))
+    alone_ms, during_ms = float(np.mean(alone)), float(np.mean(during))
+    sync_wall = len(during) * alone_ms / 1e3 + sync_eval_s
+    print(f"step ms (host clock to a sync of the training stream): {alone_ms:.3f} without an eval in "
+          f"flight ({len(alone)} steps), {during_ms:.3f} with one ({len(during)} steps); {kind}, {smi}")
+    print(f"async eval: {len(during)} steps and the eval in {async_wall:.3f} s (the eval "
+          f"{eval_spans[-1][1] - eval_spans[-1][0]:.3f} s); the same steps alone and a synchronous eval "
+          f"({sync_eval_s:.3f} s): {sync_wall:.3f} s; async_eval is {'faster' if async_wall < sync_wall else 'slower'} by "
+          f"{abs(sync_wall - async_wall):.3f} s at this eval size; {kind}, {smi}")
+    require(len(during) > 0, "no step ran while the async eval was in flight")
+
+    # The same, profiled: 3 steps without an eval in flight, and every step
+    # of one async eval.  The card's share of the slowdown is the growth of
+    # the training stream's kernel time a step; the rest is the host's.
+    alone_steps: list[float] = []
+    during_steps: list[float] = []
+    steps_ms = {"no eval in flight": alone_steps, "an eval in flight": during_steps}
+    splits = {
+        "no eval in flight": profiled(lambda: alone_steps.extend(one_step(i) for i in range(3)),
+                                      os.path.join(root, "alone.json")),
+        "an eval in flight": profiled(lambda: async_eval(lambda: during_steps.append(one_step(len(during_steps)))),
+                                      os.path.join(root, "during.json")),
+    }
+    for label, sp in splits.items():
+        n = sp["n"] = len(steps_ms[label])
+        sp["step_ms"] = float(np.mean(steps_ms[label]))
+        print(f"profiled, {label}: {n} steps of {sp['step_ms']:.3f} ms on the host clock; training stream "
+              f"{sp['train_ms'] / n:.3f} ms of kernels a step ({sp['train_ms'] / n / sp['step_ms']:.1%} busy), "
+              f"other streams {sp['other_ms']:.3f} ms of kernels in all; {kind}, {smi}")
+    a, d = splits["no eval in flight"], splits["an eval in flight"]
+    require(d["other_ms"] > 0, "no eval kernel ran during the profiled steps")
+    extra, card = d["step_ms"] - a["step_ms"], d["train_ms"] / d["n"] - a["train_ms"] / a["n"]
+    print(f"eval in flight: a step takes {extra:.3f} ms more, of which the training stream's kernels "
+          f"{card:.3f} ms (the card) and the rest {extra - card:.3f} ms (the host)")
+
+    loop_split = dict(stream_split(os.path.join(prof_dir, "trace-steps-5-5.json")), n=1)
+    print(f"train/loop.py's profiled step 5 ran with step {every}'s eval in flight: "
+          f"{loop_split['other_ms']:.3f} ms of kernels on other streams during it")
+    top_kernels(loop_split, "the loop's profiled step 5", kind, smi)
+    top_kernels(a, "a step with no eval in flight (mean of 3)", kind, smi)
+    return launches
+
+
+def profiled(run, path: str) -> dict:
+    """``run()`` under ``torch.profiler`` (CPU and CUDA), its trace written
+    to ``path``; returns ``stream_split`` of it."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        run()
+    prof.export_chrome_trace(path)
+    return stream_split(path)
+
+
+def stream_split(path: str) -> dict:
+    """Kernel device time in a trace: on the training stream (the stream
+    of the focal kernels) by name, and on every other stream in all."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    streams = {e.get("args", {}).get("stream") for e in kernels if "focal" in e.get("name", "")}
+    require(len(streams) == 1, f"{path}: focal kernels on streams {streams}, not on one training stream")
+    by_name: dict[str, float] = {}
+    other_ms = 0.0
+    for e in kernels:
+        if e.get("args", {}).get("stream") in streams:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+        else:
+            other_ms += e["dur"] / 1e3
+    return {"by_name": by_name, "train_ms": sum(by_name.values()), "other_ms": other_ms}
+
+
+def top_kernels(split: dict, label: str, kind: str, smi: str) -> None:
+    """The 10 CUDA kernels with the most device time on the training
+    stream, a step."""
+    n = split["n"]
+    total = split["train_ms"] / n
+    print(f"{label}: {total:.3f} ms of device time a step on the training stream; the 10 kernels that "
+          f"took the most ({kind}, {smi}):")
+    for name, ms in sorted(split["by_name"].items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms / n:9.3f} ms {ms / n / total:6.1%}  {name[:150]}")
 
 
 if __name__ == "__main__":

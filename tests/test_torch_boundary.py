@@ -54,7 +54,9 @@ def test_sources_import_nothing_forbidden():
     )
     scanned = {str(path.relative_to(PACKAGE_DIR)) for path in SOURCES[:-1]}
     assert {"losses.py", "ops/matching.py", "ops/cuda/matching.py", "ops/cuda/focal.py",
-            "train/optim.py", "train/state.py", "train/step.py", "train/loop.py"} <= scanned
+            "train/optim.py", "train/state.py", "train/step.py", "train/loop.py",
+            "utils/checkpoint.py", "utils/atomicio.py", "data/coco.py", "data/prefetch.py",
+            "evaluate/coco_eval.py", "evaluate/voc_eval.py"} <= scanned
 
 
 def test_serving_and_training_modules_load_without_jax():
@@ -64,6 +66,7 @@ def test_serving_and_training_modules_load_without_jax():
         "import batchai_retinanet_horovod_coco_tpu_torch.evaluate.detect\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.models.convert\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.train.loop\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.utils.checkpoint\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.ops.cuda.matching\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.ops.cuda.focal\n"
         f"roots = {FORBIDDEN!r}\n"

@@ -19,7 +19,12 @@ optax's, and its updates, with weight decay, momentum, clipping and a
 frozen backbone, against the JAX chain's.
 """
 
+import copy
 import dataclasses
+import functools
+import os
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +41,7 @@ from batchai_retinanet_horovod_coco_tpu.train import optim as j_optim
 from batchai_retinanet_horovod_coco_tpu.train import state as j_state
 from batchai_retinanet_horovod_coco_tpu.train import step as j_step
 from batchai_retinanet_horovod_coco_tpu_torch.data import pipeline as t_pipeline
+from batchai_retinanet_horovod_coco_tpu_torch.data.prefetch import prefetch_map
 from batchai_retinanet_horovod_coco_tpu_torch.models import resnet as t_resnet
 from batchai_retinanet_horovod_coco_tpu_torch.models import retinanet as t_retinanet
 from batchai_retinanet_horovod_coco_tpu_torch.models.convert import (
@@ -237,8 +243,50 @@ def test_schedule_equals_optax(name):
 
 
 def test_plateau_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_optim.make_schedule(t_optim.OptimizerConfig(schedule="plateau"))
+    """The plateau schedule's base LR is optax's (a flat peak after the
+    warmup); its decay is the optimizer's ``Plateau`` scale
+    (test_plateau_equals_optax)."""
+    cfg = dict(schedule="plateau", warmup_steps=50, total_steps=900)
+    want = j_optim.make_schedule(j_optim.OptimizerConfig(**cfg))
+    got = t_optim.make_schedule(t_optim.OptimizerConfig(**cfg))
+    for s in (0, 1, 49, 50, 51, 899, 900):
+        np.testing.assert_allclose(got(s), float(want(s)), rtol=1e-5, err_msg=f"step {s}")
+
+
+def plateau_losses(n=200, seed=0):
+    """A loss that falls, then plateaus, then falls again, with noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    trend = np.where(t < 60, 3.0 - 0.02 * t, np.where(t < 140, 1.8, 1.8 - 0.01 * (t - 140)))
+    return (trend + rng.normal(0, 0.05, n)).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "window,patience,min_delta",
+    [(1, 3, 1e-4), (5, 2, 1e-2), (10, 1, 0.0)],
+    ids=["window-1", "window-5", "min-delta-0"],
+)
+def test_plateau_equals_optax(window, patience, min_delta):
+    """The port's controller and ``optax.contrib.reduce_on_plateau`` as the
+    JAX chain configures it, fed the same 200 losses: identical scales."""
+    cfg = dict(schedule="plateau", plateau_factor=0.5, plateau_patience=patience,
+               plateau_window=window, plateau_min_delta=min_delta)
+    tx = optax.contrib.reduce_on_plateau(
+        factor=0.5, patience=patience, rtol=0.0, atol=max(min_delta, 1e-12), accumulation_size=window
+    )
+    params = {"w": jnp.zeros(3)}
+    opt_state = tx.init(params)
+    update = jax.jit(lambda state, value: tx.update(params, state, params, value=value)[1])
+    plateau = t_optim.Plateau(t_optim.OptimizerConfig(**cfg), torch.device("cpu"))
+    want, got = [], []
+    for loss in plateau_losses():
+        opt_state = update(opt_state, jnp.float32(loss))
+        want.append(float(opt_state.scale))
+        got.append(float(plateau.update(torch.tensor(loss))))
+    assert got == want
+    assert len(set(got)) > 2  # the scale did fall, more than once
+    for field in t_optim.Plateau.FIELDS:
+        np.testing.assert_array_equal(plateau.state[field].numpy(), np.asarray(getattr(opt_state, field)))
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 3.0, 1e9])
@@ -263,12 +311,15 @@ def test_clip_equals_jax(max_norm):
         dict(weight_decay=1e-2, clip_global_norm=1.0, warmup_steps=2),
         dict(weight_decay=1e-2, clip_global_norm=1.0, freeze_backbone=True),
         dict(optimizer="adam", base_lr=1e-3, warmup_steps=2, clip_global_norm=2.0),
+        dict(weight_decay=1e-2, clip_global_norm=1.0, schedule="plateau", plateau_window=1,
+             plateau_patience=1, plateau_factor=0.5),
     ],
-    ids=["sgd", "sgd-frozen-backbone", "adam"],
+    ids=["sgd", "sgd-frozen-backbone", "adam", "sgd-plateau"],
 )
 def test_updates_equal_the_jax_chain(opt):
-    """Four updates of a small tree with random gradients: the port's
-    optimizer and the JAX chain give the same parameters."""
+    """Four updates of a small tree with random gradients and a rising loss
+    (which the plateau schedule reads): the port's optimizer and the JAX
+    chain give the same parameters."""
     rng = np.random.default_rng(1)
     shapes = {"backbone": {"w": (4, 3), "b": (3,)}, "fpn": {"w": (5, 2)}, "cls_head": {"b": (7,)}}
     params = {k: {n: rng.normal(0, 1, s).astype(np.float32) for n, s in v.items()}
@@ -279,15 +330,18 @@ def test_updates_equal_the_jax_chain(opt):
     named = [(f"{k}.{n}", torch.nn.Parameter(torch.from_numpy(v.copy())))
              for k, sub in params.items() for n, v in sub.items()]
     optimizer = t_optim.Optimizer(named, t_optim.OptimizerConfig(**config))
-    for _ in range(4):
+    for i in range(4):
         grads = jax.tree.map(lambda p: rng.normal(0, 2, p.shape).astype(np.float32), params)
         norm = optax.global_norm(grads)
-        updates, opt_state = tx.update(grads, opt_state, params, grad_norm=norm, value=0.0)
+        loss = np.float32(1.0 + i)
+        updates, opt_state = tx.update(grads, opt_state, params, grad_norm=norm, value=loss)
         params = jax.device_get(optax.apply_updates(params, updates))
         for name, p in named:
             k, n = name.split(".")
             p.grad = torch.from_numpy(grads[k][n].copy())
-        optimizer.step(t_optim.global_norm([p.grad for _, p in named]))
+        optimizer.step(t_optim.global_norm([p.grad for _, p in named]), torch.tensor(loss))
+    if optimizer.plateau is not None:
+        assert float(optimizer.plateau.state["scale"]) == 0.125  # halved at updates 2-4
     for name, p in named:
         k, n = name.split(".")
         np.testing.assert_allclose(p.detach().numpy(), params[k][n], rtol=1e-5, atol=1e-6)
@@ -313,12 +367,22 @@ def test_assemble_equals_jax():
     assert got_stats.truncated_boxes == 2 and got_stats.truncated_images == 1
 
 
-def small_state(norm_kind="gn"):
-    model = t_retinanet.build_retinanet(
+@functools.lru_cache(maxsize=None)
+def _seeded_model(norm_kind: str, seed: int) -> torch.nn.Module:
+    return t_retinanet.build_retinanet(
         t_retinanet.RetinaNetConfig(**GOLDEN, norm_kind=norm_kind, dtype=torch.float32),
-        device="cpu", seed=0,
+        device="cpu", seed=seed,
     )
-    return t_state.create_train_state(model, t_optim.OptimizerConfig(**GOLDEN_OPT), device="cpu")
+
+
+def small_model(norm_kind: str = "gn", seed: int = 0) -> torch.nn.Module:
+    """The golden model from seeded weights: built once per (norm, seed),
+    a fresh deep copy for each caller."""
+    return copy.deepcopy(_seeded_model(norm_kind, seed))
+
+
+def small_state(norm_kind="gn", opt=GOLDEN_OPT, seed=0):
+    return t_state.create_train_state(small_model(norm_kind, seed), t_optim.OptimizerConfig(**opt), device="cpu")
 
 
 def test_loop_logs_and_steps():
@@ -332,7 +396,7 @@ def test_loop_logs_and_steps():
     assert [s for s, _ in logged] == [2, 4, 5]
     for _, scalars in logged:
         assert {"loss", "cls_loss", "box_loss", "num_pos", "grad_norm", "param_norm",
-                "images_per_sec", "step_time_ms", "lr"} <= set(scalars)
+                "images_per_sec", "step_time_ms", "data_wait_ms", "lr"} <= set(scalars)
         assert np.isfinite(scalars["loss"]) and scalars["lr"] == 0.01
 
 
@@ -371,3 +435,123 @@ def test_step_checks_classes_model_and_shape():
         step(small_state(), arrays)
     with pytest.raises(ValueError, match="do not match"):
         step(state, dict(arrays, images=arrays["images"][:, :32]))
+
+
+@pytest.mark.parametrize("async_eval", [False, True], ids=["sync", "async"])
+def test_loop_evaluates_at_its_steps(tmp_path, async_eval):
+    """The eval hook runs after steps 2 and 4 and at the end, on the
+    weights of its step (an asynchronous one on a snapshot, though it runs
+    while later steps change the live weights), and its metrics are logged
+    under ``eval/`` in step order, after their step's own log.  The
+    profile window [4, 7) is clamped into the run's steps 3-5."""
+    state = small_state()
+    logged, seen, weights = [], [], {}
+    probe = "fpn.out_p3.weight"
+
+    def log(step, scalars):
+        logged.append((step, scalars))
+        if "loss" in scalars:
+            weights[step] = state.model.state_dict()[probe].clone()
+
+    def eval_fn(model):
+        time.sleep(0.2)  # later steps run meanwhile
+        seen.append(model.state_dict()[probe].clone())
+        return {"AP": float(len(seen))}
+
+    config = t_loop.LoopConfig(total_steps=5, log_every=1, eval_every=2, async_eval=async_eval,
+                               profile_dir=str(tmp_path), profile_start_step=4, profile_steps=3)
+    t_loop.run_training(state, (golden_batch(seed=s) for s in range(5)), 3, config, log=log,
+                        eval_fn=eval_fn)
+    evals = [(i, step, sc) for i, (step, sc) in enumerate(logged) if "eval/AP" in sc]
+    assert [step for _, step, _ in evals] == [2, 4, 5]
+    assert [sc["eval/AP"] for _, _, sc in evals] == [1.0, 2.0, 3.0]
+    for i, step, _ in evals:
+        assert i > next(j for j, (s, sc) in enumerate(logged) if s == step and "loss" in sc)
+    for snapshot, step in zip(seen, (2, 4, 5)):
+        assert torch.equal(snapshot, weights[step])
+    assert not torch.equal(weights[2], weights[4])
+    assert os.listdir(tmp_path) == ["trace-steps-3-5.json"]
+    assert not any(t.name in ("async-eval", "device-prefetch") for t in threading.enumerate())
+
+
+def test_loop_resumes_bit_for_bit(tmp_path):
+    """A run stopped after step 2 and resumed from its checkpoint, on a
+    state built from other weights, logs the losses of the uninterrupted
+    run bit for bit (BatchNorm statistics, momentum and the plateau state
+    included)."""
+    opt = dict(GOLDEN_OPT, schedule="plateau", plateau_window=1, plateau_patience=1)
+    batches = [golden_batch(seed=s) for s in range(4)]
+
+    def run(state, start, total, **kw):
+        losses = {}
+        t_loop.run_training(state, iter(batches[start:]), 3,
+                            t_loop.LoopConfig(total_steps=total, log_every=1, **kw),
+                            log=lambda step, sc: losses.setdefault(step, (sc["loss"], sc["lr"])))
+        return losses
+
+    want = run(small_state("bn", opt), 0, 4)
+    first = run(small_state("bn", opt), 0, 2, checkpoint_every=2, checkpoint_dir=str(tmp_path))
+    assert first == {k: want[k] for k in (1, 2)}
+    resumed = small_state("bn", opt, seed=1)
+    got = run(resumed, 2, 4, checkpoint_every=2, checkpoint_dir=str(tmp_path))
+    assert got == {k: want[k] for k in (3, 4)}
+    assert want[4][1] < want[1][1]  # the plateau scale fell and was restored
+    assert sorted(os.listdir(tmp_path)) == ["ckpt-2", "ckpt-4"]
+
+
+def test_loop_async_eval_error_surfaces():
+    state = small_state()
+
+    def eval_fn(model):
+        raise ValueError("eval crashed")
+
+    config = t_loop.LoopConfig(total_steps=4, log_every=1, eval_every=1, async_eval=True)
+    with pytest.raises(RuntimeError, match="async eval hook failed") as info:
+        t_loop.run_training(state, (golden_batch(seed=s) for s in range(4)), 3, config,
+                            log=lambda *_: None, eval_fn=eval_fn)
+    assert isinstance(info.value.__cause__, ValueError)
+    assert state.step < 4
+
+
+def test_loop_error_closes_the_writer_and_the_prefetch_thread(tmp_path):
+    """A step that raises (a batch of 4-channel images) ends the run with
+    its own error; the checkpoint in flight lands, and neither the writer
+    nor the prefetch thread outlives the run."""
+    state = small_state()
+    batch = golden_batch()
+    bad = batch._replace(images=np.zeros((*batch.images.shape[:3], 4), np.uint8))
+    config = t_loop.LoopConfig(total_steps=4, log_every=1, checkpoint_every=1,
+                               checkpoint_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="must match the size"):
+        t_loop.run_training(state, iter([batch, batch, bad, batch]), 3, config, log=lambda *_: None)
+    assert sorted(os.listdir(tmp_path)) == ["ckpt-1", "ckpt-2"]
+    names = {t.name for t in threading.enumerate()}
+    assert not names & {"ckpt-writer", "device-prefetch"}, names
+
+
+def test_prefetch_map_reraises_and_stops():
+    def failing():
+        yield 1
+        yield 2
+        raise OSError("decode worker died")
+
+    it = prefetch_map(failing(), lambda x: x * 10, depth=2)
+    assert [next(it), next(it)] == [10, 20]
+    with pytest.raises(OSError, match="decode worker died"):
+        next(it)
+    assert list(prefetch_map(range(5), lambda x: -x, depth=0)) == [0, -1, -2, -3, -4]
+
+    produced = []
+
+    def endless():
+        while True:
+            produced.append(len(produced))
+            yield produced[-1]
+
+    it = prefetch_map(endless(), lambda x: x, depth=2, thread_name="test-prefetch")
+    assert next(it) == 0
+    it.close()  # the producer is blocked on the full queue
+    assert not any(t.name == "test-prefetch" for t in threading.enumerate())
+    count = len(produced)
+    time.sleep(0.3)
+    assert len(produced) == count <= 5
