@@ -1,31 +1,52 @@
-"""What serving and training need of the JAX package's ``data/pipeline.py``.
+"""Host input pipeline, as the JAX package's ``data/pipeline.py``: decode →
+augment → resize → bucket-pad → batch.
 
-Normalization, the resize rule, the shape buckets, the pad pixel and its
-template, and the stop-gated queue handoff — the same geometry the JAX
-package's eval pipeline and serve router share, so a served image lands in
-the same bucket at the same size.  For training, ``Batch``,
-``PipelineStats`` and :func:`assemble`, which pads a list of examples into
-one batch: images to the bucket, gt lists to ``max_gt`` rows with a mask;
-for eval, :func:`pad_batch`, which fills a short batch with padding rows.
-File decoding and the dataset readers are not ported yet.  The bilinear
-resize runs in torch on the
-host (``F.interpolate``, no antialias, rounded back to uint8) in place of
-``cv2.INTER_LINEAR``: the two agree in shape and scale exactly and in
-pixels within one grey level.
+Every image is resized (aspect kept) and padded into one of a few static
+(H, W) shape buckets, and a batch is formed within one bucket, so the step
+is built once per bucket; gt boxes are padded to ``max_gt`` rows with a
+mask, and target assignment happens on the device.  :func:`build_pipeline`
+decodes and resizes on a thread pool (the codec and the resize release the
+interpreter lock), keeps several batches in flight, and emits them in plan
+order: for a fixed seed the batches equal the JAX package's in order,
+buckets, boxes, labels, masks, scales, ``valid`` and image ids, and the
+images within the resize's and, with ``transform``, the warp's tolerance.
+Images are read by ``data/image_io.py`` (the port's decoder, PIL's pixels)
+and shipped as uint8; the device normalizes (:func:`normalize_images`).
+
+The bilinear resize runs in torch on the host (``F.interpolate``, no
+antialias, rounded back to uint8) in place of ``cv2.INTER_LINEAR``: the two
+agree in shape and scale exactly and in pixels within one grey level.  The
+same geometry serves the serve router, so a served image lands in the same
+bucket at the same size.  :func:`assemble` pads a list of examples into one
+batch; :func:`pad_batch` fills a short eval batch with padding rows.
+
+Not ported (``ROADMAP.md``): the multiprocess shared-memory producer
+(``num_worker_procs > 0`` raises), sharding over processes, and host-side
+normalization.
 """
-
 from __future__ import annotations
 
 import dataclasses
+import logging
 import queue
 import threading
+from collections import deque
+from collections.abc import Iterator
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from batchai_retinanet_horovod_coco_tpu_torch.data import image_io
+from batchai_retinanet_horovod_coco_tpu_torch.data.transforms import (
+    TransformConfig,
+    apply_random_transform,
+)
 from batchai_retinanet_horovod_coco_tpu_torch.utils.device import constant
+
+logger = logging.getLogger(__name__)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -240,3 +261,249 @@ def pad_batch(batch: Batch, batch_size: int) -> Batch:
         scales=pad0(batch.scales),
         valid=np.concatenate([batch.valid, np.zeros(pad, dtype=bool)]),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    batch_size: int = 2
+    # (H, W) buckets; an image goes to the smallest bucket that fits its
+    # resized shape.
+    buckets: tuple[tuple[int, int], ...] = ((800, 1344), (1344, 800), (1024, 1024))
+    min_side: int = 800
+    max_side: int = 1333
+    max_gt: int = 100
+    hflip_prob: float = 0.5
+    # The full random affine and photometric augmentation (data/transforms.py);
+    # when set it replaces the flip-only path (its flip_x_prob flips).
+    transform: TransformConfig | None = None
+    shuffle: bool = True
+    seed: int = 0
+    # Decode threads.
+    num_workers: int = 8
+    # The JAX package's multiprocess producer; > 0 raises (not ported).
+    num_worker_procs: int = 0
+    # Resume: skip this many already consumed batches (train only) at the
+    # plan level, without decoding them.
+    skip_batches: int = 0
+    # Image ids never emitted, dropped after the epoch's shuffle.
+    exclude_ids: tuple[int, ...] = ()
+
+
+# Finished batches the producer keeps ready ahead of the consumer.
+_PREFETCH = 4
+
+
+def dataset_max_gt(dataset) -> int:
+    """Largest annotation count of an image (crowds excluded: only
+    ``record.boxes`` feed training targets)."""
+    return max((len(r.boxes) for r in dataset.records), default=0)
+
+
+def resolve_max_gt(requested: int | None, *datasets, cap: int = 512) -> int:
+    """The gt padding of a run: ``requested`` as it is, or (``None``) the
+    datasets' largest box count rounded up to a multiple of 8, within
+    [8, cap]."""
+    if requested is not None:
+        return requested
+    need = max((dataset_max_gt(ds) for ds in datasets), default=0)
+    return max(8, min(round_up(max(need, 1), 8), cap))
+
+
+def load_example(
+    dataset,
+    record,
+    config: PipelineConfig,
+    rng: np.random.Generator | None,
+    bucket: tuple[int, int],
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, float]:
+    """Decode, augment (train only: ``rng`` given) and resize one image into
+    ``bucket``.  Returns the uint8 HWC image (not yet padded, but fitting
+    the bucket), its boxes (N, 4) in resized pixels, labels and scale."""
+    image = image_io.read_rgb(dataset.image_path(record))
+    boxes = record.boxes.copy()
+    labels = record.labels.copy()
+    h, w = image.shape[:2]
+
+    if rng is not None and config.transform is not None:
+        image, boxes, labels = apply_random_transform(image, boxes, labels, config.transform, rng)
+    elif rng is not None and config.hflip_prob > 0 and rng.random() < config.hflip_prob:
+        image = image[:, ::-1]
+        x1 = boxes[:, 0].copy()
+        boxes[:, 0] = w - boxes[:, 2]
+        boxes[:, 2] = w - x1
+
+    image, scale = resize_for_bucket(image, bucket, config.min_side, config.max_side)
+    if image.shape[:2] != (h, w):
+        boxes = boxes * scale
+    return image, boxes, labels, scale
+
+
+def example_rng(config: PipelineConfig, train: bool, epoch: int, idx: int) -> np.random.Generator | None:
+    """The augmentation generator of one example, keyed on (seed, epoch,
+    record index): it does not depend on which thread decodes it."""
+    if not train:
+        return None
+    return np.random.default_rng(np.random.SeedSequence([config.seed, epoch, idx]))
+
+
+def epoch_indices(dataset, config: PipelineConfig, train: bool, epoch: int) -> list[int]:
+    """The record indices of ``epoch``, shuffled per (seed, epoch) for
+    training; ``config.exclude_ids`` leave holes after the shuffle."""
+    idx = np.arange(len(dataset.records))
+    if train and config.shuffle:
+        np.random.default_rng(np.random.SeedSequence([config.seed, epoch])).shuffle(idx)
+    if config.exclude_ids:
+        excluded = {int(i) for i in config.exclude_ids}
+        idx = np.asarray(
+            [i for i in idx if int(dataset.records[i].image_id) not in excluded], dtype=np.int64
+        )
+    return list(idx)
+
+
+def batch_plans(
+    dataset, config: PipelineConfig, train: bool, epoch: int
+) -> Iterator[tuple[tuple[int, int], list[int], list[int], bool]]:
+    """The batches of one epoch in emission order: ``(bucket,
+    record_indices, image_ids, short)``, records grouped by bucket in order
+    of first appearance; a short last batch is dropped in training and
+    padded in eval."""
+    by_bucket: dict[tuple[int, int], list[int]] = {}
+    for i in epoch_indices(dataset, config, train, epoch):
+        r = dataset.records[i]
+        bucket = bucket_for_source(r.height, r.width, config.min_side, config.max_side, config.buckets)
+        by_bucket.setdefault(bucket, []).append(i)
+    for bucket, idxs in by_bucket.items():
+        for start in range(0, len(idxs), config.batch_size):
+            chunk = idxs[start : start + config.batch_size]
+            if len(chunk) < config.batch_size and train:
+                continue
+            ids = [dataset.records[i].image_id for i in chunk]
+            short = not train and len(chunk) < config.batch_size
+            yield bucket, chunk, ids, short
+
+
+def _warn_truncation(dataset, config: PipelineConfig) -> None:
+    over = sum(1 for r in dataset.records if len(r.boxes) > config.max_gt)
+    if over:
+        logger.warning(
+            "max_gt=%d truncates %d/%d images (dataset max %d boxes/image); "
+            "overflow boxes are DROPPED from training targets. Pass an "
+            "explicit larger --max-gt to keep them.",
+            config.max_gt, over, len(dataset.records), dataset_max_gt(dataset),
+        )
+
+
+class _PipelineIterator:
+    """Iterator over batches with live ``stats`` (:class:`PipelineStats`);
+    ``close()`` stops the producer thread."""
+
+    def __init__(self, gen: Iterator[Batch], stats: PipelineStats, stop: threading.Event,
+                 thread: threading.Thread):
+        self._gen = gen
+        self._stop = stop
+        self._thread = thread
+        self.stats = stats
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Batch:
+        return next(self._gen)
+
+    def close(self) -> None:
+        """Stop the producer (set its stop event: closing a generator that
+        never started does not) and join it."""
+        self._stop.set()
+        self._gen.close()
+        self._thread.join(timeout=30)
+
+
+def build_pipeline(dataset, config: PipelineConfig, train: bool = True) -> _PipelineIterator:
+    """Endless (train) or one-epoch (eval) iterator of bucketed batches.
+
+    Train: shuffled per epoch, grouped by bucket, full batches only. Eval:
+    the records in order, no augmentation, the last batch padded with
+    ``valid=False`` rows so every record is evaluated once.  A producer
+    thread submits ``load_example`` calls to a pool of
+    ``config.num_workers`` threads, several batches ahead, and emits the
+    batches in plan order into a queue of ``_PREFETCH``; a failure in
+    either is raised to the consumer.
+    """
+    if config.num_worker_procs > 0:
+        raise NotImplementedError(
+            "num_worker_procs > 0 selects the multiprocess shared-memory producer "
+            "(data/shm_pipeline.py), which is not ported yet; see ROADMAP.md"
+        )
+    _warn_truncation(dataset, config)
+    stats = PipelineStats()
+    out: queue.Queue = queue.Queue(maxsize=_PREFETCH)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        return stop_gated_put(out, item, stop)
+
+    def produce(pool: ThreadPoolExecutor) -> None:
+        # Several batches' decodes in flight, so the pool does not drain at
+        # a batch boundary; batches leave in submission order.
+        max_inflight = max(2, -(-config.num_workers // max(1, config.batch_size)) + 1)
+        inflight: deque = deque()
+
+        def flush_one() -> bool:
+            futures, ids, bucket, short = inflight.popleft()
+            examples = [f.result() for f in futures]
+            batch = assemble(examples, ids, bucket, config.max_gt, stats)
+            if short:
+                batch = pad_batch(batch, config.batch_size)
+            return put(batch)
+
+        epoch = 0
+        to_skip = config.skip_batches if train else 0
+        while not stop.is_set():
+            for bucket, chunk, ids, short in batch_plans(dataset, config, train, epoch):
+                if to_skip > 0:
+                    to_skip -= 1
+                    continue
+                futures = [
+                    pool.submit(load_example, dataset, dataset.records[i], config,
+                                example_rng(config, train, epoch, int(i)), bucket)
+                    for i in chunk
+                ]
+                inflight.append((futures, ids, bucket, short))
+                if len(inflight) >= max_inflight and not flush_one():
+                    return
+                if stop.is_set():
+                    return
+            if not train:
+                while inflight:
+                    if not flush_one():
+                        return
+                put(end)
+                return
+            epoch += 1
+
+    def producer() -> None:
+        pool = ThreadPoolExecutor(max_workers=config.num_workers, thread_name_prefix="pipe-decode")
+        try:
+            produce(pool)
+        except BaseException as exc:  # handed to the consumer; never hang it
+            put(exc)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    thread = threading.Thread(target=producer, daemon=True, name="pipe-producer")
+    thread.start()
+
+    def iterate() -> Iterator[Batch]:
+        try:
+            while True:
+                item = out.get()
+                if item is end:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+    return _PipelineIterator(iterate(), stats, stop, thread)

@@ -389,6 +389,7 @@ def run_coco_eval(
     device: str | torch.device = "cuda",
     *,
     voc_metrics: bool = False,
+    voc_weighted_average: bool = False,
     pipelined: bool = True,
     detect_fns: dict[tuple[int, int], Callable] | None = None,
 ) -> dict[str, float]:
@@ -398,7 +399,8 @@ def run_coco_eval(
     Pipelined, the consumer thread scores each image as its batch arrives
     (``StreamingCocoEval``); the metrics equal the one-shot scoring's.
     ``voc_metrics`` adds PASCAL-VOC AP@0.5 (``voc_*`` keys) from the same
-    detections.
+    detections, its mean weighted by each class's annotation count with
+    ``voc_weighted_average``.
     One process: the JAX package's cross-process gather of detections is
     the identity here.
     """
@@ -413,5 +415,5 @@ def run_coco_eval(
     )
     metrics = scorer.finish() if scorer is not None else evaluate_detections(gt, dt, img_ids=img_ids)
     if voc_metrics:
-        metrics.update(evaluate_detections_voc(gt, dt))
+        metrics.update(evaluate_detections_voc(gt, dt, weighted_average=voc_weighted_average))
     return metrics

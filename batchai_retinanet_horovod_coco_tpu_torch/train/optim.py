@@ -217,6 +217,11 @@ class Optimizer:
         device = self.params[0].device if self.params else torch.device("cpu")
         self.plateau = Plateau(config, device) if config.schedule == "plateau" else None
         lr = self.schedule(0)
+        # sgd with momentum 0: optax still keeps a trace, the last update
+        # (the clipped gradient plus the decay term); torch's SGD keeps none.
+        self.trace = None
+        if config.optimizer == "sgd" and config.momentum == 0:
+            self.trace = [torch.zeros_like(p) for p in self.params]
         if config.optimizer == "sgd":
             self.inner = torch.optim.SGD(
                 self.params, lr=lr, momentum=config.momentum, dampening=0.0,
@@ -239,6 +244,9 @@ class Optimizer:
         clip_by_global_norm_precomputed(grads, self.config.clip_global_norm, norm)
         for group in self.inner.param_groups:
             group["lr"] = self.schedule(self.count)
+        if self.trace is not None:
+            with torch.no_grad():
+                self.trace = torch._foreach_add(grads, self.params, alpha=self.config.weight_decay)
         if self.plateau is None:
             self.inner.step()
         else:
@@ -263,19 +271,15 @@ class Optimizer:
         params tree's flatten order.
 
         SGD: torch's ``momentum_buffer`` is optax's ``trace`` (a buffer
-        not made yet, before the first step, is a zero trace) and
-        ``count`` the schedule's count.  Adam: ``exp_avg``, ``exp_avg_sq``
+        not made yet, before the first step, is a zero trace), or with
+        momentum 0 the kept last update, and ``count`` the schedule's
+        count.  Adam: ``exp_avg``, ``exp_avg_sq``
         and ``step`` are ``mu``, ``nu`` and ``count``.  ``freeze_backbone``
         nests them under the ``multi_transform`` state of the trained
         branch, and the plateau schedule under ``[0]`` beside the plateau
         state ``[1]``.
         """
         config = self.config
-        if config.optimizer == "sgd" and config.momentum == 0:
-            raise ValueError(
-                "sgd with momentum 0 has no checkpoint mapping: the JAX chain keeps a "
-                "trace (the last update) that torch's SGD does not; see ROADMAP.md"
-            )
         prefix = ".inner_states['trained'].inner_state" if config.freeze_backbone else ""
         if self.plateau is not None:
             prefix = "[0]" + prefix
@@ -305,7 +309,21 @@ class Optimizer:
                 leaves.append(OptaxLeaf(path + param_keys[self.names[i]], read, write))
             return leaves
 
-        if config.optimizer == "sgd":
+        def trace_leaves(path: str) -> list[OptaxLeaf]:
+            def write(value: torch.Tensor, i: int) -> None:
+                p = self.params[i]
+                self.trace[i] = value.to(device=p.device, dtype=p.dtype).clone()
+
+            return [
+                OptaxLeaf(path + param_keys[self.names[i]], lambda i=i: self.trace[i],
+                          lambda value, i=i: write(value, i))
+                for i in order
+            ]
+
+        if config.optimizer == "sgd" and self.trace is not None:
+            leaves = trace_leaves(prefix + "[1][1][0].trace")
+            leaves.append(count_leaf(prefix + "[1][1][1].count"))
+        elif config.optimizer == "sgd":
             leaves = slot_leaves(prefix + "[1][1][0].trace", "momentum_buffer")
             leaves.append(count_leaf(prefix + "[1][1][1].count"))
         else:

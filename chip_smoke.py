@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in ten
+Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in eleven
 phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
@@ -83,7 +83,25 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    without an eval in flight (the card's share of the slowdown, the rest
    the host's), and the 10 CUDA kernels that took the most device time in
    the loop's profiled step (which overlaps step 3's eval) and in steps
-   with no eval in flight.
+   with no eval in flight;
+11. from image files through the command line: (a) builds the image codec
+   (``native/imagecodec.cpp``) with g++, decodes every JPEG fixture of
+   ``tests/fixtures/jpeg`` to the sha256 of PIL's pixels that
+   ``digests.json`` holds (the progressive one must raise), times one
+   640 x 480 decode on the host, and sweeps ``build_pipeline``'s images/s
+   at 1, 2, 4 and 8 decode threads (batch 16, buckets (800, 1344) and
+   (1344, 800)) over a COCO JSON that names the four 640 x 480 fixtures 64
+   times; (b) ``train.main`` at the defaults (ResNet-50, GN, bf16, batch
+   16, sides 800/1333) on that JSON for 6 steps with a checkpoint every 3
+   and a final COCO eval of 16 records, then ``evaluate.main`` on the
+   snapshot, whose 12 stats must equal the run's final eval exactly; it
+   prints images/s and ``data_wait_ms`` from files; (c) the convergence
+   gate of ``tests/integration/test_convergence_gate.py``: 300 steps of
+   its recipe through ``train.main`` on 64 synthetic images, then
+   ``--preset eval``, which must reach AP50 > 0.15.  The counters are
+   zeroed before each run and read after it: the training kernels
+   launched once a step, NMS at least once an eval, the plain versions
+   never.
 
 Then it prints one JSON line with each kernel's launches, error, times and
 bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
@@ -94,6 +112,7 @@ from a replayed CUDA graph, without the host's time to launch it.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -104,22 +123,26 @@ import threading
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch import losses as losses_lib
 from batchai_retinanet_horovod_coco_tpu_torch.data import pipeline as pipeline_lib
+from batchai_retinanet_horovod_coco_tpu_torch.data import image_io
 from batchai_retinanet_horovod_coco_tpu_torch.data.coco import CocoDataset
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
     default_buckets,
     normalize_images,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.evaluate import __main__ as evaluate_cli
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate import detect as detect_lib
 from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import (
     RetinaNetConfig,
     build_retinanet,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.native import build as native_build
 from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as matching_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as nms_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops.anchors import AnchorConfig
@@ -128,6 +151,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import cases as cases_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import focal as focal_cuda
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import matching as matching_cuda
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import nms as nms_cuda
+from batchai_retinanet_horovod_coco_tpu_torch.train import __main__ as train_cli
 from batchai_retinanet_horovod_coco_tpu_torch.train import loop as loop_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import optim as optim_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import state as state_lib
@@ -158,6 +182,7 @@ MATCH_OPS_PER_PAIR = 16
 # pair 6, three exps, closed form 9, cotangent 1.
 FOCAL_FWD_OPS = 14
 FOCAL_BWD_OPS = 19
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "jpeg"
 TRAIN_HW = (800, 1344)  # the landscape bucket of the (800, 1333) resize rule
 MAX_GT = 100
 GOLDEN_HW = (64, 64)
@@ -631,9 +656,11 @@ def main() -> int:
     golden_phase(device)
     phase(10, "a training run with checkpoints, eval and resume")
     run_launches = run_phase([cut_batch(b, batch_size) for b in batches], device, kind, smi)
+    phase(11, "from image files through the command line")
+    file_launches = files_phase(device, kind, smi)
     for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
-        row["launches"] = launches_by_kernel[key] + run_launches[key]
-    nms_row["launches"] = launches + run_launches["nms"]
+        row["launches"] = launches_by_kernel[key] + run_launches[key] + file_launches[key]
+    nms_row["launches"] = launches + run_launches["nms"] + file_launches["nms"]
     end_phases()
 
     print(smi)
@@ -1280,6 +1307,237 @@ def top_kernels(split: dict, label: str, kind: str, smi: str) -> None:
           f"took the most ({kind}, {smi}):")
     for name, ms in sorted(split["by_name"].items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {ms / n:9.3f} ms {ms / n / total:6.1%}  {name[:150]}")
+
+
+
+def counts() -> dict[str, int]:
+    """Every kernel's launches and every plain version's calls since the
+    counters were last zeroed."""
+    return {
+        "matching": matching_cuda.kernel_launches,
+        "focal_fwd": focal_cuda.fwd_launches,
+        "focal_bwd": focal_cuda.bwd_launches,
+        "nms": nms_cuda.kernel_launches,
+        "plain": matching_cuda.plain_calls + focal_cuda.plain_calls + nms_cuda.plain_calls,
+    }
+
+
+def reset_all_counts() -> None:
+    matching_cuda.reset_counts()
+    focal_cuda.reset_counts()
+    nms_cuda.reset_counts()
+
+
+def fixture_coco(root: str, images: int, seed: int) -> str:
+    """A COCO instances JSON naming the four 640 x 480 fixtures ``images``
+    times over, 80 categories, 1-12 seeded boxes an image."""
+    rng = np.random.default_rng(seed)
+    names = [str(JPEG_FIXTURES / f"coco_{i}.jpg") for i in range(4)]
+    blob = {"images": [], "annotations": [],
+            "categories": [{"id": k + 1, "name": f"class{k}"} for k in range(80)]}
+    for image_id in range(1, images + 1):
+        blob["images"].append({"id": image_id, "file_name": names[image_id % 4], "width": 640,
+                               "height": 480})
+        for _ in range(int(rng.integers(1, 13))):
+            w, h = rng.uniform(16, 320), rng.uniform(16, 240)
+            x, y = rng.uniform(0, 640 - w), rng.uniform(0, 480 - h)
+            blob["annotations"].append({
+                "id": len(blob["annotations"]) + 1, "image_id": image_id,
+                "category_id": int(rng.integers(1, 81)), "bbox": [x, y, w, h], "area": w * h,
+                "iscrowd": 0,
+            })
+    path = os.path.join(root, f"instances_{seed}.json")
+    with open(path, "w") as f:
+        json.dump(blob, f)
+    return path
+
+
+def add_found_boxes(val_json: str, device) -> None:
+    """Random weights find none of the fixtures' random boxes, and every
+    COCO stat would be 0 whatever the weights: so each validation record
+    also gets, as ground truth, VAL_FOUND of the highest-scored detections
+    of the model that ``train.main`` starts from (the defaults' seed 0),
+    jittered by up to 10%, and the stats depend on the weights."""
+    rng = np.random.default_rng(3000)
+    dataset = CocoDataset(val_json, str(JPEG_FIXTURES), keep_empty=True)
+    model = build_retinanet(RetinaNetConfig(), device=device, seed=0)
+    batches = pipeline_lib.build_pipeline(dataset, pipeline_lib.PipelineConfig(
+        batch_size=16, buckets=default_buckets(800, 1333), max_gt=16, shuffle=False,
+        hflip_prob=0.0), train=False)
+    try:
+        found: dict[int, list[dict]] = {}
+        for d in detect_lib.collect_detections(
+                model, dataset, batches, detect_lib.DetectConfig(score_threshold=0.001), device):
+            found.setdefault(d["image_id"], []).append(d)
+    finally:
+        batches.close()
+    with open(val_json) as f:
+        blob = json.load(f)
+    for dets in found.values():
+        for d in sorted(dets, key=lambda d: -d["score"])[:VAL_FOUND]:
+            x, y, w, h = (float(v) for v in np.asarray(d["bbox"]) * rng.uniform(0.9, 1.1, 4))
+            blob["annotations"].append({"id": len(blob["annotations"]) + 1, "image_id": d["image_id"],
+                                        "category_id": d["category_id"], "bbox": [x, y, w, h],
+                                        "area": w * h, "iscrowd": 0})
+    with open(val_json, "w") as f:
+        json.dump(blob, f)
+    del model
+    torch.cuda.empty_cache()
+
+
+def read_log(log_dir: str) -> list[dict]:
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def files_phase(device, kind: str, smi: str) -> dict[str, int]:
+    """Phase 11; returns each kernel's launches in its runs."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        codec_and_pipeline(root, kind, smi)
+        return cli_runs(root, device, kind, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def codec_and_pipeline(root: str, kind: str, smi: str) -> None:
+    """(a) the codec against the fixtures' digests, one decode's time, and
+    the pipeline's images/s by decode threads."""
+    t0 = time.perf_counter()
+    native_build.compile_library("imagecodec")
+    print(f"built native/imagecodec.cpp with g++ in {time.perf_counter() - t0:.1f} s")
+    digests = json.loads((JPEG_FIXTURES / "digests.json").read_text())
+    for name, want in digests.items():
+        path = JPEG_FIXTURES / name
+        if want["progressive"]:
+            try:
+                image_io.read_rgb(path)
+            except ValueError as e:
+                print(f"{name}: refused as it must be ({e})")
+                continue
+            require(False, f"{name}: a progressive JPEG decoded")
+        pixels = image_io.read_rgb(path)
+        digest = hashlib.sha256(pixels.tobytes()).hexdigest()
+        require(list(pixels.shape) == want["shape"] and digest == want["sha256"],
+                f"{name}: decoded pixels differ from PIL's (sha256 {digest})")
+    print(f"{len(digests) - 1} fixtures decode to their PIL digests bit for bit")
+    data = (JPEG_FIXTURES / "coco_0.jpg").read_bytes()
+    times = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        image_io.decode(data)
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"decode of a 640 x 480 4:2:0 JPEG ({len(data)} bytes): median {np.median(times):.3f} ms, "
+          f"min {min(times):.3f} ms over 30 on the host ({os.cpu_count()} cores); {kind}, {smi}")
+
+    dataset = CocoDataset(fixture_coco(root, 64, 0), str(JPEG_FIXTURES))
+    for workers in (1, 2, 4, 8):
+        it = pipeline_lib.build_pipeline(dataset, pipeline_lib.PipelineConfig(
+            batch_size=16, buckets=default_buckets(800, 1333), max_gt=16, num_workers=workers))
+        try:
+            next(it)  # warm-up
+            batches = 3 if workers == 1 else 6
+            t0 = time.perf_counter()
+            for _ in range(batches):
+                batch = next(it)
+            rate = 16 * batches / (time.perf_counter() - t0)
+        finally:
+            it.close()
+        require(batch.images.shape == (16, *TRAIN_HW, 3), f"pipeline batch {batch.images.shape}")
+        print(f"build_pipeline, {workers} decode thread(s): {rate:.2f} images/s at batch 16 into "
+              f"{TRAIN_HW} (decode, flip, resize 640x480 -> 1067x800, pad), against the step's "
+              f"72.46 images/s (PERF.md section 5); {kind}, {smi}")
+
+
+def cli_runs(root: str, device, kind: str, smi: str) -> dict[str, int]:
+    """(b) a full-width run from JPEG files through ``train.main`` and the
+    snapshot's ``evaluate.main``, and the same steps on 4 decode threads;
+    (c) the convergence gate."""
+    launches = dict.fromkeys(("matching", "focal_fwd", "focal_bwd", "nms"), 0)
+    train_json = fixture_coco(root, 64, 0)
+    val_json = fixture_coco(root, 16, 1)
+    add_found_boxes(val_json, device)
+    snap, logs = os.path.join(root, "snap"), os.path.join(root, "logs")
+    files = ["coco", root, "--train-annotations", os.path.basename(train_json), "--train-images",
+             str(JPEG_FIXTURES), "--val-annotations", os.path.basename(val_json), "--val-images",
+             str(JPEG_FIXTURES), "--snapshot-path", snap, "--score-threshold", "0.001"]
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = train_cli.main(files + ["--steps", "6", "--checkpoint-every", "3", "--eval-every", "6",
+                                  "--log-every", "1", "--log-dir", logs])
+    wall = time.perf_counter() - t0
+    used = counts()
+    print(f"train.main: 6 steps, checkpoints and a final eval in {wall:.1f} s; launches {used}")
+    require(out["final_step"] == 6.0, f"final step {out['final_step']}")
+    require(used["plain"] == 0 and all(used[k] == 6 for k in ("matching", "focal_fwd", "focal_bwd"))
+            and used["nms"] >= 1, f"launches {used} in 6 steps and an eval")
+    for k in launches:
+        launches[k] += used[k]
+    records = [r for r in read_log(logs) if "loss" in r]
+    require([r["step"] for r in records] == list(range(1, 7)), "a step's log is missing")
+    require(all(np.isfinite(r["loss"]) for r in records), "a non-finite loss")
+    rates = [r["images_per_sec"] for r in records[1:]]
+    waits = [r["data_wait_ms"] for r in records[1:]]
+    print(f"from JPEG files: {float(np.median(rates)):.2f} images/s, step "
+          f"{float(np.median([r['step_time_ms'] for r in records[1:]])):.1f} ms, data_wait_ms "
+          f"median {float(np.median(waits)):.3f} (max {max(waits):.3f}) over steps 2-6, against "
+          f"0.35-0.69 ms from memory (PERF.md section 5); losses "
+          f"{[round(r['loss'], 4) for r in records]}; {kind}, {smi}")
+
+    final = {k.removeprefix("eval/"): v for k, v in out.items() if k.startswith("eval/")}
+    reset_all_counts()
+    metrics = evaluate_cli.main(files)
+    used = counts()
+    for k in launches:
+        launches[k] += used[k]
+    gap = max(abs(metrics[k] - final[k]) for k in COCO_STATS)
+    print(f"evaluate.main on the snapshot: {', '.join(f'{k} {metrics[k]:.6f}' for k in COCO_STATS)}; "
+          f"largest gap to the run's final eval {gap}; NMS launches {used['nms']}")
+    require(set(COCO_STATS) <= set(final) and gap == 0, "evaluate differs from the run's final eval")
+    require(final["AR100"] > 0, "every stat is 0: the comparison would hold for any weights")
+    require(used["nms"] >= 1 and used["plain"] == 0, f"evaluate launches {used}")
+
+    # The same steps with 4 decode threads instead of --workers' 16: how
+    # much do the decode threads cost the step beside them?
+    logs4 = os.path.join(root, "logs4")
+    reset_all_counts()
+    train_cli.main(files + ["--steps", "6", "--workers", "4", "--log-every", "1",
+                            "--log-dir", logs4, "--snapshot-path", os.path.join(root, "snap4")])
+    used = counts()
+    for k in launches:
+        launches[k] += used[k]
+    records = [r for r in read_log(logs4) if "loss" in r]
+    print(f"the same 6 steps on 4 decode threads: "
+          f"{float(np.median([r['images_per_sec'] for r in records[1:]])):.2f} images/s, step "
+          f"{float(np.median([r['step_time_ms'] for r in records[1:]])):.1f} ms, data_wait_ms median "
+          f"{float(np.median([r['data_wait_ms'] for r in records[1:]])):.3f} over steps 2-6; "
+          f"{kind}, {smi}")
+    require(used["matching"] == 6 and used["plain"] == 0, f"launches {used}")
+
+    # (c) tests/integration/test_convergence_gate.py's recipe on the card.
+    gate = ["synthetic", "--synthetic-root", os.path.join(root, "synthetic"), "--synthetic-images",
+            "64", "--synthetic-size", "64", "--image-min-side", "64", "--image-max-side", "64",
+            "--backbone", "resnet_test", "--f32", "--batch-size", "8", "--workers", "8",
+            "--snapshot-path", os.path.join(root, "gate"), "--schedule", "multistep",
+            "--warmup-steps", "30", "--lr", "0.32", "--weight-decay", "1e-4"]
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = train_cli.main(gate + ["--steps", "300", "--log-every", "50", "--checkpoint-every", "100",
+                                 "--eval-every", "300"])  # a final eval; the recipe is unchanged
+    metrics = train_cli.main(gate + ["--preset", "eval"])
+    used = counts()
+    gap = max(abs(metrics[k] - out[f"eval/{k}"]) for k in COCO_STATS)
+    require(gap == 0, f"--preset eval differs from the run's final eval by {gap}")
+    for k in launches:
+        launches[k] += used[k]
+    print(f"convergence gate: 300 steps and an eval in {time.perf_counter() - t0:.1f} s; AP "
+          f"{metrics['AP']:.4f}, AP50 {metrics['AP50']:.4f}, AR100 {metrics['AR100']:.4f} "
+          f"(the JAX package's calibration on the CPU: 0.136 / 0.301 / 0.284; threshold AP50 "
+          f"0.15); equal to the run's final eval (gap {gap}); launches {used}; {kind}, {smi}")
+    require(out["final_step"] == 300.0, f"final step {out['final_step']}")
+    require(used["plain"] == 0 and used["matching"] == 300 and used["nms"] >= 2, f"launches {used}")
+    require(metrics["AP50"] > 0.15, f"the recipe did not converge: AP50 {metrics['AP50']:.4f}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -48,6 +48,8 @@ OPTS = {
     "adam-plateau": dict(GOLDEN_OPT, optimizer="adam", base_lr=1e-4, global_batch_size=16,
                          schedule="plateau", plateau_window=2, plateau_patience=1),
     "sgd-frozen-backbone": dict(GOLDEN_OPT, weight_decay=1e-4, freeze_backbone=True),
+    # optax keeps a trace (the last update) even without momentum.
+    "sgd-momentum0": dict(GOLDEN_OPT, momentum=0.0, weight_decay=1e-4),
 }
 
 
@@ -116,8 +118,9 @@ def leaves_equal(a, b) -> None:
 @pytest.mark.parametrize(
     "config",
     [OPTS["sgd"], dict(optimizer="adam"), dict(schedule="plateau"), dict(freeze_backbone=True),
-     dict(optimizer="adam", schedule="plateau", freeze_backbone=True), {}],
-    ids=["golden-sgd", "adam", "plateau", "frozen-backbone", "adam-plateau-frozen", "default"],
+     dict(optimizer="adam", schedule="plateau", freeze_backbone=True), {}, OPTS["sgd-momentum0"]],
+    ids=["golden-sgd", "adam", "plateau", "frozen-backbone", "adam-plateau-frozen", "default",
+         "sgd-momentum0"],
 )
 def test_saveable_view_is_the_jax_state(config):
     """Key paths, flatten order, shapes and dtypes of the port's saveable
@@ -137,10 +140,19 @@ def test_saveable_view_is_the_jax_state(config):
 
 
 def test_sgd_without_momentum_has_no_mapping():
-    port = port_state("gn", "sgd")
-    port = t_state.create_train_state(port.model, t_optim.OptimizerConfig(momentum=0.0), device="cpu")
-    with pytest.raises(ValueError, match="momentum 0 has no checkpoint mapping"):
-        t_state.saveable(port)
+    """sgd with momentum 0 keeps optax's trace, the last update: zero
+    before the first step, then the clipped gradient plus the decay term,
+    which moved each parameter by the LR times itself."""
+    port = port_state("gn", "sgd-momentum0")
+    traces = [leaf for leaf in t_state.saveable(port) if leaf.path.startswith("['opt_state'][1][1][0].trace")]
+    assert len(traces) == len(port.optimizer.params)
+    assert all(not leaf.read().any() for leaf in traces)
+    before = [p.detach().clone() for p in port.optimizer.params]
+    port_steps(port, [0])
+    lr = t_optim.peak_lr(port.optimizer.config)
+    for trace, p, p0 in zip(port.optimizer.trace, port.optimizer.params, before):
+        assert torch.equal(p.detach(), p0.add(trace, alpha=-lr))  # torch's SGD update
+    assert any(leaf.read().any() for leaf in traces)
 
 
 @pytest.mark.parametrize("norm_kind", ["gn", "bn"])
@@ -268,7 +280,7 @@ def test_restore_refuses_another_model(tmp_path):
     leaves_equal(t_state.snapshot(other), before)  # nothing written
 
 
-@pytest.mark.parametrize("norm_kind,opt", [("gn", "sgd"), ("bn", "adam-plateau")])
+@pytest.mark.parametrize("norm_kind,opt", [("gn", "sgd"), ("bn", "adam-plateau"), ("gn", "sgd-momentum0")])
 def test_checkpoints_move_between_the_packages(tmp_path, norm_kind, opt):
     """JAX trains 2 steps and its CheckpointManager saves; the port restores
     that onto other weights and its step 3 gives JAX's step-3 loss.  Then
