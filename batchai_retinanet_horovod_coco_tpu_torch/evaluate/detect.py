@@ -50,7 +50,12 @@ from batchai_retinanet_horovod_coco_tpu_torch.ops import anchors as anchors_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import boxes as boxes_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as nms_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import nms as nms_cuda
-from batchai_retinanet_horovod_coco_tpu_torch.utils.device import resolve_device, stage, take
+from batchai_retinanet_horovod_coco_tpu_torch.utils.device import (
+    resolve_device,
+    stage,
+    take,
+    to_device_images,
+)
 
 # Eval batches staged on the card ahead of the detect in flight (pipelined).
 EVAL_PREFETCH_DEPTH = 2
@@ -100,14 +105,29 @@ def anchors_on(
     ).to(device)
 
 
-def to_device_images(images, device: torch.device) -> torch.Tensor:
-    """A (B, H, W, 3) batch (numpy or torch) on ``device``; host memory is
-    pinned so the copy to a card does not block the host."""
-    if isinstance(images, np.ndarray):
-        images = torch.from_numpy(np.ascontiguousarray(images))
-    if images.device.type == "cpu" and device.type == "cuda":
-        return images.pin_memory().to(device, non_blocking=True)
-    return images.to(device)  # a no-op for a tensor already there
+class DetectProgram(torch.nn.Module):
+    """The detect program of one bucket: uint8 images (B, H, W, 3) →
+    ``(boxes, scores, labels, valid)``, the flat tuple that ``jax.export``
+    makes of ``Detections``.  It holds the model, the bucket's anchors as a
+    buffer and the ``DetectConfig``; the live path (:func:`make_detect_fn`)
+    runs it, and ``evaluate/export.py`` exports it, so the two are one
+    program.  Moving the images to the device stays outside it."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        image_hw: tuple[int, int],
+        config: DetectConfig = DetectConfig(),
+    ):
+        super().__init__()
+        self.model = model
+        self.image_hw = tuple(image_hw)
+        self.config = config
+        self.register_buffer("anchors", anchors_on(self.image_hw, config.anchor, torch.device("cpu")))
+
+    def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        outputs = self.model(pipeline_lib.normalize_images(images))
+        return tuple(postprocess(outputs, self.anchors, self.image_hw, self.config))
 
 
 def make_detect_fn(
@@ -118,20 +138,18 @@ def make_detect_fn(
 ) -> Callable[[object], nms_lib.Detections]:
     """``detect(images (B, H, W, 3) uint8) → Detections`` for one bucket,
     on ``device`` (``cuda`` unless the caller asks for the CPU; without a
-    card it raises).  ``model`` is moved to ``device`` and put in eval
-    mode.  On a card the call returns without synchronising: read the
-    result with ``.cpu()``."""
+    card it raises): a :class:`DetectProgram`.  ``model`` is moved to
+    ``device`` and put in eval mode.  On a card the call returns without
+    synchronising: read the result with ``.cpu()``."""
     device = resolve_device(device)
-    model = model.to(device).eval()
-    anchors = anchors_on(image_hw, config.anchor, device)
+    program = DetectProgram(model, image_hw, config).to(device).eval()
 
     def detect(images) -> nms_lib.Detections:
         x = to_device_images(images, device)
         if tuple(x.shape[1:3]) != tuple(image_hw):
             raise ValueError(f"batch of {tuple(x.shape)} for bucket {image_hw}")
         with torch.inference_mode():
-            outputs = model(pipeline_lib.normalize_images(x))
-            return postprocess(outputs, anchors, image_hw, config)
+            return nms_lib.Detections(*program(x))
 
     return detect
 

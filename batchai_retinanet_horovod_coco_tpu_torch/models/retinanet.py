@@ -57,6 +57,15 @@ BACKBONE_STAGES = {
     "resnet_test": (1, 1, 1, 1),
 }
 
+# The JAX package's backbone names; the command lines refuse those outside
+# BACKBONE_STAGES.
+BACKBONES = ("resnet50", "resnet101", "resnet152", "resnet_test", "mobilenet", "mobilenet050",
+             "vgg16", "vgg19", "densenet121", "densenet169", "densenet201")
+# The JAX package's stem formulations (one parameter layout); the port
+# computes the default's math with a plain conv and refuses the others.
+STEMS = ("conv", "space_to_depth", "space_to_depth4")
+DEFAULT_STEM = "space_to_depth"
+
 
 class RetinaNet(nn.Module):
     def __init__(self, config: RetinaNetConfig):

@@ -21,10 +21,14 @@ suppressed set with shared atomics.  No device memory read waits on the
 serial chain.  The TPU kernel's blocked fixed point and identity-matmul
 transposes are not carried over: they exist for the TPU's (8, 128) tiles.
 
-On a CPU tensor the wrapper runs the plain version (the ported
-``greedy_keep``); on a CUDA tensor it launches the kernel or raises.  The
-counters ``kernel_launches`` and ``plain_calls`` let a run show which of
-the two it went through.
+The keep mask is the PyTorch custom op ``retinanet_torch::nms_keep_mask``
+(registered when this module is imported): its CUDA kernel launches the
+two passes, its CPU kernel is the plain version (the ported
+``greedy_keep``), and its fake implementation gives the output's shape, so
+that ``torch.export`` records a call to the op, not the plain body, and an
+exported detect program runs the hand kernel on a card.  On a CUDA tensor
+the op launches the kernel or raises.  The counters ``kernel_launches``
+and ``plain_calls`` let a run show which of the two it went through.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as nms_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import build
+
+#: The custom op that ``batched_multiclass_nms_cuda`` calls.
+OP_NAME = "retinanet_torch::nms_keep_mask"
 
 #: Launches of the CUDA kernel pair, one per call on CUDA tensors.
 kernel_launches = 0
@@ -113,26 +120,26 @@ def nms_keep_mask_plain(
     return nms_lib.greedy_keep(cand_boxes, cand_scores, iou_threshold, class_idx)
 
 
-def nms_keep_mask(
-    cand_boxes: torch.Tensor,
-    cand_scores: torch.Tensor,
-    class_idx: torch.Tensor,
-    iou_threshold: float = 0.5,
+@torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cpu")
+def _keep_mask_op(
+    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, iou_threshold: float
 ) -> torch.Tensor:
-    """(B, K) bool greedy keep mask over candidates SORTED by descending
-    score per image (``select_candidates`` output): boxes (B, K, 4) f32,
-    scores (B, K) f32, class ids (B, K) int32, all contiguous.  Scores at
-    or below ``_NEG_INF / 2`` are padding, never kept and never
-    suppressing.  Equal, bit for bit, to :func:`nms_keep_mask_plain`."""
-    global kernel_launches, plain_calls
-    _check_inputs(cand_boxes, cand_scores, class_idx)
-    device = cand_scores.device
-    if device.type == "cpu":
-        plain_calls += 1
-        return nms_keep_mask_plain(cand_boxes, cand_scores, class_idx, iou_threshold)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    b, k = cand_scores.shape
+    """The op's CPU kernel: the plain version."""
+    global plain_calls
+    _check_inputs(boxes, scores, classes)
+    plain_calls += 1
+    return nms_keep_mask_plain(boxes, scores, classes, iou_threshold)
+
+
+@_keep_mask_op.register_kernel("cuda")
+def _keep_mask_cuda(
+    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, iou_threshold: float
+) -> torch.Tensor:
+    """The op's CUDA kernel: the mask pass, then the blocked scan."""
+    global kernel_launches
+    _check_inputs(boxes, scores, classes)
+    device = scores.device
+    b, k = scores.shape
     lib = _library()
     if k > lib.nms_max_k():
         raise ValueError(f"K = {k} exceeds the kernel's {lib.nms_max_k()}")
@@ -144,14 +151,40 @@ def nms_keep_mask(
         mask = torch.empty((b, k, words), dtype=torch.int64, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib, "mask", lib.nms_mask_launch(
-            cand_boxes.data_ptr(), class_idx.data_ptr(), b, k, float(iou_threshold),
+            boxes.data_ptr(), classes.data_ptr(), b, k, float(iou_threshold),
             mask.data_ptr(), stream,
         ))
         _check(lib, "scan", lib.nms_scan_launch(
-            cand_scores.data_ptr(), mask.data_ptr(), b, k, _PAD_SCORE, keep.data_ptr(), stream,
+            scores.data_ptr(), mask.data_ptr(), b, k, _PAD_SCORE, keep.data_ptr(), stream,
         ))
     kernel_launches += 1
     return keep
+
+
+@_keep_mask_op.register_fake
+def _keep_mask_fake(
+    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, iou_threshold: float
+) -> torch.Tensor:
+    _check_inputs(boxes, scores, classes)
+    return scores.new_empty(scores.shape, dtype=torch.bool)
+
+
+def nms_keep_mask(
+    cand_boxes: torch.Tensor,
+    cand_scores: torch.Tensor,
+    class_idx: torch.Tensor,
+    iou_threshold: float = 0.5,
+) -> torch.Tensor:
+    """(B, K) bool greedy keep mask over candidates SORTED by descending
+    score per image (``select_candidates`` output): boxes (B, K, 4) f32,
+    scores (B, K) f32, class ids (B, K) int32, all contiguous.  Scores at
+    or below ``_NEG_INF / 2`` are padding, never kept and never
+    suppressing.  Equal, bit for bit, to :func:`nms_keep_mask_plain`.
+    A call of the custom op: the kernel on a card, the plain version on
+    the CPU."""
+    return torch.ops.retinanet_torch.nms_keep_mask.default(
+        cand_boxes, cand_scores, class_idx, float(iou_threshold)
+    )
 
 
 def batched_multiclass_nms_cuda(

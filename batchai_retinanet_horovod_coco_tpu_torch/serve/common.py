@@ -150,7 +150,7 @@ class ServeRequest:
 
     def __init__(self, request_id: int, payload: Any, deadline_t: float | None):
         self.id = request_id
-        self.payload = payload  # np.ndarray HWC uint8
+        self.payload = payload  # encoded bytes or an HWC uint8 array
         self.deadline_t = deadline_t
         self.future = DetectionFuture()
         self.t_submit = monotonic_s()

@@ -1,8 +1,16 @@
 """Detect-program table + one-behind device dispatch (the serve device layer).
 
 The JAX package's ``serve/engine.py``.  ``DetectEngine`` owns one detect
-program per (shape bucket, batch size) — here a ``make_detect_fn`` closure
-with that bucket's anchors on the device — plus the routing metadata.
+program per (shape bucket, batch size) plus the routing metadata.  Two
+constructors:
+
+- ``from_export(dir)`` loads a ``convert_model`` export directory
+  (``evaluate/export.py``): exported programs, weights inside, no model
+  code.  Buckets, batch sizes, the resize rule and the label → category
+  map come from the manifest.
+- ``from_state(model, ...)`` runs a live model: a ``make_detect_fn``
+  closure (the same ``DetectProgram``) per bucket.
+
 ``dispatch`` enqueues a batch on the device and returns its Detections as
 device tensors without synchronising; ``fetch`` synchronises and copies
 them to numpy.
@@ -17,6 +25,7 @@ batches seal against it instead of waiting out the coalescing deadline.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Callable
@@ -52,6 +61,8 @@ class DetectEngine:
         max_side: int,
         label_to_cat_id: dict[int, int] | None = None,
         device: str | torch.device = "cuda",
+        source: str = "live",
+        version: str = "live",
     ):
         if not fns:
             raise ValueError("engine needs at least one (bucket, batch) program")
@@ -62,6 +73,11 @@ class DetectEngine:
             label_to_cat_id if label_to_cat_id else IdentityLabelMap()
         )
         self.device = resolve_device(device)
+        # Where the programs came from (an export directory, or "live"),
+        # and the rollout identity: the manifest's version, else the
+        # export directory's basename, or "live" for from_state engines.
+        self.source = source
+        self.version = version
         self.buckets: tuple[tuple[int, int], ...] = tuple(sorted(fns))
 
     # ---- table lookups ---------------------------------------------------
@@ -103,6 +119,41 @@ class DetectEngine:
                 self.fetch(self.dispatch(hw, np.zeros((b, *hw, 3), np.uint8)))
 
     # ---- constructors ----------------------------------------------------
+
+    @classmethod
+    def from_export(
+        cls, export_dir: str, device: str | torch.device = "cuda"
+    ) -> "DetectEngine":
+        """Engine over a ``convert_model`` export directory, on ``device``
+        (``cuda`` unless the caller asks for the CPU; without a card it
+        raises): needs torch and the NMS op, never the model code or the
+        checkpoint."""
+        from batchai_retinanet_horovod_coco_tpu_torch.evaluate.export import load_model
+
+        loaded = load_model(export_dir, device)
+        fns: dict[tuple[int, int], dict[int, Callable]] = {}
+        for b, h, w in loaded.buckets():
+            raw = loaded.fn(b, (h, w))
+
+            # Exported programs return the bare (boxes, scores, labels,
+            # valid) tuple; the conversion path reads Detections.
+            def call(images, _raw=raw) -> Detections:
+                return Detections(*_raw(images))
+
+            fns.setdefault((h, w), {})[b] = call
+        manifest = loaded.manifest
+        raw_map = manifest.get("label_to_cat_id")
+        label_map = {int(k): int(v) for k, v in raw_map.items()} if raw_map else None
+        buckets = sorted(fns)
+        # Without a recorded resize rule, the bucket extents keep routing
+        # sane (every image fits some bucket).
+        min_side = manifest.get("image_min_side") or min(min(hw) for hw in buckets)
+        max_side = manifest.get("image_max_side") or max(max(hw) for hw in buckets)
+        version = manifest.get("version") or os.path.basename(os.path.normpath(export_dir))
+        return cls(
+            fns, min_side, max_side, label_map, loaded.device, source=export_dir,
+            version=str(version),
+        )
 
     @classmethod
     def from_state(

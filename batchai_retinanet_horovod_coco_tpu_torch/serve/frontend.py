@@ -1,11 +1,14 @@
-"""The serve frontend: admission control, request futures, stats, drain.
+"""The serve frontend: admission control, request futures, stats, drain,
+the HTTP frontend and the command line.
 
-The JAX package's ``serve/frontend.py::DetectionServer``, in-process
-surface only (``submit``, ``detect``, ``snapshot``, ``close`` and the
-context manager).  It wires the four serve machines together::
+The JAX package's ``serve/frontend.py``: ``DetectionServer`` (``submit``,
+``detect``, ``snapshot``, ``close`` and the context manager),
+``serve_http`` and the serve CLI, without the obs layer (telemetry,
+tracing spans, watchdog, events, SLOs), streaming and the stub engine.
+``DetectionServer`` wires the four serve machines together::
 
     submit(image) ──► admission queue (bounded; full ⇒ shed)
-                        │  router workers: validate → resize → bucket
+                        │  router workers: decode → resize → bucket
                         ▼
     per-bucket queues (bounded; full ⇒ shed)
                         │  BucketBatcher: slot pool, seal on ready/full/deadline
@@ -26,13 +29,29 @@ Contracts:
   ``submit()``;
 - ``close()`` stops admission, waits (bounded) for in-flight requests,
   then stops the threads; it never hangs and is idempotent.
+
+The command line serves a ``convert_model`` export directory::
+
+    python -m batchai_retinanet_horovod_coco_tpu_torch.serve --export-dir exported --http 8080
+    python -m batchai_retinanet_horovod_coco_tpu_torch.serve --export-dir exported \
+        --images photos/ --output detections.jsonl
+
+Its flags are the JAX command line's, plus ``--device {cuda,cpu}``
+(default ``cuda``, which raises without a card); the stub engine, obs,
+SLO and replica flags and ``--platform`` are refused, naming
+``ROADMAP.md``.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
+import os
 import queue
+import signal
+import sys
 import threading
+import uuid
 
 import numpy as np
 
@@ -48,6 +67,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.serve.common import (
     RequestRejected,
     RequestTimeout,
     ServeConfig,
+    ServeError,
     ServeRequest,
     ServerClosed,
     ServerError,
@@ -132,8 +152,9 @@ class DetectionServer:
 
     # ---- client surface --------------------------------------------------
 
-    def submit(self, image: np.ndarray, timeout_s: float | None = None) -> DetectionFuture:
-        """Enqueue one HWC uint8 RGB image; returns a future.  Raises
+    def submit(self, image, timeout_s: float | None = None) -> DetectionFuture:
+        """Enqueue one image (encoded JPEG/PNG bytes or an HWC uint8 RGB
+        array); returns a future.  Raises
         ``RequestRejected`` when shed at admission, ``ServerClosed`` after
         close, ``ServerError`` after a crash."""
         self._raise_pending()
@@ -161,7 +182,7 @@ class DetectionServer:
             raise exc from None
         return req.future
 
-    def detect(self, image: np.ndarray, timeout_s: float | None = None) -> list[dict]:
+    def detect(self, image, timeout_s: float | None = None) -> list[dict]:
         """Blocking convenience: ``submit()`` + ``result()``."""
         return self.submit(image, timeout_s=timeout_s).result()
 
@@ -306,3 +327,225 @@ class DetectionServer:
                 self._finish(req, result=dets)
         self._batches_done += 1
         self.occupancy.record(len(reqs) / max(1, n))
+
+
+# ---- stdlib HTTP frontend ------------------------------------------------
+
+#: Request header carrying a trace id, echoed on every /detect response.
+TRACE_HEADER = "X-Retinanet-Trace"
+
+
+def serve_http(
+    server: DetectionServer,
+    host: str = "127.0.0.1",
+    port: int = 0,
+    request_timeout_s: float = 60.0,
+):
+    """Wrap a ``DetectionServer`` in a stdlib ``ThreadingHTTPServer``.
+
+    POST /detect   (body = encoded image) → 200 ``{"detections": [...]}``;
+                   400 on ``decode_error`` (the client's input, not
+                   retryable), 503 with the reason on a shed (retryable),
+                   504 on a deadline, 500 on a server error
+    GET  /stats    → 200 JSON stats snapshot
+    anything else  → 404 (``/healthz``, ``/metrics`` and ``/stream*`` wait
+                   for their slices)
+
+    Every /detect response echoes the ``X-Retinanet-Trace`` request header
+    (an id is minted when it is absent) as that header and as a
+    ``trace_id`` field.  ``request_timeout_s`` bounds each handler's wait
+    on its future, so a client never hangs on a wedged pipeline.  The
+    listen backlog is 128 connections (the stdlib's is 5).  Returns the
+    ``http.server`` instance; the caller owns ``serve_forever()`` and
+    ``shutdown()``.
+    """
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def _json(self, code: int, payload: dict, trace_id: str | None = None) -> None:
+            if trace_id is not None:
+                payload = {**payload, "trace_id": trace_id}
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            if trace_id is not None:
+                self.send_header(TRACE_HEADER, trace_id)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 (stdlib casing)
+            if self.path == "/stats":
+                self._json(200, server.snapshot())
+            else:
+                self._json(404, {"error": "not_found"})
+
+        def do_POST(self):  # noqa: N802
+            if self.path != "/detect":
+                self._json(404, {"error": "not_found"})
+                return
+            trace_id = self.headers.get(TRACE_HEADER) or uuid.uuid4().hex[:16]
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            try:
+                dets = server.submit(body).result(timeout=request_timeout_s)
+            except RequestRejected as exc:
+                code = 400 if exc.reason == "decode_error" else 503
+                self._json(code, {"error": "rejected", "reason": exc.reason}, trace_id=trace_id)
+            except (RequestTimeout, TimeoutError):
+                self._json(504, {"error": "deadline_exceeded"}, trace_id=trace_id)
+            except ServeError as exc:
+                self._json(500, {"error": "server_error", "detail": str(exc)}, trace_id=trace_id)
+            else:
+                self._json(200, {"detections": dets}, trace_id=trace_id)
+
+        def log_message(self, *args) -> None:
+            pass  # the stats are the record
+
+    class Server(ThreadingHTTPServer):
+        # The listen backlog: at the stdlib's 5, a burst of clients gets
+        # its connections dropped and retried a second later.
+        request_queue_size = 128
+
+    return Server((host, port), Handler)
+
+
+# ---- CLI -----------------------------------------------------------------
+
+#: The JAX command line's flags whose machinery is not ported.
+REFUSED_FLAGS = (
+    "--stub-engine", "--stub-delay-ms", "--stub-video", "--platform", "--replica-id",
+    "--obs-trace", "--obs-dir", "--obs-stall-timeout", "--obs-port", "--slo-rule",
+    "--slo-poll-s", "--numerics",
+)
+IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".bmp")
+
+
+def build_parser():
+    import argparse
+
+    from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import add_serve_flags
+
+    p = argparse.ArgumentParser(
+        description="Serve an exported detector (convert_model output) over "
+                    "HTTP, or run it over a directory of images.",
+    )
+    p.add_argument("--export-dir", required=True,
+                   help="export directory (manifest.json + .pt2 programs) "
+                        "from convert_model")
+    mode = p.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--http", type=int, metavar="PORT",
+                      help="start the HTTP frontend on this port (0 = "
+                           "ephemeral; serves until interrupted or SIGTERM)")
+    mode.add_argument("--images", metavar="DIR",
+                      help="offline mode: submit every image in DIR, write "
+                           "detections JSONL, print stats, exit")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--output", default=None,
+                   help="offline mode: detections JSONL path (default: "
+                        "stdout summary only)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the programs run (the device they were "
+                        "exported on); cuda raises without a card")
+    add_serve_flags(p)
+    return p
+
+
+def refuse_unported(argv: list[str]) -> None:
+    """Raise ``SystemExit`` naming every flag of the JAX command line whose
+    machinery is not ported; ``argv`` is scanned before parsing."""
+    refused = [a.split("=", 1)[0] for a in argv if a.split("=", 1)[0] in REFUSED_FLAGS]
+    if refused:
+        raise SystemExit(
+            f"{', '.join(refused)}: not ported to the PyTorch package yet (the stub "
+            "engine, the obs and SLO layers, replicas and --platform; pass --device "
+            "for the device); see ROADMAP.md"
+        )
+
+
+def _run_offline(server: DetectionServer, image_dir: str, output: str | None) -> None:
+    """Submit every image of ``image_dir`` in name order; on an admission
+    shed block on the oldest in-flight future and retry, so a directory
+    larger than the admission queue drains completely."""
+    from batchai_retinanet_horovod_coco_tpu_torch.utils.atomicio import atomic_writer
+
+    names = sorted(n for n in os.listdir(image_dir) if n.lower().endswith(IMAGE_SUFFIXES))
+    futures: list[tuple[str, DetectionFuture]] = []
+    records: list[dict] = []
+
+    def drain_one() -> None:
+        name, fut = futures[len(records)]
+        try:
+            records.append({"file": name, "detections": fut.result()})
+        except ServeError as exc:
+            records.append({"file": name, "error": str(exc)})
+
+    for name in names:
+        with open(os.path.join(image_dir, name), "rb") as f:
+            payload = f.read()
+        while True:
+            try:
+                futures.append((name, server.submit(payload)))
+                break
+            except RequestRejected:
+                if len(records) >= len(futures):
+                    raise  # nothing in flight to wait on
+                drain_one()
+    while len(records) < len(futures):
+        drain_one()
+    if output:
+        # Published complete or not at all.
+        with atomic_writer(output) as f:
+            for rec in records:
+                f.write(json.dumps(rec) + "\n")
+        print(f"wrote {len(records)} records to {output}")
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """Run the command line ``argv``; returns the final stats snapshot."""
+    from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import make_serve_config
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    refuse_unported(argv)
+    args = build_parser().parse_args(argv)
+    engine = DetectEngine.from_export(args.export_dir, args.device)
+    print(
+        f"engine: buckets={engine.buckets} "
+        f"batch_sizes={ {hw: engine.batch_sizes(hw) for hw in engine.buckets} } "
+        f"resize={engine.min_side}/{engine.max_side} version={engine.version} "
+        f"device={engine.device}",
+        flush=True,
+    )
+
+    # SIGTERM exits through the same path as an interrupt: the server
+    # drains instead of dying mid-request.
+    def on_sigterm(_signum, _frame):
+        raise KeyboardInterrupt
+
+    main_thread = threading.current_thread() is threading.main_thread()
+    previous = signal.signal(signal.SIGTERM, on_sigterm) if main_thread else None
+    server = DetectionServer(engine, make_serve_config(args))
+    try:
+        if args.images is not None:
+            _run_offline(server, args.images, args.output)
+        else:
+            httpd = serve_http(server, args.host, args.http)
+            host, port = httpd.server_address[:2]
+            print(f"serving on http://{host}:{port} (POST /detect; GET /stats)", flush=True)
+            try:
+                httpd.serve_forever()
+            except KeyboardInterrupt:
+                pass
+            finally:
+                httpd.shutdown()
+                # Drain before the socket closes: handlers still waiting
+                # on their futures answer on their open connections.
+                server.close()
+                httpd.server_close()
+        server.close()  # drained: the stats are final
+        snap = server.snapshot()
+        print(json.dumps({"serve_stats": snap}), flush=True)
+        return snap
+    finally:
+        server.close()
+        if main_thread:
+            signal.signal(signal.SIGTERM, previous)

@@ -1,10 +1,12 @@
 """Preprocess router: validate → resize → bucket-route, on host threads.
 
-The JAX package's ``serve/router.py`` for decoded payloads: requests carry
-HWC uint8 RGB arrays, are resized on host worker threads with the
-pipeline's own geometry (``bucket_for_source`` / ``resize_for_bucket``),
-and are routed into the per-bucket queues the batcher coalesces from.
-Decoding encoded image bytes needs PIL and is not part of this port yet.
+The JAX package's ``serve/router.py``: requests carry encoded image bytes
+or decoded HWC uint8 RGB arrays; bytes are decoded by the package's codec
+(``data/image_io.py::decode``, the pixels PIL gives), then resized on host
+worker threads with the pipeline's own geometry (``bucket_for_source`` /
+``resize_for_bucket``) and routed into the per-bucket queues the batcher
+coalesces from.  What the codec refuses (progressive or CMYK JPEG, BMP)
+is a ``decode_error``, where the JAX package's PIL decode serves it.
 
 Failure routing is per request: a bad payload rejects THAT request with
 ``decode_error`` and the worker moves on; only a crash of the worker loop
@@ -19,6 +21,7 @@ from typing import Callable
 
 import numpy as np
 
+from batchai_retinanet_horovod_coco_tpu_torch.data import image_io
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
     bucket_for_source,
     resize_for_bucket,
@@ -31,17 +34,18 @@ from batchai_retinanet_horovod_coco_tpu_torch.serve.common import (
 
 
 def decode_payload(payload) -> np.ndarray:
-    """Request payload → HWC uint8 RGB array (ndarray payloads only)."""
+    """Request payload → HWC uint8 RGB array: an array is checked, encoded
+    bytes are decoded by ``data/image_io.py::decode`` (the pipeline's own
+    decode, so a dataset image's bytes give the pixels eval saw)."""
     if isinstance(payload, np.ndarray):
         if payload.ndim != 3 or payload.shape[2] != 3:
             raise ValueError(f"expected HWC RGB array, got {payload.shape}")
         if payload.dtype != np.uint8:
             raise ValueError(f"expected uint8 pixels, got {payload.dtype}")
         return payload
-    raise ValueError(
-        f"unsupported payload type {type(payload).__name__} (this port takes "
-        "decoded HWC uint8 arrays)"
-    )
+    if isinstance(payload, (bytes, bytearray, memoryview)):
+        return image_io.decode(bytes(payload), "<request>")
+    raise ValueError(f"unsupported payload type {type(payload).__name__}")
 
 
 class Router:

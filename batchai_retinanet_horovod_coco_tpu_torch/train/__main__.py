@@ -37,7 +37,12 @@ import numpy as np
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import default_buckets
-from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import BACKBONE_STAGES
+from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import (
+    BACKBONE_STAGES,
+    BACKBONES,
+    DEFAULT_STEM,
+    STEMS,
+)
 from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import (
     add_anchor_flags,
     add_data_pipeline_flags,
@@ -61,10 +66,6 @@ PRESETS: dict[str, dict] = {
     "eval": {"eval_only": True},
 }
 
-# The JAX package's backbone names; those outside BACKBONE_STAGES are refused.
-BACKBONES = ("resnet50", "resnet101", "resnet152", "resnet_test", "mobilenet", "mobilenet050",
-             "vgg16", "vgg19", "densenet121", "densenet169", "densenet201")
-_DEFAULT_STEM = "space_to_depth"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -120,8 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
         g = sp.add_argument_group("model")
         g.add_argument("--backbone", default="resnet50", choices=BACKBONES)
         g.add_argument("--norm", default="gn", choices=["gn", "bn", "frozen_bn"])
-        g.add_argument("--stem", default=_DEFAULT_STEM,
-                       choices=["conv", "space_to_depth", "space_to_depth4"],
+        g.add_argument("--stem", default=DEFAULT_STEM, choices=STEMS,
                        help="the JAX package's stem formulation; the port "
                             "computes the default's math with a plain conv")
         g.add_argument("--pack-width", action="store_true", help="not ported")
@@ -227,7 +227,7 @@ def refuse_unported(args) -> None:
         "--tensorboard": args.tensorboard,
         "--debug-nans": args.debug_nans,
         "--pretrained-backbone": args.pretrained_backbone is not None,
-        f"--stem {args.stem}": args.stem != _DEFAULT_STEM,
+        f"--stem {args.stem}": args.stem != DEFAULT_STEM,
         "--pack-width": args.pack_width,
         f"--backbone {args.backbone}": args.backbone not in BACKBONE_STAGES,
     }

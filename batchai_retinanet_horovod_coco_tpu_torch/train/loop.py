@@ -35,14 +35,13 @@ import torch
 from batchai_retinanet_horovod_coco_tpu_torch import losses as losses_lib
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import Batch
 from batchai_retinanet_horovod_coco_tpu_torch.data.prefetch import prefetch_map
-from batchai_retinanet_horovod_coco_tpu_torch.evaluate.detect import to_device_images
 from batchai_retinanet_horovod_coco_tpu_torch.ops import anchors as anchors_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as matching_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import optim
 from batchai_retinanet_horovod_coco_tpu_torch.train.state import TrainState
 from batchai_retinanet_horovod_coco_tpu_torch.train.step import make_train_step
 from batchai_retinanet_horovod_coco_tpu_torch.utils.checkpoint import CheckpointManager
-from batchai_retinanet_horovod_coco_tpu_torch.utils.device import Staged, stage, take
+from batchai_retinanet_horovod_coco_tpu_torch.utils.device import Staged, stage, take, to_device_images
 
 # Metrics whose non-finite value stops the run: the loss of the step, and
 # the norm of the parameters its update produced.

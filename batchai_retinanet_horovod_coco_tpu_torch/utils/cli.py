@@ -1,6 +1,6 @@
 """Command-line glue shared by the port's tools, as the JAX package's
-``utils/cli.py``: the anchor, data-pipeline and durability flag surfaces,
-and the anchor configuration persisted beside a checkpoint.
+``utils/cli.py``: the anchor, data-pipeline, durability and serve flag
+surfaces, and the anchor configuration persisted beside a checkpoint.
 
 The anchor file keeps the JAX package's name and format
 (``anchor_config.json``, ``dataclasses.asdict`` of the config), so a
@@ -93,6 +93,53 @@ def add_durability_flags(parser) -> None:
                         help="FAULT INJECTION: poison the N-th training "
                              "batch with NaN, once per process; exercises "
                              "the abort and --auto-resume")
+
+
+def add_serve_flags(parser) -> None:
+    """The inference server's flag surface (``serve/frontend.py``), with
+    the JAX package's names and defaults; its ``--replica-id`` belongs to
+    the fleet, which is not ported (the serve command refuses it)."""
+    parser.add_argument("--serve-max-delay-ms", type=float, default=10.0,
+                        help="dynamic-batching deadline: a partial batch "
+                             "fires at most this long after its first "
+                             "request reaches the batcher (in continuous "
+                             "mode the dispatch gate usually seals first)")
+    parser.add_argument("--serve-batching", default="continuous",
+                        choices=["continuous", "deadline"],
+                        help="continuous (default): batch N+1 assembles "
+                             "while N runs and seals the instant the device "
+                             "is ready; deadline: deadline-only coalescing")
+    parser.add_argument("--serve-admission-queue", type=int, default=128,
+                        help="bounded front-door queue; a full queue sheds "
+                             "(503) instead of growing")
+    parser.add_argument("--serve-bucket-queue", type=int, default=64,
+                        help="bounded per-bucket coalescing queue (full = "
+                             "shed with reason bucket_queue_full)")
+    parser.add_argument("--serve-workers", type=int, default=2,
+                        help="host decode/resize worker threads (the serve "
+                             "router)")
+    parser.add_argument("--serve-timeout-s", type=float, default=None,
+                        help="default per-request deadline (expired requests "
+                             "are rejected, never occupy a batch row); unset "
+                             "= no deadline")
+    parser.add_argument("--serve-drain-timeout-s", type=float, default=30.0,
+                        help="graceful close waits this long for in-flight "
+                             "requests before rejecting the remainder")
+
+
+def make_serve_config(args):
+    """``ServeConfig`` from the serve flags."""
+    from batchai_retinanet_horovod_coco_tpu_torch.serve.common import ServeConfig
+
+    return ServeConfig(
+        max_delay_ms=args.serve_max_delay_ms,
+        continuous=args.serve_batching == "continuous",
+        admission_queue=args.serve_admission_queue,
+        bucket_queue=args.serve_bucket_queue,
+        preprocess_workers=args.serve_workers,
+        default_timeout_s=args.serve_timeout_s,
+        drain_timeout_s=args.serve_drain_timeout_s,
+    )
 
 
 def make_anchor_config(args) -> AnchorConfig:

@@ -1,6 +1,7 @@
 """Device resolution for the port's entry points (CUDA by default, never a
-silent fallback to the CPU), and the staged host-to-device copy that the
-training loop's and the eval driver's prefetch threads share."""
+silent fallback to the CPU), the copy of an image batch to the device, and
+the staged host-to-device copy that the prefetch threads of the training
+loop and of the eval pipeline share."""
 
 from __future__ import annotations
 
@@ -26,13 +27,33 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-@functools.lru_cache(maxsize=256)
+def to_device_images(images, device: torch.device) -> torch.Tensor:
+    """A (B, H, W, 3) batch (numpy or torch) on ``device``; host memory is
+    pinned so the copy to a card does not block the host."""
+    if isinstance(images, np.ndarray):
+        images = torch.from_numpy(np.ascontiguousarray(images))
+    if images.device.type == "cpu" and device.type == "cuda":
+        return images.pin_memory().to(device, non_blocking=True)
+    return images.to(device)  # a no-op for a tensor already there
+
+
 def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A small constant tensor on ``device``, made once and shared (do not
     write to it): made anew on every call it would be copied from pageable
     host memory, which on a card waits for the stream.  It is made outside
     inference mode even when first asked for inside it (serving), so that
-    autograd may save it later (training)."""
+    autograd may save it later (training).
+
+    While ``torch.export`` (or ``torch.compile``) traces, the tensor is
+    made anew and not cached: what tracing makes is a fake tensor, which
+    every later call of the live path would otherwise be handed."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(values, dtype=dtype, device=device)
+    return _cached_constant(values, dtype, device)
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype, device=device)
 

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in eleven
+Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in twelve
 phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
@@ -101,7 +101,24 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    ``--preset eval``, which must reach AP50 > 0.15.  The counters are
    zeroed before each run and read after it: the training kernels
    launched once a step, NMS at least once an eval, the plain versions
-   never.
+   never;
+12. the deployable server: ``convert_model.main`` exports phase 11's
+   snapshot (ResNet-50, GN, bf16) for the bucket that the fixture JPEGs
+   route to, (800, 1344), at batch sizes 1 and 8, and prints the seconds
+   a program and the bytes an artifact; a fresh process that imports
+   torch and the NMS op only loads one program and runs it (its load
+   seconds; no ``models`` module, the kernel launched, the plain version
+   not); ``DetectEngine.from_export`` behind ``DetectionServer`` and
+   ``serve_http`` answers the fixture JPEGs from 8 and from 32 client
+   threads, every answer equal, bit for bit, to the live
+   ``DetectEngine.from_state`` engine's on the same weights at an
+   exported batch size, then the same load through in-process
+   ``submit``: images/s and p50/p99 latency of both.  The counters are
+   zeroed before each load and read after it: NMS launched at least once
+   a served batch, the plain version never.  A progressive JPEG is
+   answered 400, an unknown path 404, and the trace header is echoed;
+   ``python -m ...serve --images`` writes records equal to the live
+   answers, and ``--http 0`` drains and exits 0 on SIGTERM.
 
 Then it prints one JSON line with each kernel's launches, error, times and
 bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
@@ -116,6 +133,7 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -128,6 +146,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from batchai_retinanet_horovod_coco_tpu_torch import convert_model as convert_cli
 from batchai_retinanet_horovod_coco_tpu_torch import losses as losses_lib
 from batchai_retinanet_horovod_coco_tpu_torch.data import pipeline as pipeline_lib
 from batchai_retinanet_horovod_coco_tpu_torch.data import image_io
@@ -138,7 +157,9 @@ from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
 )
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate import __main__ as evaluate_cli
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate import detect as detect_lib
+from batchai_retinanet_horovod_coco_tpu_torch.models.convert import load_flax_variables
 from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import (
+    RetinaNet,
     RetinaNetConfig,
     build_retinanet,
 )
@@ -157,7 +178,8 @@ from batchai_retinanet_horovod_coco_tpu_torch.train import optim as optim_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import state as state_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import step as step_lib
 from batchai_retinanet_horovod_coco_tpu_torch.serve.batcher import assemble_requests
-from batchai_retinanet_horovod_coco_tpu_torch.serve.common import ServeRequest
+from batchai_retinanet_horovod_coco_tpu_torch.serve import frontend as serve_frontend
+from batchai_retinanet_horovod_coco_tpu_torch.serve.common import ServeConfig, ServeRequest
 from batchai_retinanet_horovod_coco_tpu_torch.serve.engine import DetectEngine
 from batchai_retinanet_horovod_coco_tpu_torch.serve.frontend import DetectionServer
 from batchai_retinanet_horovod_coco_tpu_torch.utils.checkpoint import CheckpointManager
@@ -656,11 +678,17 @@ def main() -> int:
     golden_phase(device)
     phase(10, "a training run with checkpoints, eval and resume")
     run_launches = run_phase([cut_batch(b, batch_size) for b in batches], device, kind, smi)
-    phase(11, "from image files through the command line")
-    file_launches = files_phase(device, kind, smi)
+    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        phase(11, "from image files through the command line")
+        file_launches = files_phase(root, device, kind, smi)
+        phase(12, "the deployable server: export, load without model code, serve over HTTP")
+        served_launches = deployable_phase(os.path.join(root, "snap"), root, device, kind, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
         row["launches"] = launches_by_kernel[key] + run_launches[key] + file_launches[key]
-    nms_row["launches"] = launches + run_launches["nms"] + file_launches["nms"]
+    nms_row["launches"] = launches + run_launches["nms"] + file_launches["nms"] + served_launches
     end_phases()
 
     print(smi)
@@ -1390,14 +1418,11 @@ def read_log(log_dir: str) -> list[dict]:
         return [json.loads(line) for line in f]
 
 
-def files_phase(device, kind: str, smi: str) -> dict[str, int]:
-    """Phase 11; returns each kernel's launches in its runs."""
-    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
-    try:
-        codec_and_pipeline(root, kind, smi)
-        return cli_runs(root, device, kind, smi)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+def files_phase(root: str, device, kind: str, smi: str) -> dict[str, int]:
+    """Phase 11 under ``root`` (its snapshot stays for phase 12); returns
+    each kernel's launches in its runs."""
+    codec_and_pipeline(root, kind, smi)
+    return cli_runs(root, device, kind, smi)
 
 
 def codec_and_pipeline(root: str, kind: str, smi: str) -> None:
@@ -1537,6 +1562,368 @@ def cli_runs(root: str, device, kind: str, smi: str) -> dict[str, int]:
     require(out["final_step"] == 300.0, f"final step {out['final_step']}")
     require(used["plain"] == 0 and used["matching"] == 300 and used["nms"] >= 2, f"launches {used}")
     require(metrics["AP50"] > 0.15, f"the recipe did not converge: AP50 {metrics['AP50']:.4f}")
+    return launches
+
+
+# ---- phase 12: the deployable server --------------------------------------
+
+LOAD_ALONE = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import nms
+t1 = time.perf_counter()
+program = torch.export.load(sys.argv[1]).module()
+t2 = time.perf_counter()
+x = torch.zeros(tuple(json.loads(sys.argv[2])), dtype=torch.uint8, device=sys.argv[3])
+with torch.inference_mode():
+    out = program(x)
+    kept = int(out[3].sum())  # waits for the device
+t3 = time.perf_counter()
+print(json.dumps({"import_s": t1 - t0, "load_s": t2 - t1, "first_run_s": t3 - t2,
+                  "launches": nms.kernel_launches, "plain": nms.plain_calls, "kept": kept,
+                  "models": sorted(m for m in sys.modules if ".models" in m),
+                  "modules": sorted({m.split(".")[0] for m in sys.modules} & {"jax", "PIL", "cv2"})}))
+"""
+
+
+HTTP_CLIENT = """
+import json, sys, threading, time, urllib.error, urllib.request
+url, clients, per_client = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+files = [(path.rsplit("/", 1)[-1], open(path, "rb").read()) for path in sys.argv[4:]]
+results, lock = [], threading.Lock()
+
+def client(i):
+    for j in range(per_client):
+        name, data = files[(i + j) % len(files)]
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(urllib.request.Request(url, data=data, method="POST"),
+                                        timeout=300) as r:
+                code, body = r.status, json.load(r)
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.load(e)
+        except Exception as e:  # a connection that failed is a result too
+            code, body = 0, {"error": repr(e)}
+        with lock:
+            results.append([name, [code, body], time.perf_counter() - t0])
+
+t0 = time.perf_counter()
+threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+json.dump({"wall": time.perf_counter() - t0, "results": results}, sys.stdout)
+"""
+
+
+def http_load(url: str, clients: int, per_client: int) -> tuple[list, float]:
+    """``client_load`` over HTTP from another process (stdlib only), so
+    that the clients do not share the server's interpreter lock; returns
+    [(name, (status, body), seconds)] and the wall time."""
+    paths = [str(JPEG_FIXTURES / n) for n, _ in served_files()]
+    proc = subprocess.run([sys.executable, "-c", HTTP_CLIENT, url, str(clients), str(per_client), *paths],
+                          capture_output=True, text=True, timeout=900)
+    require(proc.returncode == 0, f"the HTTP client failed:\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout)
+    return [(n, tuple(r), secs) for n, r, secs in out["results"]], out["wall"]
+
+
+def served_files() -> list[tuple[str, bytes]]:
+    """The fixture JPEGs that the codec decodes, by name."""
+    names = sorted(n for n in os.listdir(JPEG_FIXTURES) if n.endswith(".jpg") and n != "progressive.jpg")
+    return [(n, (JPEG_FIXTURES / n).read_bytes()) for n in names]
+
+
+def live_answer(engine: DetectEngine, image: np.ndarray, batch: int, row: int = 0) -> list[dict]:
+    """What the server answers for ``image`` served in row ``row`` of a
+    batch of ``batch`` rows (the others padding): resize, pad, the
+    engine's program, ``detections_to_coco``; through JSON, as an HTTP
+    client reads it."""
+    h, w = image.shape[:2]
+    hw = bucket_for_source(h, w, engine.min_side, engine.max_side, engine.buckets)
+    req = ServeRequest(0, None, None)
+    req.image, scale = resize_for_bucket(image, hw, engine.min_side, engine.max_side)
+    req.scale = np.float32(scale)
+    assembled = assemble_requests([req], hw, batch)
+
+    def at_row(a: np.ndarray) -> np.ndarray:
+        return np.roll(a, row, axis=0)
+
+    det = engine.fetch(engine.dispatch(hw, at_row(assembled.images)))
+    dets = detect_lib.detections_to_coco(det, np.zeros(batch, np.int64), at_row(assembled.scales),
+                                         at_row(assembled.valid), engine.label_to_cat_id,
+                                         image_sizes={0: (w, h)})
+    for d in dets:
+        d.pop("image_id")
+    return json.loads(json.dumps(dets))
+
+
+def answer_gap(a: list[dict], b: list[dict]) -> float:
+    """Largest gap between two answers of equal length and labels (inf
+    otherwise)."""
+    if len(a) != len(b) or any(x["category_id"] != y["category_id"] for x, y in zip(a, b)):
+        return float("inf")
+    return max([abs(x["score"] - y["score"]) for x, y in zip(a, b)]
+               + [abs(u - v) for x, y in zip(a, b) for u, v in zip(x["bbox"], y["bbox"])] + [0.0])
+
+
+def post(url: str, body: bytes, trace: str | None = None) -> tuple[int, dict, str | None, float]:
+    """(status, JSON body, echoed trace id, seconds) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    headers = {serve_frontend.TRACE_HEADER: trace} if trace else {}
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=body, headers=headers,
+                                                           method="POST"), timeout=300) as r:
+            out = r.status, json.load(r), r.headers.get(serve_frontend.TRACE_HEADER)
+    except urllib.error.HTTPError as e:
+        out = e.code, json.load(e), e.headers.get(serve_frontend.TRACE_HEADER)
+    return (*out, time.perf_counter() - t0)
+
+
+def client_load(call, files: list[tuple[str, bytes]], clients: int, per_client: int) -> tuple[list, float]:
+    """``clients`` threads each calling ``call(name, data)`` on
+    ``per_client`` files in turn; returns [(name, result, seconds)] and the
+    wall time."""
+    results: list = []
+    errors: list[BaseException] = []
+    lock = threading.Lock()
+
+    def client(i: int) -> None:
+        try:
+            for j in range(per_client):
+                name, data = files[(i + j) % len(files)]
+                t0 = time.perf_counter()
+                out = call(name, data)
+                with lock:
+                    results.append((name, out, time.perf_counter() - t0))
+        except BaseException as exc:  # re-raised below, in the phase
+            with lock:
+                errors.append(exc)
+
+    t0 = time.perf_counter()
+    # watchdog: the client threads are joined right here with a bound, and
+    # a crash in one is re-raised below.
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    require(not any(t.is_alive() for t in threads), "a client thread hangs")
+    if errors:
+        raise errors[0]
+    return results, time.perf_counter() - t0
+
+
+def latency_line(label: str, results: list, wall: float, kind: str, smi: str) -> dict:
+    ms = np.array([r[2] for r in results]) * 1e3
+    stats = {"images_per_s": len(results) / wall, "p50_ms": float(np.percentile(ms, 50)),
+             "p99_ms": float(np.percentile(ms, 99))}
+    print(f"{label}: {len(results)} requests in {wall:.3f} s, {stats['images_per_s']:.2f} images/s, "
+          f"p50 {stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms ({kind}, {smi})")
+    return stats
+
+
+def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
+                     config: RetinaNetConfig = RetinaNetConfig(), sides=(800, 1333)) -> int:
+    """Phase 12 on phase 11's snapshot (a model of ``config``, trained at
+    image ``sides``); returns the NMS kernel's launches by the served
+    exported programs."""
+    export_dir = os.path.join(root, "export")
+    files = served_files()
+    images = {n: image_io.decode(data) for n, data in files}
+    buckets = sorted({bucket_for_source(*img.shape[:2], *sides, default_buckets(*sides))
+                      for img in images.values()})
+    batch_sizes = (1, 8)
+    on = ["--device", device.type]
+    t0 = time.perf_counter()
+    convert_cli.main(["--snapshot-path", snapshot, "--output", export_dir, "--num-classes",
+                      str(config.num_classes), "--backbone", config.backbone,
+                      "--image-min-side", str(sides[0]), "--image-max-side", str(sides[1]),
+                      "--buckets", ",".join(f"{h}x{w}" for h, w in buckets),
+                      "--batch-sizes", ",".join(map(str, batch_sizes)), "--score-threshold", "0.001",
+                      *on, *([] if config.dtype == torch.bfloat16 else ["--f32"])])
+    programs = len(buckets) * len(batch_sizes)
+    convert_s = time.perf_counter() - t0
+    manifest = json.loads(Path(export_dir, "manifest.json").read_text())
+    sizes = {e["file"]: os.path.getsize(os.path.join(export_dir, e["file"])) for e in manifest["artifacts"]}
+    print(f"convert_model: {programs} programs (buckets {buckets}, batch sizes {batch_sizes}) in "
+          f"{convert_s:.1f} s, {convert_s / programs:.2f} s a program (restore included); bytes an "
+          f"artifact {sizes}; {kind}, {smi}")
+    require(manifest["format"] == "torch.export.pt2.v1" and manifest["device"] == device.type
+            and len(sizes) == programs, f"manifest {manifest['format']} {manifest['device']} {sizes}")
+
+    # Load one program in a process that imports torch and the op only.
+    first = manifest["artifacts"][0]
+    proc = subprocess.run(
+        [sys.executable, "-c", LOAD_ALONE, os.path.join(export_dir, first["file"]),
+         json.dumps([first["batch_size"], first["height"], first["width"], 3]), device.type],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600,
+    )
+    require(proc.returncode == 0, f"loading a program alone failed:\n{proc.stderr[-3000:]}")
+    alone = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"{first['file']} alone in a fresh process (torch and the NMS op only): import "
+          f"{alone['import_s']:.2f} s, load {alone['load_s']:.2f} s, first run (cuDNN's start-up "
+          f"included) {alone['first_run_s']:.2f} s; NMS launches {alone['launches']}, plain {alone['plain']}; "
+          f"models imported {alone['models']}, jax/PIL/cv2 {alone['modules']}; {kind}, {smi}")
+    require(alone["models"] == [] and alone["modules"] == [], "the loader imported model code")
+    require(alone["launches"] >= 1 and alone["plain"] == 0, f"NMS in the loaded program: {alone}")
+
+    # The live engine on the same weights, buckets and batch sizes.
+    model = RetinaNet(config)
+    saved = CheckpointManager(snapshot).restore_arrays()
+    load_flax_variables(model, saved["params"], saved["batch_stats"])
+    dconfig = detect_lib.DetectConfig(score_threshold=0.001)
+    live = DetectEngine.from_state(model, tuple(buckets), batch_sizes, dconfig, device, *sides)
+    t0 = time.perf_counter()
+    engine = DetectEngine.from_export(export_dir, device)
+    engine.warmup()
+    print(f"DetectEngine.from_export with warm-up: {time.perf_counter() - t0:.2f} s; version "
+          f"{engine.version}; {kind}, {smi}")
+    # An answer depends on the batch size and on the row the request rides
+    # in (cuDNN may tile the last row apart), not on the other rows: each
+    # fixture alone at every (batch size, row).
+    slots = [(b, r) for b in batch_sizes for r in range(b)]
+    want = {(n, *k): live_answer(live, images[n], *k) for n in images for k in slots}
+    exported = {(n, *k): live_answer(engine, images[n], *k) for n in images for k in slots}
+    gaps = [answer_gap(want[k], exported[k]) for k in want]
+    by_slot = {n: len({json.dumps(want[(n, *k)]) for k in slots}) for n in images}
+    print(f"exported against live, each fixture alone at every (batch size, row) of {slots[:2]}...: "
+          f"{sum(g == 0 for g in gaps)} of {len(gaps)} equal bit for bit, largest gap {max(gaps)}")
+    first = next(iter(images))
+    hw0 = buckets[0]
+    req = ServeRequest(0, None, None)
+    req.image, _ = resize_for_bucket(images[first], hw0, *sides)
+    batch = torch.from_numpy(assemble_requests([req], hw0, 8).images).to(device)
+    with torch.inference_mode():
+        row0 = model(normalize_images(batch))["cls_logits"][0]
+        row7 = model(normalize_images(torch.roll(batch, 7, 0)))["cls_logits"][7]
+    print(f"distinct live answers of a fixture over those {len(slots)} slots: {by_slot}; {first}'s class "
+          f"logits in row 7 of 8 against row 0: largest gap {float((row0 - row7).abs().max()):.4e} "
+          f"(a gap is cuDNN rounding the last row of a batch otherwise); {kind}, {smi}")
+    require(all(want[k] for k in want), "a fixture has no detections: the comparison would be vacuous")
+    require(max(gaps) == 0, f"an exported program's answer differs from the live engine's by {max(gaps)}")
+
+    def check(name: str, answer: list[dict]) -> float:
+        """0 when ``answer`` is the live answer at an exported batch size and
+        a row."""
+        return min(answer_gap(answer, want[(name, *k)]) for k in slots)
+
+    server = DetectionServer(engine, ServeConfig(), warmup=False)
+    httpd = serve_frontend.serve_http(server, "127.0.0.1", 0)
+    # watchdog: serve_forever returns at httpd.shutdown() in the finally below.
+    threading.Thread(target=httpd.serve_forever, daemon=True, name="chip-smoke-http").start()
+    url = "http://%s:%d" % httpd.server_address[:2]
+    launches = 0
+    http_answers: dict[str, list] = {n: [] for n, _ in files}
+    try:
+        # Warm-up: the first batches allocate pinned host memory.
+        http_load(f"{url}/detect", 8, 2)
+        client_load(lambda n, d: server.detect(d, timeout_s=300), files, 8, 2)
+        stats = {}
+        for clients, per_client in ((8, 8), (32, 4)):
+            batches0 = server.snapshot()["batches"]
+            nms_cuda.reset_counts()
+            results, wall = http_load(f"{url}/detect", clients, per_client)
+            used, plain = nms_cuda.kernel_launches, nms_cuda.plain_calls
+            batches = server.snapshot()["batches"] - batches0
+            launches += used
+            require(len(results) == clients * per_client and all(r[1][0] == 200 for r in results),
+                    f"{len(results)} answers, statuses {Counter(r[1][0] for r in results)}")
+            worst = max(check(n, r[1]["detections"]) for n, r, _ in results)
+            for n, r, _ in results:
+                http_answers[n].append(r[1]["detections"])
+            stats[("http", clients)] = latency_line(
+                f"HTTP POST /detect, {clients} client threads in another process", results, wall, kind, smi)
+            print(f"  {batches} batches, NMS launches {used}, plain {plain}; answers against the live "
+                  f"engine at the same batch size: largest gap {worst}")
+            require(used >= batches > 0 and plain == 0, f"NMS launches {used} for {batches} batches")
+            require(worst == 0, f"a served answer differs from the live engine's by {worst}")
+            nms_cuda.reset_counts()
+            results, wall = client_load(lambda n, d: server.detect(d, timeout_s=300), files, clients,
+                                        per_client)
+            launches += nms_cuda.kernel_launches
+            require(nms_cuda.plain_calls == 0, "the plain NMS ran in process")
+            require(max(check(n, r) for n, r, _ in results) == 0, "an in-process answer differs")
+            stats[("in-process", clients)] = latency_line(f"in-process submit, {clients} clients", results,
+                                                          wall, kind, smi)
+        for clients in (8, 32):
+            h, p = stats[("http", clients)], stats[("in-process", clients)]
+            print(f"HTTP cost at {clients} clients: {h['images_per_s']:.2f} against {p['images_per_s']:.2f} "
+                  f"images/s, p50 {h['p50_ms'] - p['p50_ms']:+.3f} ms, p99 {h['p99_ms'] - p['p99_ms']:+.3f} ms")
+
+        # The error answers and the trace header, then one answer a file.
+        nms_cuda.reset_counts()
+        progressive = (JPEG_FIXTURES / "progressive.jpg").read_bytes()
+        code, body, trace, _ = post(f"{url}/detect", progressive, trace="chip-smoke-trace")
+        require(code == 400 and body.get("reason") == "decode_error" and trace == "chip-smoke-trace"
+                and body.get("trace_id") == trace, f"progressive JPEG: {code} {body} {trace}")
+        code, body, trace, _ = post(f"{url}/detect", files[0][1])
+        require(code == 200 and trace and len(trace) == 16 and body["trace_id"] == trace,
+                f"minted trace id {trace!r}")
+        code, body, _, _ = post(f"{url}/nowhere", files[0][1])
+        require(code == 404, f"unknown path answered {code}")
+        print(f"progressive JPEG answered 400 decode_error, unknown path 404, trace header echoed "
+              f"(given and minted)")
+        for n, data in files:  # one at a time: each alone in a batch of 1
+            code, body, _, _ = post(f"{url}/detect", data)
+            require(code == 200 and check(n, body["detections"]) == 0, f"{n} answered alone")
+            http_answers[n].append(body["detections"])
+        launches += nms_cuda.kernel_launches
+        require(nms_cuda.plain_calls == 0, "the plain NMS ran behind HTTP")
+    finally:
+        httpd.shutdown()
+        server.close()
+        httpd.server_close()
+
+    # The command line: offline over the fixtures, then --http and SIGTERM.
+    out_jsonl = os.path.join(root, "served.jsonl")
+    cli = [sys.executable, "-m", "batchai_retinanet_horovod_coco_tpu_torch.serve", "--export-dir", export_dir,
+           *on]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli + ["--images", str(JPEG_FIXTURES), "--output", out_jsonl],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"serve --images failed:\n{proc.stderr[-3000:]}")
+    records = {r["file"]: r for r in map(json.loads, Path(out_jsonl).read_text().splitlines())}
+    require(sorted(records) == sorted([n for n, _ in files] + ["progressive.jpg"]), f"records {sorted(records)}")
+    require("decode_error" in records["progressive.jpg"].get("error", ""), "progressive.jpg was not refused")
+    worst = max(check(n, records[n]["detections"]) for n, _ in files)
+    same = sum(records[n]["detections"] in http_answers[n] for n, _ in files)
+    print(f"serve --images: {len(records)} records in {time.perf_counter() - t0:.1f} s (process included); "
+          f"against the live engine: largest gap {worst}; equal to an HTTP answer for the same file "
+          f"(served at the same batch size) for {same} of {len(files)}")
+    require(worst == 0 and same == len(files), "a CLI record differs from the HTTP answers")
+
+    proc = subprocess.Popen(cli + ["--http", "0"], cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = ""
+        for line in proc.stdout:
+            if line.startswith("serving on "):
+                break
+        if not line.startswith("serving on "):
+            require(False, f"serve --http did not start:\n{proc.stderr.read()[-3000:]}")
+        code, body, _, _ = post(f"{line.split()[2]}/detect", files[0][1])
+        require(code == 200 and check(files[0][0], body["detections"]) == 0, "the CLI server's answer")
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0, f"serve --http exited {proc.returncode} on SIGTERM:\n{err[-3000:]}")
+    served = json.loads(out.strip().splitlines()[-1])["serve_stats"]
+    print(f"serve --http 0: answered, drained on SIGTERM and exited 0; serve_stats completed "
+          f"{served['completed']}, outstanding {served['outstanding']}")
+    require(served["completed"] == 1 and served["outstanding"] == 0, f"serve_stats {served}")
+    print(f"NMS launches by the served exported programs in this phase: {launches}")
+    del live, engine, model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return launches
 
 

@@ -17,6 +17,7 @@ import torch
 
 import batchai_retinanet_horovod_coco_tpu_torch as port
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate import detect as t_detect
+from batchai_retinanet_horovod_coco_tpu_torch.evaluate import export as t_export
 from batchai_retinanet_horovod_coco_tpu_torch.models import retinanet as t_retinanet
 from batchai_retinanet_horovod_coco_tpu_torch.serve.engine import DetectEngine
 from batchai_retinanet_horovod_coco_tpu_torch.train import state as t_state
@@ -59,7 +60,8 @@ def test_sources_import_nothing_forbidden():
             "evaluate/coco_eval.py", "evaluate/voc_eval.py", "data/image_io.py",
             "data/transforms.py", "data/pipeline.py", "data/synthetic.py", "data/csv.py",
             "data/pascal_voc.py", "native/build.py", "utils/cli.py", "train/__main__.py",
-            "evaluate/__main__.py"} <= scanned
+            "evaluate/__main__.py", "evaluate/export.py", "convert_model.py",
+            "serve/__main__.py"} <= scanned
 
 
 def test_serving_and_training_modules_load_without_jax():
@@ -75,6 +77,9 @@ def test_serving_and_training_modules_load_without_jax():
         "import batchai_retinanet_horovod_coco_tpu_torch.data\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.train.__main__\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.evaluate.__main__\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.evaluate.export\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.convert_model\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.serve.__main__\n"
         f"roots = {FORBIDDEN!r}\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & set(roots)))\n"
     )
@@ -101,7 +106,7 @@ def test_every_device_default_is_cuda():
     assert {d[2] for d in defaults} == {"cuda"}, defaults
     assert {d[1] for d in defaults} >= {
         "make_detect_fn", "from_state", "build_retinanet", "make_train_step",
-        "create_train_state",
+        "create_train_state", "from_export", "export_detector", "export_model", "load_model",
     }
 
 
@@ -114,6 +119,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         lambda: t_retinanet.build_retinanet(t_retinanet.RetinaNetConfig(**SMALL)),
         lambda: t_step.make_train_step(model, (64, 64), 3),
         lambda: t_state.create_train_state(model),
+        lambda: DetectEngine.from_export("no-export-dir"),
+        lambda: t_export.load_model("no-export-dir"),
+        lambda: t_export.export_detector(model, (64, 64), 1),
     ]
     if torch.cuda.is_available():
         engine = calls[0]()

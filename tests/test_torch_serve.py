@@ -5,15 +5,28 @@ The JAX serve contract (its ``serve/frontend.py`` docstring) held inside the
 port: a served image's detections are exactly what ``make_detect_fn`` +
 ``detections_to_coco`` give for the same resized image in the same bucket,
 bit for bit, in both batching modes.  Plus the drain on ``close()``, the
-per-request rejection of a bad payload, and the port's torch resize
-against the JAX package's ``resize_for_bucket`` (cv2 ``INTER_LINEAR``).
+per-request rejection of a bad payload, encoded payloads decoded by the
+port's codec, the port's torch resize against the JAX package's
+``resize_for_bucket`` (cv2 ``INTER_LINEAR``), the HTTP frontend's status
+codes and JSON keys against the JAX package's ``serve_http``, and the serve
+command line's refusals.
 """
+
+import json
+import threading
+from pathlib import Path
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
 import torch
 
 from batchai_retinanet_horovod_coco_tpu.data import pipeline as j_pipeline
+from batchai_retinanet_horovod_coco_tpu.serve import frontend as j_frontend
+from batchai_retinanet_horovod_coco_tpu.serve.common import ServeConfig as JaxServeConfig
+from batchai_retinanet_horovod_coco_tpu.serve.stub import StubDetectEngine
+from batchai_retinanet_horovod_coco_tpu_torch.data import image_io
 from batchai_retinanet_horovod_coco_tpu_torch.data import pipeline as t_pipeline
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate import detect as t_detect
 from batchai_retinanet_horovod_coco_tpu_torch.models import retinanet as t_retinanet
@@ -27,8 +40,10 @@ from batchai_retinanet_horovod_coco_tpu_torch.serve.common import (
     ServerClosed,
 )
 from batchai_retinanet_horovod_coco_tpu_torch.serve.engine import DetectEngine
+from batchai_retinanet_horovod_coco_tpu_torch.serve import frontend as t_frontend
 from batchai_retinanet_horovod_coco_tpu_torch.serve.frontend import DetectionServer
 
+REPO_ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(
     num_classes=3, backbone="resnet_test", fpn_channels=32, head_width=32,
     head_depth=2, dtype=torch.float32,
@@ -127,7 +142,7 @@ def test_close_drains_in_flight_requests(model):
     [
         np.zeros((32, 32, 3), np.float32),  # not uint8
         np.zeros((32, 32), np.uint8),  # not HWC RGB
-        b"\x89PNG encoded bytes",  # encoded payloads need PIL: not ported
+        b"\x89PNG encoded bytes",  # a PNG signature, then no PNG
     ],
     ids=["float", "gray", "bytes"],
 )
@@ -169,3 +184,132 @@ def test_pad_template_matches_jax_pipeline():
     assert (batch.images[0, :40, 50:] == t_pipeline._PAD_PIXEL).all()
     assert (batch.images[1] == t_pipeline._PAD_PIXEL).all()
     assert batch.valid.tolist() == [True, False]
+
+
+def test_encoded_payloads_are_decoded_by_the_codec(model):
+    """PNG bytes serve as their decoded pixels; a progressive JPEG, which
+    the codec refuses, is that request's ``decode_error``."""
+    engine = make_engine(model)
+    image = make_images(seed=5)[0]
+    progressive = (REPO_ROOT / "tests" / "fixtures" / "jpeg" / "progressive.jpg").read_bytes()
+    with DetectionServer(engine, ServeConfig(max_delay_ms=10, preprocess_workers=1)) as server:
+        assert server.detect(image_io.encode_png(image), timeout_s=60) == expected(model, engine, image)
+        with pytest.raises(RequestRejected) as info:
+            server.detect(progressive, timeout_s=60)
+        assert info.value.reason == "decode_error" and "progressive" in str(info.value)
+
+
+class BlockingPortEngine(DetectEngine):
+    """The port's engine whose dispatch waits for ``release``."""
+
+    release: threading.Event
+
+    def dispatch(self, hw, images):
+        self.release.wait(60)
+        return super().dispatch(hw, images)
+
+
+class BlockingJaxEngine(StubDetectEngine):
+    release: threading.Event
+
+    def dispatch(self, hw, images):
+        self.release.wait(60)
+        return super().dispatch(hw, images)
+
+
+def http_call(base: str, path: str, body: bytes | None = None, trace: str | None = None):
+    """(status, JSON body, trace header) of one request."""
+    headers = {t_frontend.TRACE_HEADER: trace} if trace else {}
+    request = urllib.request.Request(base + path, data=body, headers=headers,
+                                     method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(request, timeout=60) as r:
+            return r.status, json.load(r), r.headers.get(t_frontend.TRACE_HEADER)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e), e.headers.get(t_frontend.TRACE_HEADER)
+
+
+def http_answers(server, serve_http, release: threading.Event) -> dict:
+    """Status codes, JSON keys and trace echoes of the HTTP frontend over
+    ``server`` for a good image, garbage bytes, an unknown path, a shed
+    and a timeout (``release`` blocks the engine for the last two)."""
+    good = image_io.encode_png(np.zeros((64, 64, 3), np.uint8))
+    httpd = serve_http(server)
+    blocked = serve_http(server, request_timeout_s=0.5)
+    for h in (httpd, blocked):
+        threading.Thread(target=h.serve_forever, daemon=True).start()
+    base = "http://%s:%d" % httpd.server_address[:2]
+    slow = "http://%s:%d" % blocked.server_address[:2]
+    out = {}
+    try:
+        release.set()
+        code, body, trace = http_call(base, "/detect", good, trace="client-trace-1")
+        out["good"] = (code, sorted(body), trace, body["trace_id"])
+        code, body, trace = http_call(base, "/detect", b"garbage")
+        out["garbage"] = (code, sorted(body), body["reason"], len(trace), trace == body["trace_id"])
+        code, body, _ = http_call(base, "/nowhere", good)
+        out["unknown"] = (code, sorted(body))
+        code, body, _ = http_call(base, "/stats")
+        out["stats"] = (code, body["completed"])
+        release.clear()
+        answers: list = []
+        threads = [threading.Thread(target=lambda: answers.append(http_call(slow, "/detect", good)))
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        out["shed"] = sorted({(c, tuple(sorted(b))) for c, b, _ in answers if c == 503})
+        out["timeout"] = sorted({(c, tuple(sorted(b))) for c, b, _ in answers if c == 504})
+        out["codes"] = sorted({c for c, _, _ in answers})
+    finally:
+        release.set()
+        for h in (httpd, blocked):
+            h.shutdown()
+            h.server_close()
+    return out
+
+
+def test_http_answers_as_jax_serve_http(model):
+    """The port's ``serve_http`` against the JAX package's (over its stub
+    engine): the same status codes and JSON keys for a good image (200),
+    garbage bytes (400), an unknown path (404), a shed (503: admission
+    queue 1 behind a blocked engine) and a timeout (504), every /detect
+    answer echoing its trace id (the client's, or a minted one)."""
+    config = dict(admission_queue=1, bucket_queue=1, dispatch_depth=1, preprocess_workers=1,
+                  max_delay_ms=1)
+    port_engine = BlockingPortEngine.from_state(
+        model, BUCKETS, (BATCH,), CONFIG, device="cpu", min_side=MIN_SIDE, max_side=MAX_SIDE,
+    )
+    jax_engine = BlockingJaxEngine(batch_sizes=(1,))
+    for engine in (port_engine, jax_engine):
+        engine.release = threading.Event()
+        engine.release.set()  # the warm-up runs
+    with j_frontend.DetectionServer(jax_engine, JaxServeConfig(**config)) as jax_server:
+        want = http_answers(jax_server, j_frontend.serve_http, jax_engine.release)
+    with DetectionServer(port_engine, ServeConfig(**config)) as port_server:
+        got = http_answers(port_server, t_frontend.serve_http, port_engine.release)
+    assert got == want
+    assert want["good"] == (200, ["detections", "trace_id"], "client-trace-1", "client-trace-1")
+    assert want["garbage"] == (400, ["error", "reason", "trace_id"], "decode_error", 16, True)
+    assert want["unknown"] == (404, ["error"])
+    assert want["shed"] == [(503, ("error", "reason", "trace_id"))]
+    assert want["timeout"] == [(504, ("error", "trace_id"))]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--stub-engine"], ["--stub-delay-ms", "5"], ["--platform", "cpu"], ["--obs-trace"],
+    ["--obs-port", "9000"], ["--slo-rule", "p99<100"], ["--replica-id", "r1"], ["--numerics"],
+], ids=lambda f: f[0].lstrip("-"))
+def test_serve_refusals_name_the_roadmap(flags):
+    with pytest.raises(SystemExit, match="ROADMAP.md"):
+        t_frontend.main(["--export-dir", "nowhere", "--http", "0", "--device", "cpu", *flags])
+
+
+def test_serve_flags_are_the_jax_command_line_s():
+    want = {a.dest: a.default for a in j_frontend.build_parser()._actions}
+    got = {a.dest: a.default for a in t_frontend.build_parser()._actions}
+    refused = {f.lstrip("-").replace("-", "_") for f in t_frontend.REFUSED_FLAGS}
+    assert set(got) == set(want) - refused | {"device"}
+    assert all(got[k] == want[k] for k in got if k not in ("device", "export_dir"))
+    assert got["device"] == "cuda"
