@@ -44,6 +44,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.data.transforms import (
     TransformConfig,
     apply_random_transform,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.obs import trace, watchdog
 from batchai_retinanet_horovod_coco_tpu_torch.utils.device import constant
 
 logger = logging.getLogger(__name__)
@@ -427,7 +428,9 @@ def build_pipeline(dataset, config: PipelineConfig, train: bool = True) -> _Pipe
     thread submits ``load_example`` calls to a pool of
     ``config.num_workers`` threads, several batches ahead, and emits the
     batches in plan order into a queue of ``_PREFETCH``; a failure in
-    either is raised to the consumer.
+    either is raised to the consumer.  The producer heartbeats as
+    ``pipe-producer`` and spans its waits on the decodes
+    (``pipe_decode_wait``) and its assembly (``pipe_assemble``).
     """
     if config.num_worker_procs > 0:
         raise NotImplementedError(
@@ -443,7 +446,7 @@ def build_pipeline(dataset, config: PipelineConfig, train: bool = True) -> _Pipe
     def put(item) -> bool:
         return stop_gated_put(out, item, stop)
 
-    def produce(pool: ThreadPoolExecutor) -> None:
+    def produce(pool: ThreadPoolExecutor, hb: watchdog.Heartbeat) -> None:
         # Several batches' decodes in flight, so the pool does not drain at
         # a batch boundary; batches leave in submission order.
         max_inflight = max(2, -(-config.num_workers // max(1, config.batch_size)) + 1)
@@ -451,11 +454,17 @@ def build_pipeline(dataset, config: PipelineConfig, train: bool = True) -> _Pipe
 
         def flush_one() -> bool:
             futures, ids, bucket, short = inflight.popleft()
-            examples = [f.result() for f in futures]
-            batch = assemble(examples, ids, bucket, config.max_gt, stats)
+            with trace.span("pipe_decode_wait"):
+                examples = [f.result() for f in futures]
+            hb.beat()  # decode progress is the pool's liveness
+            with trace.span("pipe_assemble"):
+                batch = assemble(examples, ids, bucket, config.max_gt, stats)
             if short:
                 batch = pad_batch(batch, config.batch_size)
-            return put(batch)
+            hb.idle()  # a full output queue is backpressure, not a stall
+            ok = put(batch)
+            hb.beat()
+            return ok
 
         epoch = 0
         to_skip = config.skip_batches if train else 0
@@ -483,14 +492,19 @@ def build_pipeline(dataset, config: PipelineConfig, train: bool = True) -> _Pipe
             epoch += 1
 
     def producer() -> None:
+        # The decode threads report through future.result() on this
+        # registered thread: a wedged decode stalls its heartbeat.
         pool = ThreadPoolExecutor(max_workers=config.num_workers, thread_name_prefix="pipe-decode")
+        hb = watchdog.register("pipe-producer", details=lambda: {"qsize": out.qsize()})
         try:
-            produce(pool)
+            produce(pool, hb)
         except BaseException as exc:  # handed to the consumer; never hang it
             put(exc)
         finally:
+            hb.close()
             pool.shutdown(wait=True, cancel_futures=True)
 
+    # watchdog: registers in producer() at thread start.
     thread = threading.Thread(target=producer, daemon=True, name="pipe-producer")
     thread.start()
 

@@ -11,6 +11,9 @@ Error contract: an exception in the producer (from the item iterable or
 from ``transfer``) is re-raised in the consumer; ``close()`` on the
 returned generator stops the thread promptly even when the queue is full
 (every put is stop-gated) and joins it.
+
+Observability: the thread registers a watchdog heartbeat under its name
+and spans each ``transfer`` under that name.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from collections.abc import Callable, Iterable, Iterator
 from typing import TypeVar
 
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import stop_gated_put
+from batchai_retinanet_horovod_coco_tpu_torch.obs import trace, watchdog
 
 _T = TypeVar("_T")
 _U = TypeVar("_U")
@@ -45,14 +49,29 @@ def prefetch_map(
     end = object()  # the stream is exhausted
 
     def feeder() -> None:
+        # Every produced item is a heartbeat and a span; idle() before the
+        # bounded put: a full queue is a busy consumer, not a stall.
+        hb = watchdog.register(
+            thread_name, details=lambda: {"qsize": buf.qsize(), "depth": depth}
+        )
         try:
             for item in items:
-                if not stop_gated_put(buf, transfer(item), stop):
+                with trace.span(thread_name):
+                    staged = transfer(item)
+                hb.beat()
+                hb.idle()
+                if not stop_gated_put(buf, staged, stop):
                     return
+                hb.beat()
+            hb.idle()  # the end marker waits on the same backpressure
             stop_gated_put(buf, end, stop)
         except BaseException as exc:  # handed to the consumer
+            hb.idle()
             stop_gated_put(buf, exc, stop)
+        finally:
+            hb.close()
 
+    # watchdog: registers in feeder() at thread start.
     thread = threading.Thread(target=feeder, daemon=True, name=thread_name)
     thread.start()
     try:

@@ -25,6 +25,11 @@ order as the sequential path (``pipelined=False``):
 3. **a consumer thread** converts to COCO result dicts and scores each
    image as its batch arrives (``StreamingCocoEval``), behind a bounded
    queue, FIFO, with the error contract of the prefetch thread.
+
+The stages heartbeat to ``obs/watchdog.py`` (``eval-device-prefetch``,
+``eval-driver``, ``eval-consumer``) and span their work
+(``build_detect_fn``, ``detect_dispatch``, ``detect_fetch``,
+``eval_put_wait``, ``eval_convert``, ``eval_score``).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.evaluate.coco_eval import (
     evaluate_detections,
 )
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate.voc_eval import evaluate_detections_voc
+from batchai_retinanet_horovod_coco_tpu_torch.obs import trace, watchdog
 from batchai_retinanet_horovod_coco_tpu_torch.ops import anchors as anchors_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import boxes as boxes_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as nms_lib
@@ -252,12 +258,20 @@ class _EvalConsumer:
         self._stop = threading.Event()
         self._error: BaseException | None = None
         self.results: list[dict] = []
+        # watchdog: registers in _run() at thread start.
         self._thread = threading.Thread(target=self._run, daemon=True, name="eval-consumer")
         self._thread.start()
 
     def _run(self) -> None:
+        # Every poll beats (a waiting consumer is healthy): only a wedged
+        # conversion or scoring callback stops the heartbeat.
+        hb = watchdog.register(
+            "eval-consumer",
+            details=lambda: {"qsize": self._queue.qsize(), "results": len(self.results)},
+        )
         try:
             while not self._stop.is_set():
+                hb.beat()
                 try:
                     item = self._queue.get(timeout=0.1)
                 except queue.Empty:
@@ -265,16 +279,23 @@ class _EvalConsumer:
                 if item is self._DONE:
                     return
                 det, image_ids, scales, valid = item
-                batch_results = detections_to_coco(
-                    det, image_ids, scales, valid, self._label_to_cat_id,
-                    image_sizes=self._image_sizes,
-                )
+                with trace.span("eval_convert"):
+                    batch_results = detections_to_coco(
+                        det, image_ids, scales, valid, self._label_to_cat_id,
+                        image_sizes=self._image_sizes,
+                    )
                 self.results.extend(batch_results)
                 if self._on_batch is not None:
-                    self._on_batch(batch_results, [int(i) for i, v in zip(image_ids, valid) if v])
+                    done = [int(i) for i, v in zip(image_ids, valid) if v]
+                    with trace.span("eval_score"):
+                        self._on_batch(batch_results, done)
+                if trace.enabled():
+                    trace.counter("eval_consumer.qsize", self._queue.qsize())
         except BaseException as exc:  # re-raised in the driver
             self._error = exc
             self._stop.set()  # unblocks a driver waiting on a full queue
+        finally:
+            hb.close()
 
     def _raise_pending(self) -> None:
         if self._error is not None:
@@ -352,7 +373,8 @@ def collect_detections(
     def fn_for(hw: tuple[int, int]) -> Callable:
         fn = detect_fns.get(hw)
         if fn is None:
-            fn = detect_fns[hw] = make_detect_fn(model, hw, config, device)
+            with trace.span("build_detect_fn", bucket=f"{hw[0]}x{hw[1]}"):
+                fn = detect_fns[hw] = make_detect_fn(model, hw, config, device)
         return fn
 
     if not pipelined:
@@ -379,24 +401,42 @@ def collect_detections(
         depth=EVAL_PREFETCH_DEPTH,
         thread_name="eval-device-prefetch",
     )
+    # The driver's own heartbeat: the consumer beats on every idle poll and
+    # the prefetch thread idles behind a full queue, so a fetch hanging on
+    # the device would otherwise show no liveness signal at all.
+    hb = watchdog.register("eval-driver", details=lambda: {"results": len(consumer.results)})
+
+    def hand_over(pending: tuple) -> None:
+        with trace.span("detect_fetch"):
+            fetched = fetcher.fetch(*pending[:2])
+        hb.beat()
+        hb.idle()  # a full consumer queue is backpressure
+        with trace.span("eval_put_wait"):
+            consumer.put(fetched, *pending[2])
+        hb.beat()
+
     pending: tuple | None = None
     try:
         for hw, images, meta in staged:
-            det = fn_for(hw)(take(images)["images"])
-            done = None
-            if device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record()
+            hb.beat()
+            with trace.span("detect_dispatch"):
+                det = fn_for(hw)(take(images)["images"])
+                done = None
+                if device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record()
             if pending is not None:
-                consumer.put(fetcher.fetch(*pending[:2]), *pending[2])
+                hand_over(pending)
             pending = (det, done, meta)
         if pending is not None:
-            consumer.put(fetcher.fetch(*pending[:2]), *pending[2])
+            hand_over(pending)
             pending = None
+        hb.idle()  # finish() waits on the consumer's drain
         return consumer.finish()
     finally:
         staged.close()
         consumer.close()
+        hb.close()
 
 
 def run_coco_eval(

@@ -1,6 +1,6 @@
 """Per-bucket slot-pool batcher with continuous in-flight admission.
 
-The JAX package's ``serve/batcher.py`` without its tracing hooks.  One
+The JAX package's ``serve/batcher.py``.  One
 ``BucketBatcher`` thread per shape bucket pulls preprocessed requests from
 its bounded queue and claims them into a ``SlotPool`` — the batch currently
 being ASSEMBLED.  The pool seals (assembles a padded device batch and hands
@@ -17,7 +17,10 @@ lock.  Assembly uses the pipeline's pad template and row layout (image at
 the top-left corner, dataset-mean pad margins), so a served row is
 byte-identical to the row the eval pipeline would build.  The handoff to
 the dispatcher is a bounded stop-gated put: a slow device backpressures
-the batcher, and queue bounds upstream turn overload into sheds.
+the batcher, and queue bounds upstream turn overload into sheds.  Each
+batcher heartbeats as ``serve-batcher-<H>x<W>`` (idle while the dispatch
+queue is full: device backpressure, not a stall) and spans its assembly as
+``serve_assemble``; a sealed batch carries each row's slot wait.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
     paste_image,
     stop_gated_put,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.obs import trace, watchdog
 from batchai_retinanet_horovod_coco_tpu_torch.serve.common import (
     AssembledBatch,
     RequestTimeout,
@@ -57,6 +61,7 @@ class SlotPool:
         self._now = now_fn
         self._lock = threading.Lock()
         self._rows: list[ServeRequest] = []
+        self._claim_t: list[float] = []
         self.first_claim_t: float | None = None
         self.evictions = 0
 
@@ -66,9 +71,11 @@ class SlotPool:
         with self._lock:
             if len(self._rows) >= self.capacity:
                 return False
+            now = self._now()
             if not self._rows:
-                self.first_claim_t = self._now()
+                self.first_claim_t = now
             self._rows.append(req)
+            self._claim_t.append(now)
             return True
 
     def size(self) -> int:
@@ -89,32 +96,39 @@ class SlotPool:
 
     def seal(
         self, on_evict: Callable[[ServeRequest, BaseException], None]
-    ) -> list[ServeRequest]:
+    ) -> tuple[list[ServeRequest], list[float]]:
         """Atomically evict expired claims, take every live row, reset.
 
-        Returns the live rows.  Evicted requests are rejected with
-        ``RequestTimeout`` AFTER the lock is released; their slots are
-        already free by then.
+        Returns ``(rows, slot_wait_ms)``, row-aligned: the live rows and
+        the ms each waited between its claim and this seal.  Evicted
+        requests are rejected with ``RequestTimeout`` AFTER the lock is
+        released; their slots are already free by then.
         """
         now = self._now()
         with self._lock:
-            rows, evicted = [], []
-            for req in self._rows:
-                (evicted if req.expired(now=now) else rows).append(req)
+            rows, waits, evicted = [], [], []
+            for req, t in zip(self._rows, self._claim_t):
+                if req.expired(now=now):
+                    evicted.append(req)
+                else:
+                    rows.append(req)
+                    waits.append((now - t) * 1e3)
             self._rows = []
+            self._claim_t = []
             self.first_claim_t = None
             self.evictions += len(evicted)
         for req in evicted:
             on_evict(req, RequestTimeout(
                 f"request {req.id} expired in its claimed slot"
             ))
-        return rows
+        return rows, waits
 
 
 def assemble_requests(
     requests: list[ServeRequest],
     hw: tuple[int, int],
     batch_size: int,
+    slot_wait_ms: tuple = (),
 ) -> AssembledBatch:
     """Pad ≤``batch_size`` preprocessed requests into one device batch;
     surplus rows are whole pad-template slots with ``valid=False``."""
@@ -135,6 +149,7 @@ def assemble_requests(
         requests=list(requests),
         scales=scales,
         valid=valid,
+        slot_wait_ms=tuple(slot_wait_ms),
     )
 
 
@@ -253,13 +268,13 @@ class BucketBatcher:
             return "deadline"  # draining: flush what is claimed
         return None
 
-    def _seal_and_dispatch(self, reason: str) -> bool:
+    def _seal_and_dispatch(self, hb: watchdog.Heartbeat, reason: str) -> bool:
         """Assemble the pool into a padded batch and hand it over; False
         when the server closed under the put."""
         self._drain_claims()
         if self.pool.size() >= self.pool.capacity:
             reason = "full"
-        rows = self.pool.seal(self._on_reject)
+        rows, waits = self.pool.seal(self._on_reject)
         if self._gate is not None:
             self._gate.disarm(self.hw)  # the pool is empty again
         if not rows:
@@ -272,12 +287,18 @@ class BucketBatcher:
         else:
             self.deadline_fires += 1
         bsize = self._engine.batch_size_for(self.hw, len(rows))
-        assembled = assemble_requests(rows, self.hw, bsize)
+        with trace.span(
+            "serve_assemble", bucket=f"{self.hw[0]}x{self.hw[1]}", n=len(rows),
+            padded_to=bsize, reason=reason,
+        ):
+            assembled = assemble_requests(rows, self.hw, bsize, waits)
         self.batches += 1
+        hb.idle()  # a full dispatch queue is device backpressure
         if not stop_gated_put(self._out, assembled, self._stop):
             for req in rows:
                 self._on_reject(req, ServerClosed("server closed mid-batch"))
             return False
+        hb.beat()
         return True
 
     def _claim_timeout(self) -> float:
@@ -294,15 +315,24 @@ class BucketBatcher:
         return min(self._POLL_S, max(remaining, 1e-4))
 
     def _run(self) -> None:
+        hb = watchdog.register(
+            f"serve-batcher-{self.hw[0]}x{self.hw[1]}",
+            details=lambda: {
+                "qsize": self._in.qsize(),
+                "claimed": self.pool.size(),
+                "batches": self.batches,
+            },
+        )
         try:
             while True:
+                hb.beat()
                 if self._stop.is_set():
                     return
                 req = self._take_live(self._claim_timeout())
                 if req is not None and not self._claim(req):
                     # Full pool racing an empty seal (every claim had
                     # expired): seal to make room, then the claim holds.
-                    if not self._seal_and_dispatch("full"):
+                    if not self._seal_and_dispatch(hb, "full"):
                         self._on_reject(
                             req, ServerClosed("server closed mid-batch")
                         )
@@ -311,7 +341,9 @@ class BucketBatcher:
                 reason = self._seal_reason()
                 if reason is None:
                     continue
-                if not self._seal_and_dispatch(reason):
+                if not self._seal_and_dispatch(hb, reason):
                     return
         except Exception as exc:  # routed to the frontend: fails every future
             self._on_fatal(exc)
+        finally:
+            hb.close()

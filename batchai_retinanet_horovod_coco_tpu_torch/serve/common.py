@@ -1,41 +1,27 @@
 """Shared serve-side vocabulary: config, request lifecycle, errors, stats.
 
-The JAX package's ``serve/common.py`` without its tracing hooks: the serve
-machines (admission frontend, preprocess router, per-bucket batcher,
-one-behind device dispatcher) speak these types.  Every way a request can
-fail carries an explicit reason, because load shedding rejects with a
-reason instead of growing latency without bound.
+The JAX package's ``serve/common.py``: the serve machines (admission
+frontend, preprocess router, per-bucket batcher, one-behind device
+dispatcher) speak these types.  Every way a request can fail carries an
+explicit reason, because load shedding rejects with a reason instead of
+growing latency without bound.  The clock and the quantiles are the obs
+layer's (``obs/trace.py::monotonic_s``, ``obs/events.py::
+latency_percentiles``), so spans and latencies read one clock.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import Any, NamedTuple
 
 import numpy as np
 
-
-def monotonic_s() -> float:
-    """The serve layer's one clock: monotonic, sub-microsecond."""
-    return time.perf_counter()
-
-
-def latency_percentiles(
-    values_ms, ps: tuple[int, ...] = (50, 90, 99)
-) -> dict[str, float]:
-    """{count, p<p>_ms..., mean_ms, max_ms} with numpy's linear
-    interpolation; empty input → {}."""
-    arr = np.asarray(list(values_ms), dtype=np.float64)
-    if arr.size == 0:
-        return {}
-    out: dict[str, float] = {"count": int(arr.size)}
-    for p in ps:
-        out[f"p{p}_ms"] = round(float(np.percentile(arr, p)), 3)
-    out["mean_ms"] = round(float(arr.mean()), 3)
-    out["max_ms"] = round(float(arr.max()), 3)
-    return out
+# One clock and one quantile implementation for spans, events and serve
+# latencies.
+from batchai_retinanet_horovod_coco_tpu_torch.obs.events import latency_percentiles
+from batchai_retinanet_horovod_coco_tpu_torch.obs.trace import monotonic_s
+from batchai_retinanet_horovod_coco_tpu_torch.utils.locks import make_lock
 
 
 class ServeError(RuntimeError):
@@ -144,16 +130,25 @@ class ServeRequest:
     """One request's internal record as it moves through the stages."""
 
     __slots__ = (
-        "id", "payload", "deadline_t", "future", "t_submit",
-        "image", "scale", "orig_wh", "bucket",
+        "id", "payload", "deadline_t", "future", "t_submit", "span",
+        "trace_id", "image", "scale", "orig_wh", "bucket",
     )
 
-    def __init__(self, request_id: int, payload: Any, deadline_t: float | None):
+    def __init__(
+        self,
+        request_id: int,
+        payload: Any,
+        deadline_t: float | None,
+        trace_id: str | None = None,
+    ):
         self.id = request_id
         self.payload = payload  # encoded bytes or an HWC uint8 array
         self.deadline_t = deadline_t
         self.future = DetectionFuture()
         self.t_submit = monotonic_s()
+        self.span = None  # the serve_request trace handle (frontend owns it)
+        # The X-Retinanet-Trace id, tagged onto the serve_request span.
+        self.trace_id = trace_id
         # set by the router's preprocess:
         self.image: np.ndarray | None = None
         self.scale: np.float32 = np.float32(1.0)
@@ -174,6 +169,9 @@ class AssembledBatch(NamedTuple):
     requests: list  # the ≤B live ServeRequests, row-aligned
     scales: np.ndarray  # (B,) float32; 1.0 on pad rows
     valid: np.ndarray  # (B,) bool; False on pad rows
+    # Per live row: ms between its slot claim and the seal (the
+    # serve_slot_wait_ms telemetry source).
+    slot_wait_ms: tuple = ()
 
 
 class OccupancyStats:
@@ -211,7 +209,7 @@ class LatencyStats:
     computed lazily at ``snapshot()``, never on the request path."""
 
     def __init__(self, window: int = 4096):
-        self._lock = threading.Lock()
+        self._lock = make_lock("serve.common.LatencyStats._lock")
         self._window = max(16, window)
         self._latencies: list[float] = []
         self.completed = 0
@@ -237,6 +235,13 @@ class LatencyStats:
     def record_failure(self) -> None:
         with self._lock:
             self.failed += 1
+
+    def window_ms(self) -> list[float]:
+        """The raw recent-latency window in milliseconds (the sample set
+        behind ``snapshot()``'s quantiles; the telemetry histogram's
+        source)."""
+        with self._lock:
+            return [v * 1e3 for v in self._latencies]
 
     def snapshot(self) -> dict:
         with self._lock:

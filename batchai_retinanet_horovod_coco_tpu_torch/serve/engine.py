@@ -21,6 +21,9 @@ so the host-side fetch and conversion of N−1 overlap N's forward and NMS on
 the device.  In continuous mode a ``DispatchGate`` tells the bucket
 batchers when the device will take the next batch immediately, so partial
 batches seal against it instead of waiting out the coalescing deadline.
+The dispatcher heartbeats as ``serve-dispatch`` and spans each batch's
+``serve_dispatch`` and ``serve_fetch``; ``warmup`` spans each program's
+first run as ``serve_warmup``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.evaluate.detect import (
     DetectConfig,
     make_detect_fn,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.obs import trace, watchdog
 from batchai_retinanet_horovod_coco_tpu_torch.ops.nms import Detections
 from batchai_retinanet_horovod_coco_tpu_torch.serve.common import AssembledBatch
 from batchai_retinanet_horovod_coco_tpu_torch.utils.device import resolve_device
@@ -116,7 +120,8 @@ class DetectEngine:
         request path."""
         for hw in self.buckets:
             for b in self.batch_sizes(hw):
-                self.fetch(self.dispatch(hw, np.zeros((b, *hw, 3), np.uint8)))
+                with trace.span("serve_warmup", bucket=f"{hw[0]}x{hw[1]}", batch=b):
+                    self.fetch(self.dispatch(hw, np.zeros((b, *hw, 3), np.uint8)))
 
     # ---- constructors ----------------------------------------------------
 
@@ -252,17 +257,31 @@ class DeviceDispatcher:
         self._on_fatal = on_fatal
         self._stop = stop
         self._gate = gate
+        self.dispatched_batches = 0
+        # watchdog: registers in _run() at thread start.
         self.thread = threading.Thread(
             target=self._run, daemon=True, name="serve-dispatch"
         )
         self.thread.start()
 
     def _dispatch(self, assembled: AssembledBatch):
-        return self._engine.dispatch(assembled.hw, assembled.images)
+        with trace.span(
+            "serve_dispatch", bucket=f"{assembled.hw[0]}x{assembled.hw[1]}",
+            n=len(assembled.requests),
+        ):
+            det = self._engine.dispatch(assembled.hw, assembled.images)
+        self.dispatched_batches += 1
+        if trace.enabled():
+            trace.counter("serve.dispatch_qsize", self._queue.qsize())
+        return det
+
+    def _fetch(self, pending):
+        assembled, det = pending
+        with trace.span("serve_fetch", bucket=f"{assembled.hw[0]}x{assembled.hw[1]}"):
+            return self._engine.fetch(det)
 
     def _finish(self, pending) -> None:
-        assembled, det = pending
-        self._on_batch(assembled, self._engine.fetch(det))
+        self._on_batch(pending[0], self._fetch(pending))
 
     def _idle_flush(self, pending):
         """Queue ran dry with one batch in flight: fetch it now.  In
@@ -272,7 +291,7 @@ class DeviceDispatcher:
         if self._gate is None:
             self._finish(pending)
             return None
-        fetched = self._engine.fetch(pending[1])
+        fetched = self._fetch(pending)
         self._gate.set_ready()
         nxt = None
         try:
@@ -289,9 +308,19 @@ class DeviceDispatcher:
         return (nxt, det) if nxt is not None else None
 
     def _run(self) -> None:
+        # Beats on every poll (an idle dispatcher is healthy): a fetch
+        # hanging on the device stops the heartbeat.
+        hb = watchdog.register(
+            "serve-dispatch",
+            details=lambda: {
+                "qsize": self._queue.qsize(),
+                "dispatched": self.dispatched_batches,
+            },
+        )
         pending = None
         try:
             while True:
+                hb.beat()
                 if self._stop.is_set():
                     return
                 if self._gate is not None and pending is None:
@@ -315,3 +344,5 @@ class DeviceDispatcher:
                 pending = (assembled, det)
         except Exception as exc:  # routed to the frontend: fails every future
             self._on_fatal(exc)
+        finally:
+            hb.close()

@@ -3,9 +3,9 @@ the HTTP frontend and the command line.
 
 The JAX package's ``serve/frontend.py``: ``DetectionServer`` (``submit``,
 ``detect``, ``snapshot``, ``close`` and the context manager),
-``serve_http`` and the serve CLI, without the obs layer (telemetry,
-tracing spans, watchdog, events, SLOs), streaming and the stub engine.
-``DetectionServer`` wires the four serve machines together::
+``serve_http`` and the serve CLI, with the obs layer, without streaming
+and the stub engine.  ``DetectionServer`` wires the four serve machines
+together::
 
     submit(image) ──► admission queue (bounded; full ⇒ shed)
                         │  router workers: decode → resize → bucket
@@ -30,6 +30,14 @@ Contracts:
 - ``close()`` stops admission, waits (bounded) for in-flight requests,
   then stops the threads; it never hangs and is idempotent.
 
+Observability: every request is a ``serve_request`` span from submit to
+completion (tagged with its ``X-Retinanet-Trace`` id), each batch's
+conversion a ``serve_convert`` span; ``self.telemetry`` is a pull-only
+registry (the latency and slot-wait histograms, the ``snapshot()`` fields
+and the watchdog's ages, all read at scrape time), served as ``GET
+/metrics``, and ``GET /healthz`` is the watchdog's verdict; with an event
+sink, ``serve_stats`` events land every ``STATS_EVERY_BATCHES`` batches.
+
 The command line serves a ``convert_model`` export directory::
 
     python -m batchai_retinanet_horovod_coco_tpu_torch.serve --export-dir exported --http 8080
@@ -37,9 +45,8 @@ The command line serves a ``convert_model`` export directory::
         --images photos/ --output detections.jsonl
 
 Its flags are the JAX command line's, plus ``--device {cuda,cpu}``
-(default ``cuda``, which raises without a card); the stub engine, obs,
-SLO and replica flags and ``--platform`` are refused, naming
-``ROADMAP.md``.
+(default ``cuda``, which raises without a card); the stub engine and
+replica flags and ``--platform`` are refused, naming ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -49,15 +56,16 @@ import json
 import os
 import queue
 import signal
+import socket
 import sys
 import threading
-import uuid
 
 import numpy as np
 
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate.detect import (
     detections_to_coco,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.obs import telemetry, trace
 from batchai_retinanet_horovod_coco_tpu_torch.serve.batcher import BucketBatcher
 from batchai_retinanet_horovod_coco_tpu_torch.serve.common import (
     AssembledBatch,
@@ -79,6 +87,10 @@ from batchai_retinanet_horovod_coco_tpu_torch.serve.engine import (
     DispatchGate,
 )
 from batchai_retinanet_horovod_coco_tpu_torch.serve.router import Router
+from batchai_retinanet_horovod_coco_tpu_torch.utils.locks import make_lock
+
+#: With an event sink, one ``serve_stats`` event every this many batches.
+STATS_EVERY_BATCHES = 10
 
 
 class DetectionServer:
@@ -89,15 +101,38 @@ class DetectionServer:
         engine: DetectEngine,
         config: ServeConfig = ServeConfig(),
         warmup: bool = True,
+        sink=None,
     ):
         self.engine = engine
         self.config = config
+        self.sink = sink  # an obs.events.EventSink (serve_stats events) or None
+        # host-pid: stable for the server's life, unique among a host's
+        # servers; tagged onto every serve_request span.
+        self.replica_id = f"{socket.gethostname()}-{os.getpid()}"
         self.stats = LatencyStats(window=config.latency_window)
+        # Pull-only registry: the quantiles read the latency window and the
+        # collector reads snapshot(), at scrape time, so the request path
+        # pays nothing for /metrics existing.
+        self.telemetry = telemetry.Registry()
+        self.telemetry.histogram(
+            "serve_request_latency_ms",
+            "request latency over the recent window (accepted requests)",
+            source=self.stats.window_ms,
+        )
+        self._slot_waits: list[float] = []
+        self.telemetry.histogram(
+            "serve_slot_wait_ms",
+            "ms a claimed slot waited between claim and seal (continuous "
+            "in-flight batching admission latency)",
+            source=self._slot_wait_window,
+        )
+        self.telemetry.register_collector(self._telemetry_samples)
+        self.telemetry.register_collector(telemetry.watchdog_collector())
         if warmup:
             engine.warmup()
 
         self._stop = threading.Event()
-        self._lock = threading.Lock()
+        self._lock = make_lock("serve.frontend.DetectionServer._lock")
         self._drained = threading.Condition(self._lock)
         self._outstanding: dict[int, ServeRequest] = {}
         self._error: BaseException | None = None
@@ -152,11 +187,17 @@ class DetectionServer:
 
     # ---- client surface --------------------------------------------------
 
-    def submit(self, image, timeout_s: float | None = None) -> DetectionFuture:
+    def submit(
+        self,
+        image,
+        timeout_s: float | None = None,
+        trace_id: str | None = None,
+    ) -> DetectionFuture:
         """Enqueue one image (encoded JPEG/PNG bytes or an HWC uint8 RGB
         array); returns a future.  Raises
         ``RequestRejected`` when shed at admission, ``ServerClosed`` after
-        close, ``ServerError`` after a crash."""
+        close, ``ServerError`` after a crash.  ``trace_id`` tags the
+        request's ``serve_request`` span (and a ``request`` flow step)."""
         self._raise_pending()
         if timeout_s is None:
             timeout_s = self.config.default_timeout_s
@@ -164,7 +205,15 @@ class DetectionServer:
             next(self._ids),
             image,
             None if timeout_s is None else monotonic_s() + timeout_s,
+            trace_id=trace_id,
         )
+        if trace_id is None:
+            req.span = trace.begin("serve_request", id=req.id, replica=self.replica_id)
+        else:
+            req.span = trace.begin(
+                "serve_request", id=req.id, replica=self.replica_id, trace=trace_id
+            )
+            trace.flow_step("request", trace_id)
         # The accepting check and the registration share ONE lock
         # acquisition: close()/_fail() flip _accepting and then reject
         # everything registered, so a request registered after a lock-free
@@ -172,6 +221,7 @@ class DetectionServer:
         with self._lock:
             if not self._accepting:
                 self.stats.record_shed("shutting_down")
+                trace.end(req.span)
                 raise ServerClosed("server is draining/closed")
             self._outstanding[req.id] = req
         try:
@@ -180,6 +230,8 @@ class DetectionServer:
             exc = RequestRejected("admission_queue_full")
             self._reject(req, exc)
             raise exc from None
+        if trace.enabled():
+            trace.counter("serve.admission_qsize", self._admission.qsize())
         return req.future
 
     def detect(self, image, timeout_s: float | None = None) -> list[dict]:
@@ -202,13 +254,97 @@ class DetectionServer:
         snap["full_fires"] = sum(b.full_fires for b in self._batchers)
         snap["ready_fires"] = sum(b.ready_fires for b in self._batchers)
         snap["slot_evictions"] = sum(b.pool.evictions for b in self._batchers)
-        snap["free_slots"] = sum(b.pool.free_slots() for b in self._batchers)
+        snap["free_slots"] = self.free_slots()
         snap["slot_capacity"] = sum(b.pool.capacity for b in self._batchers)
         occ = self.occupancy.snapshot()
         snap["occupancy_mean"] = occ.get("mean")
         snap["occupancy_last"] = occ.get("last")
         snap["continuous"] = self.config.continuous
         return snap
+
+    def free_slots(self) -> int:
+        """Unclaimed slots across every bucket's ASSEMBLING batch."""
+        return sum(b.pool.free_slots() for b in self._batchers)
+
+    def _slot_wait_window(self) -> list[float]:
+        with self._lock:
+            return list(self._slot_waits)
+
+    def _telemetry_samples(self):
+        """Scrape-time collector: the snapshot() fields as Prometheus
+        families (counters for lifetime totals, gauges for live depths)."""
+        snap = self.snapshot()
+        yield ("serve_requests_completed_total", "counter",
+               "requests completed successfully", None, snap["completed"])
+        yield ("serve_requests_timeout_total", "counter",
+               "requests that expired past their deadline", None,
+               snap["timeouts"])
+        yield ("serve_requests_failed_total", "counter",
+               "requests failed by a server error", None, snap["failed"])
+        for reason, n in sorted(snap["shed"].items()):
+            yield ("serve_shed_total", "counter",
+                   "requests shed by admission control, by reason",
+                   {"reason": reason}, n)
+        yield ("serve_batches_total", "counter",
+               "device batches dispatched", None, snap["batches"])
+        yield ("serve_deadline_fires_total", "counter",
+               "partial batches fired by the coalescing deadline", None,
+               snap["deadline_fires"])
+        yield ("serve_ready_fires_total", "counter",
+               "partial batches sealed by the dispatch gate (continuous "
+               "in-flight batching)", None, snap["ready_fires"])
+        yield ("serve_slot_evictions_total", "counter",
+               "claimed slots freed by expired-deadline eviction at the "
+               "dispatch window", None, snap["slot_evictions"])
+        yield ("serve_free_slots", "gauge",
+               "unclaimed slots across the assembling batches (idle "
+               "device capacity the fleet router steers on)", None,
+               snap["free_slots"])
+        if snap["occupancy_mean"] is not None:
+            yield ("serve_batch_occupancy_mean", "gauge",
+                   "mean live-rows/batch-size over the recent batch "
+                   "window", None, snap["occupancy_mean"])
+            yield ("serve_batch_occupancy_last", "gauge",
+                   "live-rows/batch-size of the last dispatched batch",
+                   None, snap["occupancy_last"])
+        yield ("serve_inflight", "gauge",
+               "requests accepted and not yet resolved", None,
+               snap["outstanding"])
+        yield ("serve_queue_depth", "gauge", "live queue depths",
+               {"queue": "admission"}, snap["admission_qsize"])
+        yield ("serve_queue_depth", "gauge", "live queue depths",
+               {"queue": "dispatch"}, snap["dispatch_qsize"])
+        for bucket, depth in sorted(snap["bucket_qsize"].items()):
+            yield ("serve_queue_depth", "gauge", "live queue depths",
+                   {"queue": f"bucket_{bucket}"}, depth)
+        yield ("serve_queue_capacity", "gauge",
+               "configured queue bounds (the shed thresholds)",
+               {"queue": "admission"}, max(1, self.config.admission_queue))
+        yield ("serve_queue_capacity", "gauge",
+               "configured queue bounds (the shed thresholds)",
+               {"queue": "dispatch"}, max(1, self.config.dispatch_depth))
+
+    def load_fields(self) -> dict:
+        """The load summary the /healthz payload carries: identity,
+        in-flight, queue depths against their bounds, the windowed p99 and
+        the slot occupancy."""
+        snap = self.snapshot()
+        return {
+            "replica_id": self.replica_id,
+            "version": getattr(self.engine, "version", "live"),
+            "inflight": snap["outstanding"],
+            "admission_qsize": snap["admission_qsize"],
+            "admission_capacity": max(1, self.config.admission_queue),
+            "dispatch_qsize": snap["dispatch_qsize"],
+            "bucket_qsize": snap["bucket_qsize"],
+            "p99_ms": snap.get("p99_ms"),
+            "completed": snap["completed"],
+            "shed_total": snap["shed_total"],
+            "free_slots": snap["free_slots"],
+            "slot_capacity": snap["slot_capacity"],
+            "occupancy": snap["occupancy_mean"],
+            "accepting": self._accepting,
+        }
 
     def close(self, drain: bool = True, timeout_s: float | None = None) -> None:
         """Stop accepting, optionally drain in-flight work, stop threads.
@@ -240,6 +376,7 @@ class DetectionServer:
             self._dispatcher.thread,
         ):
             t.join(timeout=10)
+        self._emit_stats(final=True)
 
     def __enter__(self) -> "DetectionServer":
         return self
@@ -256,6 +393,7 @@ class DetectionServer:
             if self._outstanding.pop(req.id, None) is None:
                 return False
             self._drained.notify_all()
+        trace.end(req.span)
         if error is None:
             self.stats.record(monotonic_s() - req.t_submit)
             req.future._set_result(result)
@@ -304,35 +442,75 @@ class DetectionServer:
         convert."""
         reqs = assembled.requests
         n = assembled.images.shape[0]
-        for i, req in enumerate(reqs):
-            row = type(det)(
-                det.boxes[i:i + 1], det.scores[i:i + 1],
-                det.labels[i:i + 1], det.valid[i:i + 1],
-            )
-            dets = detections_to_coco(
-                row,
-                np.array([req.id], dtype=np.int64),
-                assembled.scales[i:i + 1],
-                assembled.valid[i:i + 1],
-                self.engine.label_to_cat_id,
-                image_sizes={req.id: req.orig_wh},
-            )
-            for d in dets:
-                d.pop("image_id", None)  # request-scoped; transport
-            if req.expired():
-                self._finish(req, error=RequestTimeout(
-                    f"request {req.id} finished after its deadline"
-                ))
-            else:
-                self._finish(req, result=dets)
+        with trace.span(
+            "serve_convert", bucket=f"{assembled.hw[0]}x{assembled.hw[1]}", n=len(reqs),
+        ):
+            for i, req in enumerate(reqs):
+                row = type(det)(
+                    det.boxes[i:i + 1], det.scores[i:i + 1],
+                    det.labels[i:i + 1], det.valid[i:i + 1],
+                )
+                dets = detections_to_coco(
+                    row,
+                    np.array([req.id], dtype=np.int64),
+                    assembled.scales[i:i + 1],
+                    assembled.valid[i:i + 1],
+                    self.engine.label_to_cat_id,
+                    image_sizes={req.id: req.orig_wh},
+                )
+                for d in dets:
+                    d.pop("image_id", None)  # request-scoped; transport
+                if req.expired():
+                    self._finish(req, error=RequestTimeout(
+                        f"request {req.id} finished after its deadline"
+                    ))
+                else:
+                    self._finish(req, result=dets)
         self._batches_done += 1
         self.occupancy.record(len(reqs) / max(1, n))
+        if assembled.slot_wait_ms:
+            with self._lock:
+                self._slot_waits.extend(assembled.slot_wait_ms)
+                if len(self._slot_waits) > 4096:
+                    del self._slot_waits[:-4096]
+        if telemetry.enabled():
+            # Arguments built only when enabled: free_slots() takes a lock
+            # a bucket pool.
+            telemetry.record_serve_batch(
+                occupancy=len(reqs) / max(1, n),
+                free_slots=self.free_slots(),
+                slot_wait_ms=assembled.slot_wait_ms,
+            )
+        if self.sink is not None and self._batches_done % STATS_EVERY_BATCHES == 0:
+            self._emit_stats()
+
+    def _emit_stats(self, final: bool = False) -> None:
+        if self.sink is None:
+            return
+        try:
+            self.sink.event("serve_stats", final=final, **_flatten(self.snapshot()))
+            # The full latency distribution rides along for offline analysis.
+            self.sink.histogram("serve.request_latency", self.stats.window_ms())
+        except Exception:
+            pass  # stats must never take the serving path down
+
+
+def _flatten(snap: dict) -> dict:
+    """Nested snapshot → JSONL-friendly flat fields."""
+    out = {}
+    for k, v in snap.items():
+        if isinstance(v, dict):
+            for kk, vv in v.items():
+                out[f"{k}.{kk}"] = vv
+        else:
+            out[k] = v
+    return out
 
 
 # ---- stdlib HTTP frontend ------------------------------------------------
 
 #: Request header carrying a trace id, echoed on every /detect response.
-TRACE_HEADER = "X-Retinanet-Trace"
+TRACE_HEADER = trace.TRACE_HEADER
 
 
 def serve_http(
@@ -348,12 +526,17 @@ def serve_http(
                    retryable), 503 with the reason on a shed (retryable),
                    504 on a deadline, 500 on a server error
     GET  /stats    → 200 JSON stats snapshot
-    anything else  → 404 (``/healthz``, ``/metrics`` and ``/stream*`` wait
-                   for their slices)
+    GET  /metrics  → 200 Prometheus text exposition (``server.telemetry``)
+    GET  /healthz  → 200 ``{"status": "ok", ...}`` with the load fields
+                   while every watchdog component is within its budget,
+                   503 naming the most-stalled component otherwise (a
+                   read-only probe)
+    anything else  → 404 (``/stream*`` waits for its slice)
 
     Every /detect response echoes the ``X-Retinanet-Trace`` request header
     (an id is minted when it is absent) as that header and as a
-    ``trace_id`` field.  ``request_timeout_s`` bounds each handler's wait
+    ``trace_id`` field; the id tags the request's ``serve_request``
+    span.  ``request_timeout_s`` bounds each handler's wait
     on its future, so a client never hangs on a wedged pipeline.  The
     listen backlog is 128 connections (the stdlib's is 5).  Returns the
     ``http.server`` instance; the caller owns ``serve_forever()`` and
@@ -377,6 +560,17 @@ def serve_http(
         def do_GET(self):  # noqa: N802 (stdlib casing)
             if self.path == "/stats":
                 self._json(200, server.snapshot())
+            elif self.path == "/healthz":
+                code, payload = telemetry.healthz()
+                payload["load"] = server.load_fields()
+                self._json(code, payload)
+            elif self.path == "/metrics":
+                body = server.telemetry.prometheus_text().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
             else:
                 self._json(404, {"error": "not_found"})
 
@@ -384,10 +578,10 @@ def serve_http(
             if self.path != "/detect":
                 self._json(404, {"error": "not_found"})
                 return
-            trace_id = self.headers.get(TRACE_HEADER) or uuid.uuid4().hex[:16]
+            trace_id = self.headers.get(TRACE_HEADER) or trace.new_trace_id()
             body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
             try:
-                dets = server.submit(body).result(timeout=request_timeout_s)
+                dets = server.submit(body, trace_id=trace_id).result(timeout=request_timeout_s)
             except RequestRejected as exc:
                 code = 400 if exc.reason == "decode_error" else 503
                 self._json(code, {"error": "rejected", "reason": exc.reason}, trace_id=trace_id)
@@ -414,8 +608,6 @@ def serve_http(
 #: The JAX command line's flags whose machinery is not ported.
 REFUSED_FLAGS = (
     "--stub-engine", "--stub-delay-ms", "--stub-video", "--platform", "--replica-id",
-    "--obs-trace", "--obs-dir", "--obs-stall-timeout", "--obs-port", "--slo-rule",
-    "--slo-poll-s", "--numerics",
 )
 IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".bmp")
 
@@ -423,7 +615,10 @@ IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".bmp")
 def build_parser():
     import argparse
 
-    from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import add_serve_flags
+    from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import (
+        add_obs_flags,
+        add_serve_flags,
+    )
 
     p = argparse.ArgumentParser(
         description="Serve an exported detector (convert_model output) over "
@@ -447,6 +642,7 @@ def build_parser():
                    help="where the programs run (the device they were "
                         "exported on); cuda raises without a card")
     add_serve_flags(p)
+    add_obs_flags(p)
     return p
 
 
@@ -457,8 +653,7 @@ def refuse_unported(argv: list[str]) -> None:
     if refused:
         raise SystemExit(
             f"{', '.join(refused)}: not ported to the PyTorch package yet (the stub "
-            "engine, the obs and SLO layers, replicas and --platform; pass --device "
-            "for the device); see ROADMAP.md"
+            "engine, replicas and --platform; pass --device for the device); see ROADMAP.md"
         )
 
 
@@ -501,36 +696,77 @@ def _run_offline(server: DetectionServer, image_dir: str, output: str | None) ->
 
 
 def main(argv: list[str] | None = None) -> dict:
-    """Run the command line ``argv``; returns the final stats snapshot."""
-    from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import make_serve_config
+    """Run the command line ``argv``; returns the final stats snapshot.
+
+    ``--obs-trace``/``--obs-dir`` trace the serve threads into the obs
+    directory (``trace.json`` at exit, ``serve_stats``, ``watchdog_stall``
+    and ``slo_violation`` events in its ``metrics.jsonl``); ``--obs-port``
+    serves ``/metrics``, ``/healthz`` and ``/statusz`` on a port of its
+    own and, like ``--slo-rule``, starts the SLO monitor (the watchdog
+    stall rule always included).  A port that cannot bind raises.
+    ``--numerics`` is the training step's and changes nothing here."""
+    from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import (
+        configure_obs,
+        make_serve_config,
+    )
 
     argv = list(sys.argv[1:] if argv is None else argv)
     refuse_unported(argv)
     args = build_parser().parse_args(argv)
-    engine = DetectEngine.from_export(args.export_dir, args.device)
-    print(
-        f"engine: buckets={engine.buckets} "
-        f"batch_sizes={ {hw: engine.batch_sizes(hw) for hw in engine.buckets} } "
-        f"resize={engine.min_side}/{engine.max_side} version={engine.version} "
-        f"device={engine.device}",
-        flush=True,
-    )
-
+    obs_dir = configure_obs(args, process_label="serve")
+    sink = None
+    slo_monitor = None
+    status_server = None
+    server = None
     # SIGTERM exits through the same path as an interrupt: the server
-    # drains instead of dying mid-request.
+    # drains instead of dying mid-request, and the trace is exported.
     def on_sigterm(_signum, _frame):
         raise KeyboardInterrupt
 
     main_thread = threading.current_thread() is threading.main_thread()
     previous = signal.signal(signal.SIGTERM, on_sigterm) if main_thread else None
-    server = DetectionServer(engine, make_serve_config(args))
     try:
+        engine = DetectEngine.from_export(args.export_dir, args.device)
+        print(
+            f"engine: buckets={engine.buckets} "
+            f"batch_sizes={ {hw: engine.batch_sizes(hw) for hw in engine.buckets} } "
+            f"resize={engine.min_side}/{engine.max_side} version={engine.version} "
+            f"device={engine.device}",
+            flush=True,
+        )
+        if obs_dir is not None:
+            from batchai_retinanet_horovod_coco_tpu_torch.obs import watchdog
+            from batchai_retinanet_horovod_coco_tpu_torch.obs.events import EventSink
+
+            sink = EventSink(obs_dir, stdout=False, run_config=vars(args))
+            watchdog.default().sink = sink
+        server = DetectionServer(engine, make_serve_config(args), sink=sink)
+        if obs_dir is not None or args.slo_rule or args.obs_port is not None:
+            telemetry.enable()  # the push record sites (record_serve_batch)
+        if args.slo_rule or args.obs_port is not None:
+            from batchai_retinanet_horovod_coco_tpu_torch.obs import slo
+
+            slo_monitor = slo.SloMonitor(
+                server.telemetry,
+                [slo.stall_rule()] + [slo.parse_rule(r) for r in args.slo_rule or []],
+                sink=sink,
+                poll_interval=args.slo_poll_s,
+            ).start()
+        if args.obs_port is not None:
+            # A scrape port apart from request traffic (and the only one
+            # in the offline --images mode).
+            status_server = telemetry.start_http_server(
+                server.telemetry, port=args.obs_port, host=args.host
+            )
+            print(f"telemetry on http://{status_server.host}:{status_server.port} "
+                  "(/metrics /healthz /statusz)", flush=True)
         if args.images is not None:
             _run_offline(server, args.images, args.output)
         else:
             httpd = serve_http(server, args.host, args.http)
             host, port = httpd.server_address[:2]
-            print(f"serving on http://{host}:{port} (POST /detect; GET /stats)", flush=True)
+            print(f"serving on http://{host}:{port} (POST /detect; GET /stats /metrics /healthz)",
+                  flush=True)
             try:
                 httpd.serve_forever()
             except KeyboardInterrupt:
@@ -546,6 +782,19 @@ def main(argv: list[str] | None = None) -> dict:
         print(json.dumps({"serve_stats": snap}), flush=True)
         return snap
     finally:
-        server.close()
+        if slo_monitor is not None:
+            slo_monitor.stop()
+        if status_server is not None:
+            status_server.close()
+        if server is not None:
+            server.close()
+        if sink is not None:
+            sink.close()
+        if obs_dir is not None:
+            from batchai_retinanet_horovod_coco_tpu_torch import obs
+
+            merged = obs.finalize()
+            if merged:
+                print(f"obs: merged Chrome trace at {merged}", flush=True)
         if main_thread:
             signal.signal(signal.SIGTERM, previous)

@@ -10,7 +10,9 @@ is a ``decode_error``, where the JAX package's PIL decode serves it.
 
 Failure routing is per request: a bad payload rejects THAT request with
 ``decode_error`` and the worker moves on; only a crash of the worker loop
-itself escalates to ``on_fatal``.
+itself escalates to ``on_fatal``.  Each worker heartbeats as
+``serve-preprocess`` and spans a request's decode and resize as
+``serve_preprocess``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
     bucket_for_source,
     resize_for_bucket,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.obs import trace, watchdog
 from batchai_retinanet_horovod_coco_tpu_torch.serve.common import (
     RequestRejected,
     RequestTimeout,
@@ -69,6 +72,7 @@ class Router:
         self._on_reject = on_reject
         self._on_fatal = on_fatal
         self._stop = stop
+        # watchdog: each worker registers in _run() at thread start.
         self.threads = [
             threading.Thread(
                 target=self._run, daemon=True, name=f"serve-preprocess-{i}"
@@ -86,15 +90,16 @@ class Router:
             ))
             return
         try:
-            image = decode_payload(req.payload)
-            h, w = image.shape[:2]
-            bucket = bucket_for_source(
-                h, w, self._engine.min_side, self._engine.max_side,
-                self._engine.buckets,
-            )
-            resized, scale = resize_for_bucket(
-                image, bucket, self._engine.min_side, self._engine.max_side,
-            )
+            with trace.span("serve_preprocess"):
+                image = decode_payload(req.payload)
+                h, w = image.shape[:2]
+                bucket = bucket_for_source(
+                    h, w, self._engine.min_side, self._engine.max_side,
+                    self._engine.buckets,
+                )
+                resized, scale = resize_for_bucket(
+                    image, bucket, self._engine.min_side, self._engine.max_side,
+                )
         except Exception as exc:  # bad input, not a broken server
             self._on_reject(req, RequestRejected("decode_error", repr(exc)))
             return
@@ -109,8 +114,13 @@ class Router:
             self._on_reject(req, RequestRejected("bucket_queue_full"))
 
     def _run(self) -> None:
+        # Beats on every poll: only a wedged decode or resize stops it.
+        hb = watchdog.register(
+            "serve-preprocess", details=lambda: {"admission_qsize": self._in.qsize()}
+        )
         try:
             while not self._stop.is_set():
+                hb.beat()
                 try:
                     req = self._in.get(timeout=self._POLL_S)
                 except queue.Empty:
@@ -118,3 +128,5 @@ class Router:
                 self._preprocess(req)
         except Exception as exc:  # routed to the frontend: fails every future
             self._on_fatal(exc)
+        finally:
+            hb.close()

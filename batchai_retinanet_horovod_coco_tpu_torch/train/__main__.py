@@ -16,13 +16,25 @@ a COCO eval (``evaluate/detect.py::run_coco_eval``, plus VOC AP for csv
 and pascal) → the final step and the last eval's stats.  ``--eval-only``
 restores the snapshot and evaluates it (``evaluate/__main__.py``).
 
+The obs flags are the JAX command line's (``utils/cli.py::add_obs_flags``):
+``--obs-trace``/``--obs-dir`` trace the run into the obs directory
+(``trace.json``, watchdog stack dumps; ``--log-dir`` defaults to it),
+``--obs-port`` serves the live telemetry (``/metrics``, ``/healthz``,
+``/statusz``), ``--slo-rule`` adds SLO rules to the built-in ones, and
+``--numerics`` puts the numerics summary into each step.  A non-finite
+loss writes ``NUMERICS_DUMP.json`` into the obs directory or ``--log-dir``
+before the run raises, and ``--auto-resume`` excludes its batch's image ids
+from the reseeded stream.  ``--log-dir``'s ``metrics.jsonl`` is the
+``obs/events.py::EventSink`` stream (a run header, ``train/<metric>`` and
+``eval/<metric>`` records, events).
+
 Refused with a message naming ``ROADMAP.md``, since what they need is not
 ported: more than one device, spatial sharding, the sharded weight update
 and the quantized allreduce, the distributed launch flags, the
 multiprocess decode, TensorBoard, ``--debug-nans``, ``--pretrained-backbone``,
 a stem other than the default, ``--pack-width``, and the backbones other
-than the ResNets.  The telemetry, obs and gradient-communication flags
-and ``--platform`` are left out; the ``dp8`` and ``pod`` presets too.
+than the ResNets.  The gradient-communication flags and ``--platform`` are
+left out; the ``dp8`` and ``pod`` presets too.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import json
 import os
 import sys
 import tempfile
+import warnings
 
 import numpy as np
 import torch
@@ -43,10 +56,13 @@ from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import (
     DEFAULT_STEM,
     STEMS,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.obs.events import EventSink, emit_event
 from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import (
     add_anchor_flags,
     add_data_pipeline_flags,
     add_durability_flags,
+    add_obs_flags,
+    configure_obs,
     resolve_anchor_config,
     save_anchor_config,
 )
@@ -171,6 +187,7 @@ def build_parser() -> argparse.ArgumentParser:
         g.add_argument("--tensorboard", action="store_true", help="not ported")
         g.add_argument("--profile-dir", default=None,
                        help="write a torch.profiler trace of a few steps here")
+        add_obs_flags(g)
         g.add_argument("--debug-nans", action="store_true", help="not ported")
         g.add_argument("--eval-only", action="store_true")
         g.add_argument("--score-threshold", type=float, default=0.05)
@@ -293,32 +310,87 @@ def make_datasets(args):
     return train, val
 
 
-class MetricLog:
-    """The loop's ``log(step, scalars)``: one JSON line a record on stdout
-    and, with a ``log_dir``, appended to its ``metrics.jsonl``; keeps the
-    last eval's stats."""
+class RunLog:
+    """The loop's ``log(step, scalars)`` over an ``EventSink``: one JSON
+    line a record on stdout, and in ``--log-dir``'s ``metrics.jsonl`` the
+    sink's records (``train/<k>``, and ``eval/<k>`` for the eval's stats);
+    ``event`` is the sink's.  Keeps the last eval's stats."""
 
-    def __init__(self, log_dir: str | None):
+    def __init__(self, sink: EventSink):
+        self.sink = sink
         self.last_eval: dict[str, float] = {}
-        self._file = None
-        if log_dir:
-            os.makedirs(log_dir, exist_ok=True)
-            self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
 
     def __call__(self, step: int, scalars: dict[str, float]) -> None:
-        line = json.dumps({"step": int(step), **scalars})
-        print(line, flush=True)
-        if self._file is not None:
-            self._file.write(line + "\n")
-            self._file.flush()
-        evals = {k: v for k, v in scalars.items() if k.startswith("eval/")}
+        print(json.dumps({"step": int(step), **scalars}), flush=True)
+        evals = {k.removeprefix("eval/"): v for k, v in scalars.items() if k.startswith("eval/")}
+        rest = {k: v for k, v in scalars.items() if not k.startswith("eval/")}
+        if rest:
+            self.sink.log(int(step), rest, prefix="train")
         if evals:
-            self.last_eval = evals
+            self.sink.log(int(step), evals, prefix="eval")
+            self.last_eval = {f"eval/{k}": v for k, v in evals.items()}
+
+    def event(self, kind: str, **fields) -> None:
+        self.sink.event(kind, **fields)
 
     def close(self) -> None:
-        if self._file is not None:
-            self._file.close()
-            self._file = None
+        self.sink.close()
+
+
+def _start_telemetry(args, sink: EventSink):
+    """The ``--obs-port`` status server over the process registry the loop
+    feeds, and the SLO monitor (the built-in rules, then ``--slo-rule``'s),
+    its violations into the run's ``metrics.jsonl``.  Returns ``(server,
+    monitor)``, each None when neither flag is given; the caller closes
+    both.  A port that cannot bind raises."""
+    rule_specs = args.slo_rule or []
+    if args.obs_port is None and not rule_specs:
+        return None, None
+    from batchai_retinanet_horovod_coco_tpu_torch.obs import slo, telemetry
+
+    telemetry.enable()  # arm the loop's push record sites
+    server = None
+    if args.obs_port is not None:
+        server = telemetry.start_http_server(telemetry.default(), port=args.obs_port)
+        print(f"obs: telemetry on http://{server.host}:{server.port} "
+              "(/metrics /healthz /statusz)", flush=True)
+    try:
+        # Built-ins first: the watchdog stall, any non-finite value (the
+        # loop's trips and the numerics summary feed it), a grad-norm
+        # spike and checkpoint staleness (each silent until its series
+        # exists).
+        monitor = slo.SloMonitor(
+            telemetry.default(),
+            [slo.stall_rule(), slo.nonfinite_rule(), slo.grad_norm_spike(),
+             slo.ckpt_staleness_rule()]
+            + [slo.parse_rule(spec) for spec in rule_specs],
+            sink=sink,
+            poll_interval=args.slo_poll_s,
+        ).start()
+    except BaseException:
+        if server is not None:
+            server.close()
+        raise
+    return server, monitor
+
+
+def _read_poison_ids(exc: FloatingPointError) -> list[int]:
+    """The tripped batch's image ids from the ``NUMERICS_DUMP.json`` that
+    the trip ``exc`` wrote (the loop's abort, just before raising); [] and
+    a warning when it wrote none or the file holds another trip's dump."""
+    from batchai_retinanet_horovod_coco_tpu_torch.obs.numerics import load_dump
+
+    step, metric = getattr(exc, "step", None), getattr(exc, "metric", None)
+    path = getattr(exc, "dump_path", None)
+    try:
+        dump = load_dump(path) if path else {}
+    except (OSError, ValueError):
+        dump = {}
+    if dump.get("step") != step or (dump.get("tripped") or {}).get("metric") != metric:
+        warnings.warn(f"no numerics dump of the trip at step {step} ({path}): the resumed run "
+                      "excludes no images")
+        return []
+    return [int(i) for i in dump.get("batch_image_ids") or []]
 
 
 def _elastic_plan(args) -> dict:
@@ -371,10 +443,11 @@ class _NanInjector:
     (uint8 cannot hold one; the step's normalization passes floats
     through), once a process: ``latch`` is shared across auto-resumes."""
 
-    def __init__(self, inner, at_batch: int, latch: dict):
+    def __init__(self, inner, at_batch: int, latch: dict, sink: EventSink | None = None):
         self._inner = inner
         self._at = int(at_batch)
         self._latch = latch
+        self._sink = sink
         self._count = 0
 
     def __iter__(self):
@@ -388,9 +461,8 @@ class _NanInjector:
             images = batch.images.astype(np.float32, copy=True)
             images[0, 0, 0, 0] = np.nan
             batch = batch._replace(images=images)
-            print(json.dumps({"event": "chaos_nan_injected", "batch": self._count,
-                              "image_ids": [int(i) for i in batch.image_ids]}),
-                  file=sys.stderr, flush=True)
+            emit_event("chaos_nan_injected", sink=self._sink, batch=self._count,
+                       image_ids=[int(i) for i in batch.image_ids])
         return batch
 
 
@@ -400,6 +472,27 @@ def main(argv=None) -> dict[str, float]:
     under ``eval/`` names."""
     args = parse_args(argv)
     refuse_unported(args)
+    # The obs layer comes up before any thread starts; its finalize runs
+    # even when the run dies (the partial trace is the post-mortem).
+    obs_dir = configure_obs(args, process_label="train")
+    if obs_dir is None:
+        return _run(args)
+    if not args.log_dir:
+        args.log_dir = obs_dir  # the events land beside the trace
+    try:
+        return _run(args)
+    finally:
+        from batchai_retinanet_horovod_coco_tpu_torch import obs
+
+        merged = obs.finalize()
+        if merged:
+            # The JAX CLI then writes PERF_REPORT.json (obs/analyze),
+            # which waits for ROADMAP.md queue 1 item 12.
+            print(f"obs: merged Chrome trace at {merged} (load in Perfetto / "
+                  "chrome://tracing)", flush=True)
+
+
+def _run(args) -> dict[str, float]:
 
     from batchai_retinanet_horovod_coco_tpu_torch.data import (
         PipelineConfig,
@@ -494,7 +587,14 @@ def main(argv=None) -> dict[str, float]:
         finally:
             val_batches.close()
 
-    log = MetricLog(args.log_dir)
+    log = RunLog(EventSink(args.log_dir, stdout=False, run_config=vars(args)))
+    if args.obs_trace or args.obs_dir:
+        # Stall diagnoses land in metrics.jsonl beside the metrics they
+        # interrupt.
+        from batchai_retinanet_horovod_coco_tpu_torch.obs import watchdog
+
+        watchdog.default().sink = log.sink
+    telem_server, slo_monitor = _start_telemetry(args, log.sink)
     try:
         if args.eval_only:
             if args.snapshot_path:
@@ -529,6 +629,9 @@ def main(argv=None) -> dict[str, float]:
             device_prefetch=args.device_prefetch,
             async_eval=args.async_eval,
             ckpt_metadata=ckpt_metadata,
+            numerics=args.numerics,
+            numerics_dump_dir=args.obs_dir or args.log_dir,
+            rng_seed=args.seed,
         )
         run_eval = args.eval_every or args.dataset_type in ("coco", "pascal") or (
             args.dataset_type == "csv" and val_ds is not None
@@ -546,7 +649,7 @@ def main(argv=None) -> dict[str, float]:
             )
             batches = train_batches
             if args.inject_nan_step:
-                batches = _NanInjector(train_batches, args.inject_nan_step, latch)
+                batches = _NanInjector(train_batches, args.inject_nan_step, latch, log.sink)
             try:
                 state = run_training(
                     state, batches, num_classes, loop_config, anchor_config=anchor_config,
@@ -559,18 +662,26 @@ def main(argv=None) -> dict[str, float]:
                 if (not args.auto_resume or attempt > args.max_auto_resumes or args.no_resume
                         or restored is None):
                     raise
-                # A new deterministic order from the restored step: its
-                # seed and base go into every later manifest.
+                # A new deterministic order from the restored step, without
+                # the tripped batch's images: its seed, exclusions and base
+                # go into every later manifest.
                 data_seed, skip_batches = int(args.seed) + 7919 * attempt, 0
-                ckpt_metadata.update(data_seed=data_seed, stream_base_step=int(restored))
-                print(json.dumps({"event": "auto_resume", "attempt": attempt,
-                                  "restored_step": int(restored), "data_seed": data_seed,
-                                  "error": str(exc)[:300]}), file=sys.stderr, flush=True)
+                poison = _read_poison_ids(exc)
+                exclude_ids = tuple(sorted(set(exclude_ids) | set(poison)))
+                ckpt_metadata.update(data_seed=data_seed, exclude_ids=list(exclude_ids),
+                                     stream_base_step=int(restored))
+                emit_event("auto_resume", sink=log.sink, attempt=attempt,
+                           restored_step=int(restored), data_seed=data_seed,
+                           exclude_ids=list(exclude_ids), error=str(exc)[:300])
                 state = build_state()
             finally:
                 train_batches.close()
         return {"final_step": float(state.step), **log.last_eval}
     finally:
+        if slo_monitor is not None:
+            slo_monitor.stop()
+        if telem_server is not None:
+            telem_server.close()
         log.close()
 
 

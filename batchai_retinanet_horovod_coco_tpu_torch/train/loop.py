@@ -9,12 +9,20 @@ steps; evaluate every ``eval_every`` steps, in line or, with
 ``async_eval``, on a snapshot of the weights in a background thread; at
 the end, join the eval in flight, run a final synchronous eval and a final
 save.  A non-finite ``loss`` or ``param_norm`` raises
-``FloatingPointError``, checked at every log and before every save, so a
-poisoned state never reaches disk.  On an error the eval in flight is
-reaped and the checkpoint writer closed without masking the error.
+``NonFiniteError``, checked at every log and before every save, so a
+poisoned state never reaches disk; before it raises, the provenance pass
+of ``obs/numerics.py`` writes ``NUMERICS_DUMP.json`` (the tripped step's
+image ids, the first non-finite layer, parameter and metric) into
+``numerics_dump_dir`` or the trace directory.  On an error the eval in
+flight is reaped and the checkpoint writer closed without masking the
+error.
 
-The JAX loop's numerics recorder and its NaN provenance dump are not
-ported (``ROADMAP.md``).
+Observability, as the JAX loop: the spans ``data_wait``, ``step``,
+``metrics_fetch``, ``eval``, ``final_eval``, ``ckpt_restore`` and
+``async_eval``; the ``train-loop`` and ``async-eval`` heartbeats; and, at
+the log cadence only, the telemetry record sites (``record_train_window``,
+``record_compile``, ``record_numerics``) and a ``numerics`` event with the
+summary of ``LoopConfig.numerics``.
 """
 
 from __future__ import annotations
@@ -22,10 +30,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
-import math
 import os
+import sys
 import threading
-import time
 import warnings
 from collections.abc import Callable, Iterable, Iterator
 from typing import Any
@@ -35,6 +42,10 @@ import torch
 from batchai_retinanet_horovod_coco_tpu_torch import losses as losses_lib
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import Batch
 from batchai_retinanet_horovod_coco_tpu_torch.data.prefetch import prefetch_map
+from batchai_retinanet_horovod_coco_tpu_torch.obs import numerics as numerics_lib
+from batchai_retinanet_horovod_coco_tpu_torch.obs import telemetry, trace, watchdog
+from batchai_retinanet_horovod_coco_tpu_torch.obs.events import device_memory_stats
+from batchai_retinanet_horovod_coco_tpu_torch.obs.trace import monotonic_s
 from batchai_retinanet_horovod_coco_tpu_torch.ops import anchors as anchors_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as matching_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import optim
@@ -77,6 +88,13 @@ class LoopConfig:
     async_eval: bool = False
     # Recorded in every checkpoint manifest.
     ckpt_metadata: dict | None = None
+    # The in-step numerics summary (obs/numerics.py) in each step's
+    # metrics.  The NaN provenance dump on a tripped finite-check is always
+    # armed: it lands in numerics_dump_dir, else the trace directory, else
+    # only the exception names the first non-finite value.
+    numerics: bool = False
+    numerics_dump_dir: str | None = None
+    rng_seed: int | None = None  # recorded in the dump
 
 
 def device_batch(batch: Batch, device: torch.device) -> dict[str, torch.Tensor]:
@@ -86,14 +104,16 @@ def device_batch(batch: Batch, device: torch.device) -> dict[str, torch.Tensor]:
 
 def _prefetch_to_device(
     batches: Iterable[Batch], device: torch.device, depth: int
-) -> Iterator[tuple[tuple[int, ...], Staged]]:
-    """``(images shape, staged arrays)`` of each batch, ``depth`` ahead: the
-    prefetch thread pins the arrays and starts their copy on a side stream
-    (``utils/device.py::stage``); the step takes them with ``take``."""
+) -> Iterator[tuple[tuple[int, ...], Any, Staged]]:
+    """``(images shape, image ids, staged arrays)`` of each batch, ``depth``
+    ahead: the prefetch thread pins the arrays and starts their copy on a
+    side stream (``utils/device.py::stage``); the step takes them with
+    ``take``."""
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     return prefetch_map(
         batches,
-        lambda b: (b.images.shape, stage({k: getattr(b, k) for k in _STEP_ARRAYS}, device, stream)),
+        lambda b: (b.images.shape, b.image_ids,
+                   stage({k: getattr(b, k) for k in _STEP_ARRAYS}, device, stream)),
         depth=depth,
         thread_name="device-prefetch",
     )
@@ -147,20 +167,29 @@ class _AsyncEvalRunner:
             ready.record()
 
         def run() -> None:
+            # Registered idle: an eval is minutes of legitimate silence,
+            # and its liveness is witnessed by the components it starts
+            # (its prefetch thread, driver and consumer).
+            hb = watchdog.register("async-eval")
+            hb.idle()
             try:
-                if self._stream is None:
-                    metrics = self._eval_fn(snapshot)
-                else:
-                    with torch.cuda.stream(self._stream):
-                        self._stream.wait_event(ready)
+                with trace.span("async_eval", step=step):
+                    if self._stream is None:
                         metrics = self._eval_fn(snapshot)
-                    # The snapshot is refreshed in place at the next launch.
-                    self._stream.synchronize()
+                    else:
+                        with torch.cuda.stream(self._stream):
+                            self._stream.wait_event(ready)
+                            metrics = self._eval_fn(snapshot)
+                        # The snapshot is refreshed in place at the next launch.
+                        self._stream.synchronize()
                 with self._lock:
                     self._done.append((step, metrics))
             except BaseException as exc:  # surfaced at the next drain or join
                 self._error = exc
+            finally:
+                hb.close()
 
+        # watchdog: registers in run() at thread start.
         self._thread = threading.Thread(target=run, daemon=True, name="async-eval")
         self._thread.start()
 
@@ -193,12 +222,74 @@ class _AsyncEvalRunner:
             warnings.warn(f"async eval failed during loop unwind: {exc!r}")
 
 
-def _check_finite(scalars: dict[str, float], step: int, cadence: str) -> None:
-    for name in _SENTINEL_METRICS:
-        if name in scalars and not math.isfinite(scalars[name]):
-            raise FloatingPointError(
-                f"non-finite {name} ({scalars[name]}) at or before step {step} (checked {cadence})"
-            )
+class NonFiniteError(FloatingPointError):
+    """A tripped finite-check: ``metric`` was non-finite at or before
+    ``step``; ``dump_path`` is the ``NUMERICS_DUMP.json`` this trip wrote,
+    or None when it wrote none."""
+
+    def __init__(self, message: str, step: int, metric: str, dump_path: str | None):
+        super().__init__(message)
+        self.step, self.metric, self.dump_path = step, metric, dump_path
+
+
+def _abort_nonfinite(
+    name: str,
+    value: float,
+    step: int,
+    cadence: str,
+    *,
+    model: torch.nn.Module,
+    images: torch.Tensor,
+    image_ids,
+    metrics: dict[str, Any],
+    config: LoopConfig,
+    log: Log,
+) -> None:
+    """Raise ``NonFiniteError`` for a tripped finite-check, after the
+    provenance pass (on the poisoned model and batch, where they lie) has
+    written ONE ``NUMERICS_DUMP.json``.  A failing pass never replaces the
+    error: it is printed as a ``numerics_dump_error`` line and chained as
+    the error's cause."""
+    dump_path, first, dump_error = None, None, None
+    try:
+        dump = numerics_lib.provenance(
+            step=step, metrics=metrics, model=model, images=images, image_ids=image_ids,
+            rng_seed=config.rng_seed, tripped={"metric": name, "value": float(value)},
+            cadence=cadence,
+        )
+        first = dump.get("first_nonfinite")
+        # The file needs a configured home: a bare run gets the
+        # localization in the message only.
+        target_dir = config.numerics_dump_dir or trace.trace_dir()
+        if target_dir:
+            dump_path = numerics_lib.write_dump(dump, target_dir)
+    except Exception as e:
+        dump_error = e
+        print(json.dumps({"event": "numerics_dump_error", "error": repr(e)[:500]}),
+              file=sys.stderr, flush=True)
+    # The trip lands on every read surface: the trace, the telemetry
+    # counter (the nonfinite SLO rule), the run's event log.
+    trace.instant("numerics_trip", metric=name, step=step, value=float(value))
+    telemetry.record_nonfinite_trip(name)
+    log_event = getattr(log, "event", None)
+    if log_event is not None:
+        try:
+            log_event("numerics_trip", metric=name, step=step, value=float(value),
+                      dump=dump_path, first_nonfinite=first)
+        except Exception:
+            pass  # a broken sink must not mask the abort
+    located = f" (first non-finite: {first})" if first else ""
+    if dump_path:
+        where = f"provenance dump at {dump_path}{located}"
+    elif first:
+        where = (f"first non-finite: {first} (pass --obs-dir or --log-dir to keep the full "
+                 f"{numerics_lib.DUMP_NAME})")
+    else:
+        where = "provenance dump failed — see numerics_dump_error on stderr"
+    raise NonFiniteError(
+        f"non-finite {name} ({float(value)}) at or before step {step} (checked {cadence}); {where}",
+        step, name, dump_path,
+    ) from dump_error
 
 
 def run_training(
@@ -218,10 +309,12 @@ def run_training(
     ``images_per_sec``, ``step_time_ms`` and ``data_wait_ms`` (the host's
     wait for the next batch) over the window since the last log (host
     clock, ending in the metrics read), and the step's ``lr`` (times the
-    plateau scale, with that schedule).  ``eval_fn(model) -> metrics`` is
-    called every ``eval_every`` steps and at the end, with the live model
-    or, for an asynchronous eval, a snapshot; its metrics are logged under
-    ``eval/`` names.
+    plateau scale, with that schedule).  A ``log`` with an ``event(kind,
+    **fields)`` method (``obs/events.py::EventSink``'s) also receives the
+    ``numerics`` and ``numerics_trip`` events.  ``eval_fn(model) ->
+    metrics`` is called every ``eval_every`` steps and at the end, with the
+    live model or, for an asynchronous eval, a snapshot; its metrics are
+    logged under ``eval/`` names.
     """
     device = next(state.model.parameters()).device
     ckpt = None
@@ -234,7 +327,8 @@ def run_training(
         )
         if config.resume and ckpt.latest_step() is not None:
             try:
-                ckpt.restore(state)
+                with trace.span("ckpt_restore"):
+                    ckpt.restore(state)
             except Exception as e:
                 raise RuntimeError(
                     f"restoring {config.checkpoint_dir} failed (root cause chained): a shape "
@@ -244,6 +338,8 @@ def run_training(
             print(f"resumed from step {state.step}", flush=True)
 
     step_fns: dict[tuple[int, int], Callable[..., dict[str, Any]]] = {}
+    numerics_config = numerics_lib.NumericsConfig(enabled=config.numerics)
+    log_event = getattr(log, "event", None)
     start_step = state.step
     last_saved: int | None = None
     # The profile window, clamped into the steps this run takes.
@@ -254,32 +350,53 @@ def run_training(
     prof_end = min(config.total_steps, prof_start + config.profile_steps - 1)
     profiler = None
     eval_runner = _AsyncEvalRunner(eval_fn, log, device) if config.async_eval and eval_fn else None
-    window_t0, window_images, window_steps, window_wait = time.perf_counter(), 0, 0, 0.0
+    window_t0, window_images, window_steps, window_wait = monotonic_s(), 0, 0, 0.0
     check_every = config.log_every or _FINITE_CHECK_EVERY
     cadence = f"every {check_every} steps and before each checkpoint save"
     it = _prefetch_to_device(batches, device, config.device_prefetch)
+    # The loop's heartbeat, one beat a step; a sync eval is bracketed with
+    # idle(), so only a wedged step stream (or the data it waits on) trips
+    # the watchdog.  The details read a host-side step count.
+    last_step = [start_step]
+    loop_hb = watchdog.register("train-loop", details=lambda: {"step": last_step[0]})
+
+    def abort_if_nonfinite(metrics: dict[str, Any], step: int, images, image_ids) -> None:
+        sentinels = {k: metrics[k] for k in _SENTINEL_METRICS if k in metrics}
+        hit = numerics_lib.first_nonfinite_scalar(sentinels)
+        if hit is not None:
+            _abort_nonfinite(
+                hit[0], hit[1], step, cadence, model=state.model, images=images,
+                image_ids=image_ids, metrics=metrics, config=config, log=log,
+            )
+
     try:
         for step in range(start_step + 1, config.total_steps + 1):
             if eval_runner is not None:
                 eval_runner.drain()
-            t_data = time.perf_counter()
-            shape, staged = next(it)
-            arrays = take(staged)
-            window_wait += time.perf_counter() - t_data
+            loop_hb.beat()
+            last_step[0] = step
+            t_data = monotonic_s()
+            with trace.span("data_wait"):
+                shape, image_ids, staged = next(it)
+                arrays = take(staged)
+            window_wait += monotonic_s() - t_data
             hw = tuple(shape[1:3])
             step_fn = step_fns.get(hw)
             if step_fn is None:
+                t_build = monotonic_s()
                 step_fn = step_fns[hw] = make_train_step(
                     state.model, hw, num_classes, loss_config, matching_config,
-                    anchor_config, device,
+                    anchor_config, device, numerics=numerics_config,
                 )
+                telemetry.record_compile(f"{hw[0]}x{hw[1]}", monotonic_s() - t_build)
             if config.profile_dir and step == prof_start:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=activities)
                 profiler.start()
-            metrics = step_fn(state, arrays)
+            with trace.span("step"):
+                metrics = step_fn(state, arrays)
             if profiler is not None and step == prof_end:
                 if device.type == "cuda":  # the training stream only: not an eval in flight
                     torch.cuda.current_stream(device).synchronize()
@@ -295,11 +412,12 @@ def run_training(
             is_log = (config.log_every and step % config.log_every == 0) or step == config.total_steps
             will_save = ckpt is not None and ckpt.should_save(step)
             if not is_log and (will_save or step % check_every == 0):
-                _check_finite({k: float(metrics[k]) for k in _SENTINEL_METRICS}, step, cadence)
+                abort_if_nonfinite(metrics, step, arrays["images"], image_ids)
             if is_log:
-                scalars = {k: float(v) for k, v in metrics.items()}
-                _check_finite(scalars, step, cadence)
-                dt = time.perf_counter() - window_t0
+                with trace.span("metrics_fetch"):
+                    scalars = {k: float(v) for k, v in metrics.items()}
+                abort_if_nonfinite(scalars, step, arrays["images"], image_ids)
+                dt = monotonic_s() - window_t0
                 scalars["images_per_sec"] = window_images / max(dt, 1e-9)
                 scalars["step_time_ms"] = dt / window_steps * 1e3
                 scalars["data_wait_ms"] = window_wait / window_steps * 1e3
@@ -308,19 +426,44 @@ def run_training(
                 if scale is not None:
                     scalars["lr"] *= scale
                 log(step, scalars)
-                window_t0, window_images, window_steps, window_wait = time.perf_counter(), 0, 0, 0.0
+                # Telemetry record sites: one bool check each while off.
+                telemetry.record_train_window(
+                    step=step,
+                    images_per_s=scalars["images_per_sec"],
+                    step_time_ms=scalars["step_time_ms"],
+                    data_wait_ms=scalars["data_wait_ms"],
+                )
+                telemetry.record_numerics(
+                    grad_norm=scalars.get(numerics_lib.GRAD_NORM),
+                    update_ratio=scalars.get(numerics_lib.UPDATE_RATIO),
+                    nonfinite=scalars.get(numerics_lib.NONFINITE),
+                )
+                if config.numerics and log_event is not None:
+                    num_keys = numerics_lib.numerics_metric_keys(scalars)
+                    log_event("numerics", step=step, **{k: scalars[k] for k in num_keys})
+                if trace.enabled():
+                    for name, value in device_memory_stats():
+                        trace.counter(name, value)
+                window_t0, window_images, window_steps, window_wait = monotonic_s(), 0, 0, 0.0
 
             if will_save and ckpt.save(state, step=step):
                 last_saved = step
 
             if eval_fn is not None and config.eval_every and step % config.eval_every == 0 \
                     and step < config.total_steps:
+                # A launch may join the eval in flight, a sync eval runs
+                # for minutes: legitimate silence of the step stream.
+                loop_hb.idle()
                 if eval_runner is not None:
                     eval_runner.launch(state.model, step)
+                    loop_hb.beat()
                 else:
-                    log(step, _eval_scalars(eval_fn(state.model)))
+                    with trace.span("eval", step=step):
+                        eval_metrics = eval_fn(state.model)
+                    loop_hb.beat()
+                    log(step, _eval_scalars(eval_metrics))
                     # The eval's time stays out of the next window's step time.
-                    window_t0, window_images, window_steps, window_wait = time.perf_counter(), 0, 0, 0.0
+                    window_t0, window_images, window_steps, window_wait = monotonic_s(), 0, 0, 0.0
     except BaseException:
         # Reap the eval in flight and let the write in flight land, warning
         # of their failures instead of raising: neither may mask this one.
@@ -336,12 +479,15 @@ def run_training(
         if profiler is not None:
             profiler.stop()
         it.close()  # stops the prefetch thread
+        loop_hb.close()  # the epilogue has its own components
 
     final_step = max(start_step, config.total_steps)
     if eval_runner is not None:
         eval_runner.join()  # logged before the final eval, in step order
     if eval_fn is not None:
-        log(final_step, _eval_scalars(eval_fn(state.model)))
+        with trace.span("final_eval", step=final_step):
+            final_metrics = eval_fn(state.model)
+        log(final_step, _eval_scalars(final_metrics))
     if ckpt is not None:
         if last_saved != final_step:
             ckpt.save(state, step=final_step, force=True)

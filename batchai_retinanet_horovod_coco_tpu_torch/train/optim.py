@@ -119,12 +119,18 @@ def make_schedule(config: OptimizerConfig) -> Schedule:
     return joined
 
 
+def tensor_norms(tensors: Iterable[torch.Tensor]) -> list[torch.Tensor]:
+    """The L2 norm of each tensor (f32), the parts of :func:`global_norm`."""
+    tensors = [t.float() for t in tensors]
+    return list(torch._foreach_norm(tensors)) if tensors else []
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """``optax.global_norm``: the L2 norm of all the tensors together (f32)."""
-    tensors = [t.float() for t in tensors]
-    if not tensors:
+    norms = tensor_norms(tensors)
+    if not norms:
         return torch.zeros(())
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def clip_by_global_norm_precomputed(

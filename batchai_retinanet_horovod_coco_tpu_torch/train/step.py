@@ -7,7 +7,8 @@ the head outputs concatenated to (B, A, K), targets from
 ``anchor_targets_compact_batched`` (the matching kernel on a card) under
 ``torch.no_grad()``, and ``total_loss_compact`` (the focal kernels on a
 card).  The step records the pre-clip global gradient norm, which the clip
-reuses, and the post-update parameter norm.
+reuses, and the post-update parameter norm; with ``numerics`` enabled, the
+numerics summary of ``obs/numerics.py`` too.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from batchai_retinanet_horovod_coco_tpu_torch import losses as losses_lib
 from batchai_retinanet_horovod_coco_tpu_torch.data import pipeline as pipeline_lib
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate import detect as detect_lib
+from batchai_retinanet_horovod_coco_tpu_torch.obs import numerics as numerics_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import anchors as anchors_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as matching_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import optim
@@ -75,6 +77,7 @@ def make_train_step(
     matching_config: matching_lib.MatchingConfig = matching_lib.MatchingConfig(),
     anchor_config: anchors_lib.AnchorConfig | None = None,
     device: str | torch.device = "cuda",
+    numerics: numerics_lib.NumericsConfig = numerics_lib.NumericsConfig(),
 ) -> Callable[..., dict[str, torch.Tensor]]:
     """The train step for one shape bucket, on one device.
 
@@ -86,6 +89,14 @@ def make_train_step(
     ``cls_loss``, ``box_loss``, ``num_pos``, the pre-clip ``grad_norm`` and
     the post-update ``param_norm``.  ``mark``, when given, is called with
     each name of :data:`PHASES` as that phase ends (for timing).
+
+    With ``numerics.enabled`` the metrics also hold ``nonfinite_grads``,
+    ``update_ratio`` and ``gnorm/<group>`` a top-level module
+    (``obs/numerics.py``), all on the device: the group norms reuse the
+    per-tensor gradient norms ``grad_norm`` is taken from; the gradients
+    (for their non-finite count) and the parameters before the in-place
+    update are copied into buffers made here, once.  Disabled, the step
+    and its metrics are unchanged.
     """
     device = resolve_device(device)
     if model.config.num_classes != num_classes:
@@ -93,7 +104,14 @@ def make_train_step(
             f"the model has {model.config.num_classes} classes, the step {num_classes}"
         )
     anchors = detect_lib.anchors_on(image_hw, anchor_config or anchors_lib.AnchorConfig(), device)
-    params = list(model.parameters())
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    before = flat = None
+    if numerics.enabled:
+        groups = [numerics_lib.group_of(n) for n, _ in named]
+        before = [torch.empty_like(p) for p in params]
+        flat = torch.empty(sum(p.numel() for p in params), dtype=params[0].dtype,
+                           device=params[0].device)
 
     def step(
         state: TrainState,
@@ -116,10 +134,18 @@ def make_train_step(
         if mark is not None:
             mark("backward")
         grads = [p.grad for p in params if p.grad is not None]
-        metrics["grad_norm"] = optim.global_norm(grads)
+        norms = optim.tensor_norms(grads)
+        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(norms))
+        if before is not None:
+            metrics.update(numerics_lib.step_summary(grads, norms, groups, flat))
+            torch._foreach_copy_(before, params)
         state.apply_gradients(metrics["grad_norm"], metrics["loss"].detach())
         with torch.no_grad():
             metrics["param_norm"] = optim.global_norm(params)
+            if before is not None:
+                metrics[numerics_lib.UPDATE_RATIO] = numerics_lib.update_ratio(
+                    before, params, metrics["param_norm"]
+                )
         if mark is not None:
             mark("optimizer")
         return {k: v.detach() for k, v in metrics.items()}

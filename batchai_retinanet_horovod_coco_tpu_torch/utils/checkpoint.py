@@ -26,7 +26,10 @@ parameters in place), and hands the host arrays to one background writer
 thread, so the disk write overlaps the next steps.  One behind: a new save
 first joins the write in flight, so at most one checkpoint waits in host
 memory.  A writer's failure is announced on stderr at once and re-raised at
-the next ``save()``, ``wait()`` or ``close()``.
+the next ``save()``, ``wait()`` or ``close()``.  The snapshot and the write
+are the ``ckpt_snapshot`` and ``ckpt_write`` spans; the writer heartbeats
+as ``ckpt-writer`` and feeds ``obs/telemetry.py``'s checkpoint gauges
+(``record_ckpt_save``, ``record_ckpt_inflight``).
 
 **Restoring a pod's checkpoint**: a manifest whose ``zero_world_size`` is
 set holds each optimizer leaf as a flat zero-padded ``(N * chunk,)`` array
@@ -51,6 +54,8 @@ from typing import Any
 
 import numpy as np
 
+from batchai_retinanet_horovod_coco_tpu_torch.obs import telemetry, trace, watchdog
+from batchai_retinanet_horovod_coco_tpu_torch.obs.trace import monotonic_s
 from batchai_retinanet_horovod_coco_tpu_torch.train import state as state_lib
 from batchai_retinanet_horovod_coco_tpu_torch.utils.atomicio import atomic_write_json, fsync_dir
 
@@ -331,27 +336,37 @@ class CheckpointManager:
             return False
         self._join_inflight()  # one behind; surfaces the writer's errors
         self._raise_pending_error()
-        leaves = state_lib.snapshot(state)
+        with trace.span("ckpt_snapshot", step=step):
+            leaves = state_lib.snapshot(state)
         self._last_queued = step
         self._ensure_thread()
         self._inflight.set()
+        telemetry.record_ckpt_inflight(1)
         self._work.put((step, leaves))
         return True
 
     def _write_one(self, step: int, leaves: list[tuple[str, np.ndarray]]) -> None:
+        t0 = monotonic_s()
         try:
-            _write_step_dir(self._directory, step, leaves, None, self._metadata)
-            _gc(self._directory, self._max_to_keep)
+            with trace.span("ckpt_write", step=step):
+                _write_step_dir(self._directory, step, leaves, None, self._metadata)
+                _gc(self._directory, self._max_to_keep)
         except BaseException as e:
             with self._lock:
                 self._error = e
             # Announced now (the loop may be many steps from its next save),
             # re-raised at the next save(), wait() or close().
             _announce("ckpt_write_error", step=step, error=repr(e)[:500])
+        else:
+            telemetry.record_ckpt_save(
+                step, monotonic_s() - t0, sum(arr.nbytes for _, arr in leaves)
+            )
 
     def _ensure_thread(self) -> None:
         if self._thread is not None and self._thread.is_alive():
             return
+        hb = watchdog.register("ckpt-writer")
+        hb.idle()
 
         def run() -> None:
             try:
@@ -359,7 +374,10 @@ class CheckpointManager:
                     item = self._work.get()
                     if item is None:
                         return
+                    hb.beat()
                     self._write_one(*item)
+                    hb.idle()
+                    telemetry.record_ckpt_inflight(0)
                     with self._done:
                         self._inflight.clear()
                         self._done.notify_all()
@@ -367,12 +385,17 @@ class CheckpointManager:
                 with self._lock:
                     if self._error is None:
                         self._error = e
+                telemetry.record_ckpt_inflight(0)
                 with self._done:
                     self._inflight.clear()
                     self._done.notify_all()
                 _announce("ckpt_writer_crashed", error=repr(e)[:500])
                 raise
+            finally:
+                hb.close()
 
+        # watchdog: hb registered above (ckpt-writer); beats per write,
+        # idle between saves, closed in run()'s finally.
         self._thread = threading.Thread(target=run, daemon=True, name="ckpt-writer")
         self._thread.start()
 

@@ -1,6 +1,7 @@
 """Command-line glue shared by the port's tools, as the JAX package's
-``utils/cli.py``: the anchor, data-pipeline, durability and serve flag
-surfaces, and the anchor configuration persisted beside a checkpoint.
+``utils/cli.py``: the anchor, data-pipeline, durability, serve and obs
+flag surfaces, the obs bring-up, and the anchor configuration persisted
+beside a checkpoint.
 
 The anchor file keeps the JAX package's name and format
 (``anchor_config.json``, ``dataclasses.asdict`` of the config), so a
@@ -125,6 +126,70 @@ def add_serve_flags(parser) -> None:
     parser.add_argument("--serve-drain-timeout-s", type=float, default=30.0,
                         help="graceful close waits this long for in-flight "
                              "requests before rejecting the remainder")
+
+
+def add_obs_flags(parser) -> None:
+    """The observability flag surface of ``train`` and ``serve``: the JAX
+    package's flags, names, defaults and meanings.  With them off the obs
+    layer costs nothing: spans check one module-level bool and heartbeats
+    are attribute stores."""
+    parser.add_argument("--obs-trace", action="store_true",
+                        help="record trace spans (step loop, data pipeline, "
+                             "prefetch, eval, checkpoints, serve threads) and "
+                             "export a Perfetto-loadable Chrome trace JSON "
+                             "(trace.json) into --obs-dir at exit "
+                             "(obs/trace.py)")
+    parser.add_argument("--obs-dir", default=None,
+                        help="observability artifact directory (trace JSON, "
+                             "watchdog stack dumps, NUMERICS_DUMP.json); "
+                             "default artifacts/obs when --obs-trace is set")
+    parser.add_argument("--obs-stall-timeout", type=float, default=120.0,
+                        help="seconds a registered component may go without "
+                             "a heartbeat before the watchdog dumps a stall "
+                             "diagnosis (JSON + all-thread stacks; it never "
+                             "kills the run — obs/watchdog.py).  Takes effect "
+                             "with --obs-trace/--obs-dir")
+    parser.add_argument("--obs-port", type=int, default=None, metavar="PORT",
+                        help="start a stdlib HTTP status server on this port "
+                             "(0 = ephemeral, printed at startup): GET "
+                             "/metrics (Prometheus text), /healthz "
+                             "(watchdog-backed liveness — 503 names the "
+                             "stalled component), /statusz (JSON snapshot); "
+                             "a port that cannot bind raises")
+    parser.add_argument("--slo-rule", action="append", default=None,
+                        metavar="METRIC{>,<}THR[@FOR_S]",
+                        help="declarative SLO over a telemetry snapshot "
+                             "metric, evaluated by a monitor thread; a "
+                             "sustained breach emits ONE slo_violation event. "
+                             "THR 'x1.5' means regression vs a rolling-median "
+                             "baseline, e.g. 'serve_request_latency_ms.p99>250@30', "
+                             "'train_step_time_ms>x1.5@60'.  Repeatable; a "
+                             "watchdog-stall rule is always included")
+    parser.add_argument("--slo-poll-s", type=float, default=5.0,
+                        help="SLO monitor poll interval (seconds)")
+    parser.add_argument("--numerics", action="store_true",
+                        help="the in-step numerics summary in the train step: "
+                             "per-layer-group gradient norms, the update/param "
+                             "ratio and the non-finite gradient count, on the "
+                             "device, read at the log cadence (metrics.jsonl "
+                             "'numerics' records and the telemetry gauges the "
+                             "built-in nonfinite/grad-norm-spike SLO rules "
+                             "watch).  The NUMERICS_DUMP.json of a tripped "
+                             "finite-check is written with or without it")
+
+
+def configure_obs(args, process_label: str = "main") -> str | None:
+    """Bring up the obs layer from the flags above; returns the obs dir
+    (None = disabled).  Call before building pipelines and threads."""
+    if not (getattr(args, "obs_trace", False) or getattr(args, "obs_dir", None)):
+        return None
+    from batchai_retinanet_horovod_coco_tpu_torch import obs
+
+    return obs.enable(
+        args.obs_dir or "artifacts/obs",
+        process_label=process_label,
+        stall_after=getattr(args, "obs_stall_timeout", 120.0),
+    )
 
 
 def make_serve_config(args):

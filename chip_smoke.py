@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in twelve
+Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in thirteen
 phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
@@ -117,8 +117,33 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    zeroed before each load and read after it: NMS launched at least once
    a served batch, the plain version never.  A progressive JPEG is
    answered 400, an unknown path 404, and the trace header is echoed;
-   ``python -m ...serve --images`` writes records equal to the live
-   answers, and ``--http 0`` drains and exits 0 on SIGTERM.
+   each fixture posted 8 times at once to a server that seals only full
+   batches is answered at every row of a batch of 8 as the live engine
+   answers there; ``python -m ...serve --images`` writes records equal
+   to the live answers and each to an HTTP answer for the same file, and
+   ``--http 0`` drains and exits 0 on SIGTERM;
+13. observability at full width: (a) phase 8's model and batches, 6 steps
+   of ``train/loop.py`` without and 6 with the numerics summary: every
+   ``gnorm/*``, ``update_ratio`` and ``nonfinite_grads`` finite, no
+   non-finite gradient element, the mean step ms of both, the training
+   kernels launched each step; (c) meanwhile ``--obs-port``'s status
+   server (the train command line's ``_start_telemetry``) is scraped over
+   HTTP: ``/healthz`` 200, ``train_step_time_ms`` and the ``dev0`` memory
+   gauges on ``/metrics``, the peak within 1% of
+   ``torch.cuda.max_memory_allocated()``; (b) ``train coco`` on phase
+   11's fixture JSONs at the defaults with ``--numerics --inject-nan-step
+   2 --auto-resume --checkpoint-every 1``: ``NUMERICS_DUMP.json`` holds the
+   poisoned batch's image ids and a first non-finite value, an
+   ``auto_resume`` event excluding those ids lands in ``metrics.jsonl``,
+   and the healed run reaches its last step; (d) the ``serve`` command
+   line in this process over phase 12's exported programs, 8 HTTP client
+   threads in another process, four runs in turn without and with
+   ``--obs-trace --obs-port`` (off, on, on, off), each stopped by SIGTERM:
+   ``/healthz`` 200, the ``/metrics`` request count equal to the requests
+   sent, a ``serve_request`` span in the exported trace for every
+   request, NMS launched once a served batch; it prints the median ms of
+   each serve span and the mean images/s with tracing off and on; (e) a watchdog component
+   with a 1 s budget that never beats turns ``/healthz`` 503, naming it.
 
 Then it prints one JSON line with each kernel's launches, error, times and
 bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
@@ -134,6 +159,7 @@ import json
 import os
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -164,6 +190,10 @@ from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import (
     build_retinanet,
 )
 from batchai_retinanet_horovod_coco_tpu_torch.native import build as native_build
+from batchai_retinanet_horovod_coco_tpu_torch.obs import telemetry as obs_telemetry
+from batchai_retinanet_horovod_coco_tpu_torch.obs import trace as obs_trace
+from batchai_retinanet_horovod_coco_tpu_torch.obs import watchdog as obs_watchdog
+from batchai_retinanet_horovod_coco_tpu_torch.obs.events import metric_records, split_runs
 from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as matching_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as nms_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops.anchors import AnchorConfig
@@ -684,11 +714,15 @@ def main() -> int:
         file_launches = files_phase(root, device, kind, smi)
         phase(12, "the deployable server: export, load without model code, serve over HTTP")
         served_launches = deployable_phase(os.path.join(root, "snap"), root, device, kind, smi)
+        phase(13, "observability at full width")
+        obs_launches = obs_phase(root, [cut_batch(b, batch_size) for b in batches], device, kind, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
-        row["launches"] = launches_by_kernel[key] + run_launches[key] + file_launches[key]
-    nms_row["launches"] = launches + run_launches["nms"] + file_launches["nms"] + served_launches
+        row["launches"] = (launches_by_kernel[key] + run_launches[key] + file_launches[key]
+                           + obs_launches[key])
+    nms_row["launches"] = (launches + run_launches["nms"] + file_launches["nms"] + served_launches
+                           + obs_launches["nms"])
     end_phases()
 
     print(smi)
@@ -1414,8 +1448,15 @@ def add_found_boxes(val_json: str, device) -> None:
 
 
 def read_log(log_dir: str) -> list[dict]:
-    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
-        return [json.loads(line) for line in f]
+    """The train records of a run's ``metrics.jsonl`` (the EventSink
+    stream), ``train/`` stripped from their keys."""
+    records = []
+    for run in split_runs(os.path.join(log_dir, "metrics.jsonl")):
+        for r in metric_records(run):
+            train = {k.removeprefix("train/"): v for k, v in r.items() if k.startswith("train/")}
+            if train:
+                records.append({"step": r["step"], **train})
+    return records
 
 
 def files_phase(root: str, device, kind: str, smi: str) -> dict[str, int]:
@@ -1728,6 +1769,32 @@ def latency_line(label: str, results: list, wall: float, kind: str, smi: str) ->
     return stats
 
 
+def answers_at_every_row(engine: DetectEngine, files: list[tuple[str, bytes]], batch: int) -> dict[str, list]:
+    """Each file's HTTP answers at every row of a batch of ``batch``:
+    ``batch`` copies of it posted at once to a server that seals a batch
+    only when it is full, so that each copy rides in a row of its own
+    whatever the timing."""
+    server = DetectionServer(engine, ServeConfig(max_delay_ms=120_000, continuous=False), warmup=False)
+    httpd = serve_frontend.serve_http(server, "127.0.0.1", 0)
+    # watchdog: serve_forever returns at httpd.shutdown() in the finally below.
+    threading.Thread(target=httpd.serve_forever, daemon=True, name="chip-smoke-http-rows").start()
+    url = "http://%s:%d/detect" % httpd.server_address[:2]
+    out = {}
+    try:
+        with ThreadPoolExecutor(batch) as pool:
+            for name, data in files:
+                answers = list(pool.map(lambda _: post(url, data), range(batch)))
+                require(all(a[0] == 200 for a in answers), f"{name}: statuses {[a[0] for a in answers]}")
+                out[name] = [a[1]["detections"] for a in answers]
+    finally:
+        httpd.shutdown()
+        server.close()
+        httpd.server_close()
+    batches = server.snapshot()["batches"]  # final once closed
+    require(batches == len(files), f"{len(files)} files of {batch} copies rode in {batches} batches")
+    return out
+
+
 def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
                      config: RetinaNetConfig = RetinaNetConfig(), sides=(800, 1333)) -> int:
     """Phase 12 on phase 11's snapshot (a model of ``config``, trained at
@@ -1880,6 +1947,24 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
         server.close()
         httpd.server_close()
 
+    # Every slot over HTTP: alone above, and every row of the largest batch
+    # here, so a CLI record meets an HTTP answer at its slot however the
+    # CLI's requests were batched.
+    nms_cuda.reset_counts()
+    full = max(batch_sizes)
+    rows = answers_at_every_row(engine, files, full)
+    launches += nms_cuda.kernel_launches
+    require(nms_cuda.plain_calls == 0, "the plain NMS ran behind HTTP")
+    for n, _ in files:
+        left = list(rows[n])
+        for r in range(full):
+            hit = next((i for i, a in enumerate(left) if answer_gap(a, want[(n, full, r)]) == 0), None)
+            require(hit is not None, f"{n}: no HTTP answer equals the live engine's at row {r} of {full}")
+            left.pop(hit)
+        http_answers[n] += rows[n]
+    print(f"each fixture posted {full} times at once to a server that seals only full batches: "
+          f"{full} answers equal to the live engine's at rows 0-{full - 1}, bit for bit, for all {len(files)}")
+
     # The command line: offline over the fixtures, then --http and SIGTERM.
     out_jsonl = os.path.join(root, "served.jsonl")
     cli = [sys.executable, "-m", "batchai_retinanet_horovod_coco_tpu_torch.serve", "--export-dir", export_dir,
@@ -1892,10 +1977,12 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
     require(sorted(records) == sorted([n for n, _ in files] + ["progressive.jpg"]), f"records {sorted(records)}")
     require("decode_error" in records["progressive.jpg"].get("error", ""), "progressive.jpg was not refused")
     worst = max(check(n, records[n]["detections"]) for n, _ in files)
+    # The HTTP answers above cover every exported slot, so this holds
+    # whichever slot the CLI's batching put a file in.
     same = sum(records[n]["detections"] in http_answers[n] for n, _ in files)
     print(f"serve --images: {len(records)} records in {time.perf_counter() - t0:.1f} s (process included); "
           f"against the live engine: largest gap {worst}; equal to an HTTP answer for the same file "
-          f"(served at the same batch size) for {same} of {len(files)}")
+          f"for {same} of {len(files)}")
     require(worst == 0 and same == len(files), "a CLI record differs from the HTTP answers")
 
     proc = subprocess.Popen(cli + ["--http", "0"], cwd=Path(__file__).resolve().parent,
@@ -1925,6 +2012,294 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return launches
+
+
+# ---- phase 13: observability at full width ---------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def get(url: str) -> tuple[int, bytes]:
+    """(status, body) of one GET."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def obs_phase(root: str, batches, device, kind: str, smi: str) -> dict[str, int]:
+    """Phase 13: the obs layer on phase 8's model and batches, phase 11's
+    fixture files and phase 12's exported programs; returns each kernel's
+    launches in its runs."""
+    launches = dict.fromkeys(("matching", "focal_fwd", "focal_bwd", "nms"), 0)
+    for part in (numerics_and_telemetry(batches, device, kind, smi), nan_provenance(root, kind, smi),
+                 traced_serving(root, device, kind, smi)):
+        for k in launches:
+            launches[k] += part.get(k, 0)
+    stall_check()
+    return launches
+
+
+def numerics_and_telemetry(batches, device, kind: str, smi: str) -> dict[str, int]:
+    """(a) phase 8's 6 steps without the numerics summary, with it, with it
+    and without it again (turns, so that drift spreads over both); (c) the
+    whole time ``--obs-port``'s status server is up (the train command
+    line's ``_start_telemetry``), scraped over HTTP during the first run
+    with the summary."""
+    model = build_retinanet(RetinaNetConfig(), device=device, seed=0)  # gn, bf16
+    state = state_lib.create_train_state(model, optim_lib.OptimizerConfig(), device)
+    steps = len(batches)
+    args = train_cli.parse_args(["synthetic", "--obs-port", "0"])
+    server, monitor = train_cli._start_telemetry(args, None)
+    url = f"http://127.0.0.1:{server.port}"
+    scraped: dict = {}
+
+    def scrape(after_step: int) -> None:
+        # Polls until a log window of this run lands, then reads both
+        # endpoints and the allocator's peak at once.
+        try:
+            deadline = time.perf_counter() + 300
+            while time.perf_counter() < deadline and scraped.get("samples", {}).get("train_step", 0) <= after_step:
+                code, body = get(f"{url}/metrics")
+                scraped["samples"] = obs_telemetry.parse_exposition(body.decode())[1] if code == 200 else {}
+                scraped["max_allocated"] = torch.cuda.max_memory_allocated()
+                time.sleep(0.05)
+            scraped["healthz"] = get(f"{url}/healthz")
+        except BaseException as exc:  # re-raised below, in the phase
+            scraped["error"] = exc
+
+    runs: dict[bool, list[dict]] = {False: [], True: []}
+    ms: dict[bool, list[float]] = {False: [], True: []}
+    used = dict.fromkeys(("matching", "focal_fwd", "focal_bwd", "nms", "plain"), 0)
+    try:
+        for turn, numerics in enumerate((False, True, True, False)):
+            logged: list[dict] = []
+            reset_all_counts()
+            scraper = None
+            if turn == 1:
+                # watchdog: the scraper is joined below with a bound.
+                scraper = threading.Thread(target=scrape, args=(state.step,), name="chip-smoke-scraper")
+                scraper.start()
+            loop_lib.run_training(
+                state, iter(batches), 80,
+                loop_lib.LoopConfig(total_steps=state.step + steps, log_every=1, numerics=numerics),
+                log=lambda step, scalars: logged.append(scalars),
+            )
+            if scraper is not None:
+                scraper.join(300)
+                require(not scraper.is_alive(), "the /metrics scraper hangs")
+                if "error" in scraped:
+                    raise scraped["error"]
+            got = counts()
+            for k in used:
+                used[k] += got[k]
+            require(got["plain"] == 0 and all(got[k] == steps for k in ("matching", "focal_fwd", "focal_bwd")),
+                    f"launches {got} in {steps} steps with numerics {numerics}")
+            runs[numerics] += logged
+            ms[numerics].append(float(np.mean([sc["step_time_ms"] for sc in logged[1:]])))
+    finally:
+        monitor.stop()
+        server.close()
+        obs_telemetry.disable()
+    keys = sorted(k for k in runs[True][-1] if k.startswith("gnorm/") or k in ("update_ratio", "nonfinite_grads"))
+    last = runs[True][-1]
+    print(f"numerics summary, last step: " + ", ".join(f"{k} {last[k]:.6g}" for k in keys))
+    off, on = float(np.mean(ms[False])), float(np.mean(ms[True]))
+    print(f"mean step ms over steps 2-{steps} of each run (host clock, metrics read every step), runs "
+          f"off/on/on/off: off {ms[False]}, on {ms[True]}; off {off:.3f}, on {on:.3f} "
+          f"({on / off - 1:+.2%}); {kind}, {smi}")
+    require(keys == ["gnorm/backbone", "gnorm/box_head", "gnorm/cls_head", "gnorm/fpn",
+                     "nonfinite_grads", "update_ratio"], f"numerics keys {keys}")
+    require(all(np.isfinite(sc[k]) for sc in runs[True] for k in keys), "a non-finite numerics value")
+    require(all(sc["nonfinite_grads"] == 0 for sc in runs[True]), "non-finite gradient elements")
+    require(not any(k in sc for sc in runs[False] for k in keys), "numerics keys in a step without the summary")
+
+    samples = scraped["samples"]
+    code, body = scraped["healthz"]
+    peak = samples.get('device_memory_bytes{device="dev0",kind="peak_bytes_in_use"}')
+    in_use = samples.get('device_memory_bytes{device="dev0",kind="bytes_in_use"}')
+    print(f"--obs-port during the first run with the summary: /healthz {code} {json.loads(body)['status']}; "
+          f"train_step {samples.get('train_step')}, train_step_time_ms {samples.get('train_step_time_ms')}, "
+          f"train_update_ratio {samples.get('train_update_ratio')}; dev0 bytes_in_use {in_use}, "
+          f"peak_bytes_in_use {peak} against max_memory_allocated {scraped['max_allocated']}")
+    require(code == 200, f"/healthz answered {code} during training: {body[:300]!r}")
+    require(samples.get("train_step", 0) > steps and "train_step_time_ms" in samples
+            and in_use is not None and peak is not None,
+            f"/metrics lacks this run's train or memory gauges: {sorted(samples)[:20]}")
+    require(abs(peak - scraped["max_allocated"]) <= 0.01 * scraped["max_allocated"],
+            f"peak_bytes_in_use {peak} against max_memory_allocated {scraped['max_allocated']}")
+    del state, model
+    torch.cuda.empty_cache()
+    return used
+
+
+def nan_provenance(root: str, kind: str, smi: str) -> dict[str, int]:
+    """(b) ``train coco`` on phase 11's fixture JSONs at full width, a NaN
+    injected into batch 2: the run writes NUMERICS_DUMP.json, heals from
+    ckpt-1 without the poisoned batch's images, and reaches its last
+    step."""
+    logs = os.path.join(root, "nan_logs")
+    flags = ["coco", root, "--train-annotations", "instances_0.json", "--train-images",
+             str(JPEG_FIXTURES), "--val-annotations", "instances_1.json", "--val-images",
+             str(JPEG_FIXTURES), "--snapshot-path", os.path.join(root, "nan_snap"), "--steps", "3",
+             "--checkpoint-every", "1", "--log-every", "1", "--log-dir", logs, "--numerics",
+             "--inject-nan-step", "2", "--auto-resume"]
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = train_cli.main(flags)
+    used = counts()
+    dump = json.loads(Path(logs, "NUMERICS_DUMP.json").read_text())
+    (run,) = split_runs(os.path.join(logs, "metrics.jsonl"))
+    events = {r["event"]: r for r in run["records"] if "event" in r}
+    injected, healed = events.get("chaos_nan_injected"), events.get("auto_resume")
+    print(f"train coco, NaN in batch 2, --auto-resume: final step {out['final_step']:.0f} in "
+          f"{time.perf_counter() - t0:.1f} s; dump step {dump['step']}, first non-finite "
+          f"{dump['first_nonfinite']}, tripped {dump['tripped']}; batch ids {dump['batch_image_ids']}; "
+          f"auto_resume {healed}; launches {used}; {kind}, {smi}")
+    require(out["final_step"] == 3.0, f"the healed run stopped at {out['final_step']}")
+    require(injected is not None and dump["batch_image_ids"] == injected["image_ids"],
+            f"the dump's ids {dump.get('batch_image_ids')} are not the poisoned batch's {injected}")
+    require(dump["first_nonfinite"] is not None, "the dump names no first non-finite value")
+    require(healed is not None and healed["exclude_ids"] == sorted(set(injected["image_ids"])),
+            f"auto_resume {healed}")
+    require(used["plain"] == 0 and used["matching"] >= 3 and used["nms"] >= 1, f"launches {used}")
+    return used
+
+
+def traced_serving(root: str, device, kind: str, smi: str) -> dict[str, int]:
+    """(d) ``serve`` over phase 12's exported programs, in this process,
+    at 8 HTTP clients, four times: without tracing, with ``--obs-trace
+    --obs-port``, with them again and without again, so that a drift of
+    the host falls on both settings alike.  Each traced run: the requests
+    counted on ``/metrics`` and a ``serve_request`` span for each in the
+    exported trace; then the median of each serve span over both traced
+    runs, and the mean images/s of each setting.  Each run is stopped by
+    SIGTERM as a deployment stops it."""
+    export_dir = os.path.join(root, "export")
+    used = {"nms": 0}
+    rates: dict[bool, list[float]] = {False: [], True: []}
+    spans: dict[str, list[float]] = {}
+    for i, traced in enumerate((False, True, True, False)):
+        http_port, obs_port = free_port(), free_port()
+        obs_dir = os.path.join(root, f"serve_obs_{i}")
+        argv = ["--export-dir", export_dir, "--http", str(http_port), "--device", device.type]
+        if traced:
+            argv += ["--obs-trace", "--obs-dir", obs_dir, "--obs-port", str(obs_port)]
+        seen: dict = {}
+        stopped = threading.Event()
+
+        def drive() -> None:
+            try:
+                url = f"http://127.0.0.1:{http_port}"
+                deadline = time.perf_counter() + 300
+                while not stopped.is_set():
+                    try:
+                        if get(f"{url}/healthz")[0] == 200:
+                            break
+                    except OSError:
+                        pass  # not listening yet
+                    require(time.perf_counter() < deadline, "serve did not come up")
+                    time.sleep(0.2)
+                http_load(f"{url}/detect", 8, 2)  # warm-up
+                seen["results"], seen["wall"] = http_load(f"{url}/detect", 8, 8)
+                if traced:
+                    seen["healthz"] = get(f"http://127.0.0.1:{obs_port}/healthz")
+                    seen["metrics"] = obs_telemetry.parse_exposition(
+                        get(f"http://127.0.0.1:{obs_port}/metrics")[1].decode())[1]
+            except BaseException as exc:  # re-raised below, in the phase
+                seen["error"] = exc
+            finally:
+                if not stopped.is_set():
+                    os.kill(os.getpid(), signal.SIGTERM)  # the serve CLI drains and returns
+
+        reset_all_counts()
+        # watchdog: the driver ends by stopping the server and is joined below.
+        driver = threading.Thread(target=drive, name="chip-smoke-serve-driver")
+        driver.start()
+        try:
+            snap = serve_frontend.main(argv)
+        except KeyboardInterrupt:  # stopped before it served: the driver says why
+            snap = None
+        finally:
+            stopped.set()
+            # The next run starts untraced: tracing and the push record
+            # sites stay on in this process after a traced run otherwise.
+            obs_trace.reset()
+            obs_telemetry.disable()
+        driver.join(300)
+        require(not driver.is_alive(), "the serve driver hangs")
+        if "error" in seen:
+            raise seen["error"]
+        require(snap is not None, "serve stopped before it served")
+        got = counts()
+        used["nms"] += got["nms"]
+        results = seen["results"]
+        require(all(r[1][0] == 200 for r in results), "a request failed")
+        require(got["plain"] == 0 and got["nms"] >= snap["batches"] > 0,
+                f"NMS launches {got['nms']} for {snap['batches']} batches")
+        rates[traced].append(latency_line(
+            f"serve CLI, HTTP, 8 clients, run {i + 1} of 4, tracing {'on' if traced else 'off'}",
+            results, seen["wall"], kind, smi)["images_per_s"])
+        sent = snap["completed"]
+        require(sent == 8 * 2 + 8 * 8, f"{sent} requests completed of {8 * 2 + 8 * 8} sent")
+        if not traced:
+            continue
+        code, body = seen["healthz"]
+        counted = seen["metrics"].get("serve_requests_completed_total")
+        print(f"--obs-port: /healthz {code}, /metrics serve_requests_completed_total {counted} for {sent} "
+              f"requests sent")
+        require(code == 200 and counted == sent, f"/healthz {code}, {counted} counted for {sent} sent")
+        events = json.loads(Path(obs_dir, "trace.json").read_text())["traceEvents"]
+        traced_ids = set()
+        n_requests = 0
+        for e in events:
+            if e["ph"] == "X":
+                spans.setdefault(e["name"], []).append(e["dur"] / 1e3)
+                if e["name"] == "serve_request":
+                    n_requests += 1
+                    traced_ids.add((e.get("args") or {}).get("trace"))
+        answered = {r[1][1]["trace_id"] for r in results}
+        require(n_requests == sent and answered <= traced_ids,
+                f"{n_requests} serve_request spans for {sent} requests")
+    print("median ms a span, tracing on (all requests of both traced runs; 8 clients): " + ", ".join(
+        f"{name} {float(np.median(spans[name])):.3f} (n {len(spans[name])})"
+        for name in ("serve_request", "serve_preprocess", "serve_assemble", "serve_dispatch",
+                     "serve_fetch", "serve_convert") if name in spans) + f"; {kind}, {smi}")
+    off, on = float(np.mean(rates[False])), float(np.mean(rates[True]))
+    print(f"images/s at 8 clients, runs in turn off/on/on/off: tracing off {rates[False]} (mean {off:.2f}), "
+          f"on {rates[True]} (mean {on:.2f}), on against off {100 * (on / off - 1):+.2f}%; {kind}, {smi}")
+    return used
+
+
+def stall_check() -> None:
+    """(e) A watchdog component with a 1 s budget that never beats makes
+    the status server's /healthz answer 503 naming it."""
+    obs_telemetry.enable()
+    server = obs_telemetry.start_http_server(obs_telemetry.default(), port=0)
+    hb = obs_watchdog.register("chip-smoke-stalled", stall_after=1.0)
+    try:
+        time.sleep(1.5)
+        code, body = get(f"http://127.0.0.1:{server.port}/healthz")
+        payload = json.loads(body)
+        print(f"a component silent for 1.5 s of its 1 s budget: /healthz {code} {payload.get('status')} "
+              f"naming {payload.get('component')}")
+        require(code == 503 and payload.get("component") == "chip-smoke-stalled",
+                f"/healthz {code} {payload}")
+        hb.beat()
+        code, _ = get(f"http://127.0.0.1:{server.port}/healthz")
+        require(code == 200, f"/healthz {code} after the beat")
+    finally:
+        hb.close()
+        server.close()
+        obs_telemetry.disable()
 
 
 if __name__ == "__main__":

@@ -61,7 +61,9 @@ def test_sources_import_nothing_forbidden():
             "data/transforms.py", "data/pipeline.py", "data/synthetic.py", "data/csv.py",
             "data/pascal_voc.py", "native/build.py", "utils/cli.py", "train/__main__.py",
             "evaluate/__main__.py", "evaluate/export.py", "convert_model.py",
-            "serve/__main__.py"} <= scanned
+            "serve/__main__.py", "obs/__init__.py", "obs/trace.py", "obs/watchdog.py",
+            "obs/events.py", "obs/telemetry.py", "obs/slo.py", "obs/numerics.py",
+            "obs/vocabulary.py", "utils/locks.py"} <= scanned
 
 
 def test_serving_and_training_modules_load_without_jax():
@@ -78,6 +80,10 @@ def test_serving_and_training_modules_load_without_jax():
         "import batchai_retinanet_horovod_coco_tpu_torch.train.__main__\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.evaluate.__main__\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.evaluate.export\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.obs.telemetry\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.obs.slo\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.obs.numerics\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.obs.vocabulary\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.convert_model\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.serve.__main__\n"
         f"roots = {FORBIDDEN!r}\n"

@@ -135,8 +135,9 @@ def test_synthetic_run_checkpoints_and_evaluates(tmp_path):
     assert (tmp_path / "ckpt" / "anchor_config.json").exists()
     assert sorted(p.suffix for p in (tmp_path / "data" / "train").iterdir()) == [".png"] * 8
     records = [json.loads(line) for line in (tmp_path / "logs" / "metrics.jsonl").read_text().splitlines()]
-    assert [r["step"] for r in records if "loss" in r] == [3]
-    assert all(np.isfinite(r["loss"]) for r in records if "loss" in r)
+    assert records[0]["event"] == "run_header"
+    assert [r["step"] for r in records if "train/loss" in r] == [3]
+    assert all(np.isfinite(r["train/loss"]) for r in records if "train/loss" in r)
     final = {k.removeprefix("eval/"): v for k, v in out.items() if k.startswith("eval/")}
     assert set(final) == set(STATS) and final["AR100"] > 0
     metrics = t_evaluate.main(flags + ["--score-threshold", "0.001"])

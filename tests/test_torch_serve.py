@@ -298,12 +298,28 @@ def test_http_answers_as_jax_serve_http(model):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--stub-engine"], ["--stub-delay-ms", "5"], ["--platform", "cpu"], ["--obs-trace"],
-    ["--obs-port", "9000"], ["--slo-rule", "p99<100"], ["--replica-id", "r1"], ["--numerics"],
+    ["--stub-engine"], ["--stub-delay-ms", "5"], ["--platform", "cpu"], ["--replica-id", "r1"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_serve_refusals_name_the_roadmap(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         t_frontend.main(["--export-dir", "nowhere", "--http", "0", "--device", "cpu", *flags])
+
+
+OBS_DESTS = ("obs_trace", "obs_dir", "obs_stall_timeout", "obs_port", "slo_rule", "slo_poll_s",
+             "numerics")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--obs-trace"], ["--obs-port", "9000"], ["--slo-rule", "p99<100"], ["--numerics"],
+], ids=lambda f: f[0].lstrip("-"))
+def test_serve_accepts_the_obs_flags(flags):
+    """The obs, SLO and numerics flags are ported: not refused, and parsed
+    as the JAX command line parses them."""
+    argv = ["--export-dir", "nowhere", "--http", "0", *flags]
+    t_frontend.refuse_unported(argv)
+    got = vars(t_frontend.build_parser().parse_args(argv + ["--device", "cpu"]))
+    want = vars(j_frontend.build_parser().parse_args(argv))
+    assert {k: got[k] for k in OBS_DESTS} == {k: want[k] for k in OBS_DESTS}
 
 
 def test_serve_flags_are_the_jax_command_line_s():
