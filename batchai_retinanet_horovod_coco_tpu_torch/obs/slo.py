@@ -25,8 +25,8 @@ all of that is testable without sleeping (the watchdog's pattern).
 
 The monitor is read-only (it never sheds, kills, or throttles) and its
 poll thread is watchdog-registered: a wedged SLO monitor is itself a
-diagnosed stall.  The fleet rules and ``ef_residual_spike`` wait for the
-fleet and multi-GPU training (``ROADMAP.md``).
+diagnosed stall.  ``ef_residual_spike`` waits for multi-GPU training
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -452,6 +452,59 @@ def grad_norm_spike(
         description=(
             f"pre-clip grad norm above {factor}x its rolling-median "
             "baseline"
+        ),
+    )
+
+
+def fleet_availability_rule(
+    floor: float = 0.999,
+    metric: str = "fleet_availability",
+    for_s: float = 0.0,
+) -> SloRule:
+    """Fleet availability floor: fires when the fraction of ROUTABLE
+    replicas (breaker CLOSED) over non-drained replicas drops below
+    ``floor`` — when ANY replica is lost, at the default.  The metric is
+    the fleet router's ``fleet_availability`` gauge; the anti-flap
+    machinery makes a replica death page exactly once per sustained loss
+    (the breaker readmitting the respawned replica heals the breach and,
+    after ``clear_s``, re-arms the rule).  Silent on registries without
+    the gauge."""
+    return SloRule(
+        name="fleet-availability",
+        metric=metric,
+        op="<",
+        threshold=floor,
+        for_s=for_s,
+        description=(
+            f"routable-replica fraction below {floor} (a replica's "
+            "breaker is open or the replica is gone; see the "
+            "fleet_breaker_open events on the timeline)"
+        ),
+    )
+
+
+def fleet_occupancy_rule(
+    ceiling: float = 0.97,
+    metric: str = "fleet_occupancy",
+    for_s: float = 30.0,
+) -> SloRule:
+    """Fleet saturation tripwire: fires when mean live slot occupancy
+    across ROUTABLE replicas (the fleet router's ``fleet_occupancy`` gauge,
+    draining replicas excluded) stays at ``ceiling`` or above for
+    ``for_s``.  With the autoscaler armed this can only sustain when
+    scale-ups are capped at ``max_replicas`` (underprovisioned by policy);
+    without it, it says to arm ``--autoscale`` or add replicas.  Silent on
+    registries without the gauge."""
+    return SloRule(
+        name="fleet-occupancy-saturated",
+        metric=metric,
+        op=">=",
+        threshold=ceiling,
+        for_s=for_s,
+        description=(
+            f"fleet slot occupancy pinned at >= {ceiling} for {for_s:g}s "
+            "(capacity saturated; autoscale capped or not armed — see "
+            "the autoscale_decision events and fleet_scale_capped_total)"
         ),
     )
 

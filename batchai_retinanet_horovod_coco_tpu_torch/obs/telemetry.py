@@ -35,8 +35,7 @@ plus ``_count``/``_sum`` over the window; counters and gauges are the
 plain families.  ``parse_exposition`` is the matching reader.
 
 Not ported yet (``ROADMAP.md``): ``record_comm`` (the gradient-compression
-gauges wait for multi-GPU training) and ``record_stream_frame`` (waits
-for ``/stream*``).
+gauges wait for multi-GPU training).
 """
 
 from __future__ import annotations
@@ -714,12 +713,13 @@ def default() -> Registry:
 def reset() -> None:
     """Test hook: disable and drop the default registry + train/serve
     handles."""
-    global _default, _train_gauges, _serve_metrics
+    global _default, _train_gauges, _serve_metrics, _stream_metrics
     disable()
     with _default_lock:
         _default = None
     _train_gauges = None
     _serve_metrics = None
+    _stream_metrics = None
     with _ckpt_lock:
         _ckpt_state.update(
             last_success_t=None, interval_s=None, last_save_s=None,
@@ -882,6 +882,45 @@ def record_serve_batch(
     for w in slot_wait_ms:
         if math.isfinite(w):
             g["slot_wait"].observe(float(w))
+
+
+_stream_metrics: dict[str, Any] | None = None
+
+
+def _stream_handles() -> dict[str, Any]:
+    """Lazily-created streaming-detection handles on the default registry
+    (the ``_serve_handles`` pattern: registration is never paid on the
+    disabled path)."""
+    global _stream_metrics
+    if _stream_metrics is None:
+        r = default()
+        _stream_metrics = {
+            "hits": r.counter(
+                "serve_stream_cache_hits_total",
+                "frames short-circuited by the frame-delta cache",
+            ),
+            "misses": r.counter(
+                "serve_stream_cache_misses_total",
+                "frames dispatched to the device",
+            ),
+            "latency": r.histogram(
+                "serve_stream_frame_latency_ms",
+                "per-frame submit→deliver latency across all streams",
+            ),
+        }
+    return _stream_metrics
+
+
+def record_stream_frame(cache_hit: bool, latency_ms: float) -> None:
+    """The stream delivery thread's per-frame record site
+    (``serve/stream.py`` ``_finish``).  One bool check while telemetry is
+    off."""
+    if not _enabled:
+        return
+    g = _stream_handles()
+    (g["hits"] if cache_hit else g["misses"]).inc()
+    if math.isfinite(latency_ms):
+        g["latency"].observe(float(latency_ms))
 
 
 def record_nonfinite_trip(metric: str) -> None:

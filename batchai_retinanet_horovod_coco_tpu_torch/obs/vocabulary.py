@@ -17,8 +17,8 @@ Entry shape: ``"name": {"kinds": (...), "consumers": (...)}``
   ``"instant"`` (trace.instant), ``"series"`` (telemetry counter / gauge /
   histogram families and trace.counter samples).
 - ``consumers`` — repo-relative paths of the files that READ the name
-  (SLO rules, the chip smoke run); empty means "emitted for ad-hoc
-  analysis".
+  (SLO rules, the autoscaler, the canary gate, the chip smoke run); empty
+  means "emitted for ad-hoc analysis".
 """
 
 from __future__ import annotations
@@ -33,8 +33,32 @@ VOCABULARY: dict[str, dict] = {
         "kinds": ("event",),
         "consumers": ("chip_smoke.py",),
     },
+    "autoscale_decision": {
+        "kinds": ("event",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "autoscale_launch_failed": {
+        "kinds": ("event",),
+        "consumers": (),
+    },
+    "autoscaler_armed": {
+        "kinds": ("event",),
+        "consumers": (),
+    },
     "build_detect_fn": {
         "kinds": ("span",),
+        "consumers": (),
+    },
+    "canary_promoted": {
+        "kinds": ("event",),
+        "consumers": (),
+    },
+    "canary_rollback": {
+        "kinds": ("event",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "canary_started": {
+        "kinds": ("event",),
         "consumers": (),
     },
     "chaos_nan_injected": {
@@ -125,6 +149,177 @@ VOCABULARY: dict[str, dict] = {
         "kinds": ("span",),
         "consumers": (),
     },
+    "fleet_autoscale_draining": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_availability": {
+        "kinds": ("series",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/obs/slo.py",),
+    },
+    "fleet_breaker_close": {
+        "kinds": ("event",),
+        "consumers": (),
+    },
+    "fleet_breaker_half_open": {
+        "kinds": ("event",),
+        "consumers": (),
+    },
+    "fleet_breaker_open": {
+        "kinds": ("event",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "fleet_breaker_open_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_breaker_state": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_canary_p99_ratio": {
+        "kinds": ("series",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/serve/fleet.py",),
+    },
+    "fleet_canary_rollback_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_canary_shed_total": {
+        "kinds": ("series",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/serve/fleet.py",),
+    },
+    "fleet_federated_p99_ms": {
+        "kinds": ("series",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/serve/autoscale.py",),
+    },
+    "fleet_federated_shed_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_free_slots": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_inflight": {
+        "kinds": ("series",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/serve/autoscale.py",),
+    },
+    "fleet_occupancy": {
+        "kinds": ("series",),
+        "consumers": (
+            "batchai_retinanet_horovod_coco_tpu_torch/serve/autoscale.py",
+            "batchai_retinanet_horovod_coco_tpu_torch/obs/slo.py",
+        ),
+    },
+    "fleet_redispatch": {
+        "kinds": ("event",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "fleet_redispatch_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_replica_died": {
+        "kinds": ("event",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "fleet_replica_draining": {
+        "kinds": ("event",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "fleet_replica_joined": {
+        "kinds": ("event",),
+        "consumers": (),
+    },
+    "fleet_replica_p99_ms": {
+        "kinds": ("series",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/serve/autoscale.py",),
+    },
+    "fleet_replica_removed": {
+        "kinds": ("event",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "fleet_replica_respawned": {
+        "kinds": ("event",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "fleet_replica_spawned": {
+        "kinds": ("event",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "fleet_replica_weight": {
+        "kinds": ("series",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "fleet_replicas_active": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_replicas_desired": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_replicas_routable": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_replicas_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_request": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
+    "fleet_request_latency_ms": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_requests_completed_total": {
+        "kinds": ("series",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/serve/autoscale.py",),
+    },
+    "fleet_requests_failed_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_requests_timeout_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_respawn_failed": {
+        "kinds": ("event",),
+        "consumers": (),
+    },
+    "fleet_scale_capped_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_scale_down_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_scale_up_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_shed_total": {
+        "kinds": ("series",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/serve/autoscale.py",),
+    },
+    "fleet_stream_reaped": {
+        "kinds": ("event",),
+        "consumers": (),
+    },
+    "fleet_stream_repinned_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "fleet_streams_open": {
+        "kinds": ("series",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/serve/autoscale.py",),
+    },
     "metrics_fetch": {
         "kinds": ("span",),
         "consumers": (),
@@ -151,6 +346,10 @@ VOCABULARY: dict[str, dict] = {
     },
     "request": {
         "kinds": ("flow",),
+        "consumers": (),
+    },
+    "respawn_budget_exhausted": {
+        "kinds": ("event",),
         "consumers": (),
     },
     "serve.admission_qsize": {
@@ -231,7 +430,10 @@ VOCABULARY: dict[str, dict] = {
     },
     "serve_request_latency_ms": {
         "kinds": ("series",),
-        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/obs/slo.py",),
+        "consumers": (
+            "batchai_retinanet_horovod_coco_tpu_torch/obs/slo.py",
+            "batchai_retinanet_horovod_coco_tpu_torch/serve/fleet.py",
+        ),
     },
     "serve_requests_completed_total": {
         "kinds": ("series",),
@@ -247,7 +449,10 @@ VOCABULARY: dict[str, dict] = {
     },
     "serve_shed_total": {
         "kinds": ("series",),
-        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/obs/slo.py",),
+        "consumers": (
+            "batchai_retinanet_horovod_coco_tpu_torch/obs/slo.py",
+            "batchai_retinanet_horovod_coco_tpu_torch/serve/fleet.py",
+        ),
     },
     "serve_slot_evictions_total": {
         "kinds": ("series",),
@@ -261,6 +466,34 @@ VOCABULARY: dict[str, dict] = {
         "kinds": ("event",),
         "consumers": (),
     },
+    "serve_stream_cache_bytes_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "serve_stream_cache_hits_total": {
+        "kinds": ("series",),
+        "consumers": ("chip_smoke.py",),
+    },
+    "serve_stream_cache_misses_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "serve_stream_frame_latency_ms": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "serve_stream_frames_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "serve_stream_reaped_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "serve_stream_sessions": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
     "serve_warmup": {
         "kinds": ("span",),
         "consumers": (),
@@ -271,7 +504,7 @@ VOCABULARY: dict[str, dict] = {
     },
     "slo_violations_total": {
         "kinds": ("series",),
-        "consumers": (),
+        "consumers": ("chip_smoke.py",),
     },
     "stall": {
         "kinds": ("instant",),
@@ -279,6 +512,26 @@ VOCABULARY: dict[str, dict] = {
     },
     "step": {
         "kinds": ("span",),
+        "consumers": (),
+    },
+    "stream_frame": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
+    "stream_opened": {
+        "kinds": ("instant",),
+        "consumers": (),
+    },
+    "stream_repinned": {
+        "kinds": ("event",),
+        "consumers": (),
+    },
+    "stream_session": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
+    "stream_session_reaped": {
+        "kinds": ("instant",),
         "consumers": (),
     },
     "train_compiles_total": {

@@ -88,6 +88,35 @@ class ServeConfig:
     latency_window: int = 4096
 
 
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Streaming-video session knobs (``serve/stream.py``): the frame-delta
+    cache and the idle reaper, and the bounds that keep one stream a
+    polite long-lived client of the slot pool."""
+
+    # Frame-delta short-circuit: a frame whose decoded pixels differ from
+    # the session's reference frame by LESS than this mean absolute delta
+    # (uint8 counts, averaged over every pixel) returns the previous
+    # frame's detections, track ids kept, without touching the device.
+    # 0.0 disables the cache: every frame rides the device, and the stream
+    # answers as the single-image path does.
+    delta_threshold: float = 2.0
+    # A session with no frame activity for this long (and nothing in
+    # flight) is reaped by the delivery thread.
+    idle_timeout_s: float = 30.0
+    # Bounded session table: opens past this shed with stream_limit.
+    max_streams: int = 64
+    # Bounded per-stream in-flight frames (stream_backlogged past it).
+    max_inflight: int = 8
+    # Track stitching (host-side IoU matching over consecutive frames).
+    track_iou: float = 0.3
+    # A track unmatched for this many consecutive device-served frames is
+    # dropped (its id is never reused within the session).
+    track_max_misses: int = 5
+    # Bounded window of recent frame latencies per session (p99 source).
+    latency_window: int = 2048
+
+
 class DetectionFuture:
     """The caller-side handle ``submit()`` returns.
 

@@ -3,9 +3,9 @@ the HTTP frontend and the command line.
 
 The JAX package's ``serve/frontend.py``: ``DetectionServer`` (``submit``,
 ``detect``, ``snapshot``, ``close`` and the context manager),
-``serve_http`` and the serve CLI, with the obs layer, without streaming
-and the stub engine.  ``DetectionServer`` wires the four serve machines
-together::
+``serve_http`` (with the streaming sessions of ``serve/stream.py``) and
+the serve CLI (with the stub engine of ``serve/stub.py``), with the obs
+layer.  ``DetectionServer`` wires the four serve machines together::
 
     submit(image) ──► admission queue (bounded; full ⇒ shed)
                         │  router workers: decode → resize → bucket
@@ -44,9 +44,13 @@ The command line serves a ``convert_model`` export directory::
     python -m batchai_retinanet_horovod_coco_tpu_torch.serve --export-dir exported \
         --images photos/ --output detections.jsonl
 
+    python -m batchai_retinanet_horovod_coco_tpu_torch.serve --stub-engine --http 0
+
 Its flags are the JAX command line's, plus ``--device {cuda,cpu}``
-(default ``cuda``, which raises without a card); the stub engine and
-replica flags and ``--platform`` are refused, naming ``ROADMAP.md``.
+(default ``cuda``, which raises without a card; the stub engine needs no
+device); ``--platform`` is refused, naming ``ROADMAP.md``.  A replica that
+the fleet spawns (``serve/replica.py``) carries ``--replica-id`` and joins
+the fleet's trace through the ``RETINANET_OBS_DIR`` environment.
 """
 
 from __future__ import annotations
@@ -102,13 +106,19 @@ class DetectionServer:
         config: ServeConfig = ServeConfig(),
         warmup: bool = True,
         sink=None,
+        replica_id: str | None = None,
     ):
         self.engine = engine
         self.config = config
         self.sink = sink  # an obs.events.EventSink (serve_stats events) or None
-        # host-pid: stable for the server's life, unique among a host's
-        # servers; tagged onto every serve_request span.
-        self.replica_id = f"{socket.gethostname()}-{os.getpid()}"
+        # The identity the fleet router and canary gate attribute health
+        # by: explicit (the fleet command line pins it across respawns so
+        # the breaker readmits "the same" replica), else host-pid — stable
+        # for the server's life, unique among a host's servers.  Tagged
+        # onto every serve_request span.
+        if replica_id is None:
+            replica_id = f"{socket.gethostname()}-{os.getpid()}"
+        self.replica_id = replica_id
         self.stats = LatencyStats(window=config.latency_window)
         # Pull-only registry: the quantiles read the latency window and the
         # collector reads snapshot(), at scrape time, so the request path
@@ -128,6 +138,9 @@ class DetectionServer:
         )
         self.telemetry.register_collector(self._telemetry_samples)
         self.telemetry.register_collector(telemetry.watchdog_collector())
+        # The card's allocator (nothing on the CPU): a fleet reads each
+        # replica's peak memory from its /metrics.
+        self.telemetry.register_collector(telemetry.device_memory_collector)
         if warmup:
             engine.warmup()
 
@@ -518,6 +531,7 @@ def serve_http(
     host: str = "127.0.0.1",
     port: int = 0,
     request_timeout_s: float = 60.0,
+    stream=None,
 ):
     """Wrap a ``DetectionServer`` in a stdlib ``ThreadingHTTPServer``.
 
@@ -525,24 +539,50 @@ def serve_http(
                    400 on ``decode_error`` (the client's input, not
                    retryable), 503 with the reason on a shed (retryable),
                    504 on a deadline, 500 on a server error
+    POST /stream/open   (JSON ``{width?, height?}``) → 200 ``{session,
+                   bucket}``
+    POST /stream/frame  (headers ``X-Retinanet-Stream`` and
+                   ``X-Retinanet-Frame``, optional
+                   ``X-Retinanet-Deadline-Ms``; body = encoded frame) → 200
+                   ``{detections (with track_id), frame, cache_hit}``; 404
+                   unknown session, 400 out of order or bad input, 503
+                   backlogged or shed, 504 deadline (``serve/stream.py``)
+    POST /stream/close  (header ``X-Retinanet-Stream``) → 200 final stats
+    GET  /stream   → 200 JSON per-stream status snapshot
     GET  /stats    → 200 JSON stats snapshot
     GET  /metrics  → 200 Prometheus text exposition (``server.telemetry``)
     GET  /healthz  → 200 ``{"status": "ok", ...}`` with the load fields
                    while every watchdog component is within its budget,
                    503 naming the most-stalled component otherwise (a
                    read-only probe)
-    anything else  → 404 (``/stream*`` waits for its slice)
+    anything else  → 404
 
-    Every /detect response echoes the ``X-Retinanet-Trace`` request header
-    (an id is minted when it is absent) as that header and as a
-    ``trace_id`` field; the id tags the request's ``serve_request``
-    span.  ``request_timeout_s`` bounds each handler's wait
-    on its future, so a client never hangs on a wedged pipeline.  The
-    listen backlog is 128 connections (the stdlib's is 5).  Returns the
-    ``http.server`` instance; the caller owns ``serve_forever()`` and
-    ``shutdown()``.
+    Every /detect and /stream response echoes the ``X-Retinanet-Trace``
+    request header (an id is minted when it is absent) as that header and
+    as a ``trace_id`` field; the id tags the request's ``serve_request``
+    span.  ``request_timeout_s`` bounds each handler's wait on its future,
+    so a client never hangs on a wedged pipeline.  The listen backlog is
+    128 connections (the stdlib's is 5).  The stream manager (``stream``,
+    else one made on the first ``/stream*`` request) is closed by
+    ``server_close()``.  Returns the ``http.server`` instance; the caller
+    owns ``serve_forever()`` and ``shutdown()``.
     """
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    # Made on first use: image-only servers never start its delivery
+    # thread, and ``server_close`` below closes it if one was made.
+    stream_lock = make_lock("serve.frontend.serve_http._stream_lock")
+    stream_holder = [stream]
+
+    def stream_manager():
+        with stream_lock:
+            if stream_holder[0] is None:
+                from batchai_retinanet_horovod_coco_tpu_torch.serve.stream import (
+                    StreamManager,
+                )
+
+                stream_holder[0] = StreamManager(server)
+            return stream_holder[0]
 
     class Handler(BaseHTTPRequestHandler):
         def _json(self, code: int, payload: dict, trace_id: str | None = None) -> None:
@@ -564,6 +604,8 @@ def serve_http(
                 code, payload = telemetry.healthz()
                 payload["load"] = server.load_fields()
                 self._json(code, payload)
+            elif self.path == "/stream":
+                self._json(200, stream_manager().status())
             elif self.path == "/metrics":
                 body = server.telemetry.prometheus_text().encode()
                 self.send_response(200)
@@ -574,7 +616,64 @@ def serve_http(
             else:
                 self._json(404, {"error": "not_found"})
 
+        def _stream_rejected(self, exc: RequestRejected, trace_id: str) -> None:
+            """The stream flavour of the status mapping: an unknown or
+            retired session is 404 (re-open, do not retry), the client's
+            protocol faults (bad input, a frame out of order) 400, anything
+            transient 503."""
+            if exc.reason == "unknown_stream":
+                code = 404
+            elif exc.reason in ("decode_error", "stream_out_of_order"):
+                code = 400
+            else:
+                code = 503
+            self._json(code, {"error": "rejected", "reason": exc.reason}, trace_id=trace_id)
+
+        def _do_stream(self, trace_id: str) -> None:
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            try:
+                if self.path == "/stream/open":
+                    spec = json.loads(body) if body else {}
+                    out = stream_manager().open_stream(
+                        width=spec.get("width"), height=spec.get("height"), trace_id=trace_id,
+                    )
+                    self._json(200, out, trace_id=trace_id)
+                elif self.path == "/stream/frame":
+                    sid = self.headers.get("X-Retinanet-Stream", "")
+                    try:
+                        seq = int(self.headers.get("X-Retinanet-Frame", -1))
+                        deadline_ms = self.headers.get("X-Retinanet-Deadline-Ms")
+                        timeout_s = float(deadline_ms) / 1e3 if deadline_ms else None
+                    except ValueError:
+                        # A malformed header is the client's fault: 400,
+                        # not a dropped connection.
+                        raise RequestRejected("decode_error", "malformed stream header") from None
+                    fut = stream_manager().submit_frame(
+                        sid, seq, body, timeout_s=timeout_s, trace_id=trace_id,
+                    )
+                    dets = fut.result(timeout=request_timeout_s)
+                    self._json(200, {"detections": dets, "frame": seq,
+                                     "cache_hit": bool(getattr(fut, "cache_hit", False))},
+                               trace_id=trace_id)
+                elif self.path == "/stream/close":
+                    sid = self.headers.get("X-Retinanet-Stream", "")
+                    stats = stream_manager().close_stream(sid)
+                    self._json(200, {"closed": sid, "stats": stats}, trace_id=trace_id)
+                else:
+                    self._json(404, {"error": "not_found"})
+            except RequestRejected as exc:
+                self._stream_rejected(exc, trace_id)
+            except (RequestTimeout, TimeoutError):
+                self._json(504, {"error": "deadline_exceeded"}, trace_id=trace_id)
+            except Exception as exc:  # ServeError and anything unexpected
+                # A handler fault answers 500 instead of closing the
+                # connection mid-request.
+                self._json(500, {"error": "server_error", "detail": str(exc)}, trace_id=trace_id)
+
         def do_POST(self):  # noqa: N802
+            if self.path.startswith("/stream/"):
+                self._do_stream(self.headers.get(TRACE_HEADER) or trace.new_trace_id())
+                return
             if self.path != "/detect":
                 self._json(404, {"error": "not_found"})
                 return
@@ -600,15 +699,21 @@ def serve_http(
         # its connections dropped and retried a second later.
         request_queue_size = 128
 
+        def server_close(self):
+            with stream_lock:
+                manager = stream_holder[0]
+            if manager is not None:
+                manager.close()
+            super().server_close()
+
     return Server((host, port), Handler)
 
 
 # ---- CLI -----------------------------------------------------------------
 
-#: The JAX command line's flags whose machinery is not ported.
-REFUSED_FLAGS = (
-    "--stub-engine", "--stub-delay-ms", "--stub-video", "--platform", "--replica-id",
-)
+#: The JAX command line's flags that have no meaning here (``--device``
+#: picks the device).
+REFUSED_FLAGS = ("--platform",)
 IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".bmp")
 
 
@@ -624,9 +729,20 @@ def build_parser():
         description="Serve an exported detector (convert_model output) over "
                     "HTTP, or run it over a directory of images.",
     )
-    p.add_argument("--export-dir", required=True,
+    p.add_argument("--export-dir", default=None,
                    help="export directory (manifest.json + .pt2 programs) "
-                        "from convert_model")
+                        "from convert_model; required unless --stub-engine")
+    p.add_argument("--stub-engine", action="store_true",
+                   help="serve the stub engine instead of an export: no "
+                        "device work, one fixed detection per request "
+                        "(serve/stub.py; the fleet's stub replicas)")
+    p.add_argument("--stub-delay-ms", type=float, default=0.0,
+                   help="stub engine per-dispatch delay (simulated device "
+                        "time; lets harnesses shape p99)")
+    p.add_argument("--stub-video", action="store_true",
+                   help="stub engine video mode: each row's boxes derive "
+                        "from that row's pixel brightness, so seeded drift "
+                        "footage gives deterministic drifting boxes")
     mode = p.add_mutually_exclusive_group(required=True)
     mode.add_argument("--http", type=int, metavar="PORT",
                       help="start the HTTP frontend on this port (0 = "
@@ -640,20 +756,21 @@ def build_parser():
                         "stdout summary only)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the programs run (the device they were "
-                        "exported on); cuda raises without a card")
+                        "exported on); cuda raises without a card; the "
+                        "stub engine ignores it")
     add_serve_flags(p)
     add_obs_flags(p)
     return p
 
 
 def refuse_unported(argv: list[str]) -> None:
-    """Raise ``SystemExit`` naming every flag of the JAX command line whose
-    machinery is not ported; ``argv`` is scanned before parsing."""
+    """Raise ``SystemExit`` naming every flag of the JAX command line that
+    the port refuses; ``argv`` is scanned before parsing."""
     refused = [a.split("=", 1)[0] for a in argv if a.split("=", 1)[0] in REFUSED_FLAGS]
     if refused:
         raise SystemExit(
-            f"{', '.join(refused)}: not ported to the PyTorch package yet (the stub "
-            "engine, replicas and --platform; pass --device for the device); see ROADMAP.md"
+            f"{', '.join(refused)}: not ported to the PyTorch package (pass --device "
+            "for the device); see ROADMAP.md"
         )
 
 
@@ -713,7 +830,15 @@ def main(argv: list[str] | None = None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     refuse_unported(argv)
     args = build_parser().parse_args(argv)
-    obs_dir = configure_obs(args, process_label="serve")
+    if not args.stub_engine and args.export_dir is None:
+        raise SystemExit("--export-dir is required (or pass --stub-engine)")
+    # A fleet replica's process track in the merged trace carries its id.
+    process_label = args.replica_id or "serve"
+    obs_dir = configure_obs(args, process_label=process_label)
+    # A replica that the fleet spawned joins the fleet's trace through the
+    # RETINANET_OBS_DIR environment and exports its own fragment at exit;
+    # explicit --obs-trace/--obs-dir flags win.
+    joined_env = obs_dir is None and trace.maybe_configure_from_env(process_label)
     sink = None
     slo_monitor = None
     status_server = None
@@ -726,12 +851,17 @@ def main(argv: list[str] | None = None) -> dict:
     main_thread = threading.current_thread() is threading.main_thread()
     previous = signal.signal(signal.SIGTERM, on_sigterm) if main_thread else None
     try:
-        engine = DetectEngine.from_export(args.export_dir, args.device)
+        if args.stub_engine:
+            from batchai_retinanet_horovod_coco_tpu_torch.serve.stub import StubDetectEngine
+
+            engine = StubDetectEngine(delay_s=args.stub_delay_ms / 1e3, video=args.stub_video)
+        else:
+            engine = DetectEngine.from_export(args.export_dir, args.device)
         print(
             f"engine: buckets={engine.buckets} "
             f"batch_sizes={ {hw: engine.batch_sizes(hw) for hw in engine.buckets} } "
             f"resize={engine.min_side}/{engine.max_side} version={engine.version} "
-            f"device={engine.device}",
+            f"device={getattr(engine, 'device', 'none')}",
             flush=True,
         )
         if obs_dir is not None:
@@ -740,7 +870,8 @@ def main(argv: list[str] | None = None) -> dict:
 
             sink = EventSink(obs_dir, stdout=False, run_config=vars(args))
             watchdog.default().sink = sink
-        server = DetectionServer(engine, make_serve_config(args), sink=sink)
+        server = DetectionServer(engine, make_serve_config(args), sink=sink,
+                                 replica_id=args.replica_id)
         if obs_dir is not None or args.slo_rule or args.obs_port is not None:
             telemetry.enable()  # the push record sites (record_serve_batch)
         if args.slo_rule or args.obs_port is not None:
@@ -765,8 +896,8 @@ def main(argv: list[str] | None = None) -> dict:
         else:
             httpd = serve_http(server, args.host, args.http)
             host, port = httpd.server_address[:2]
-            print(f"serving on http://{host}:{port} (POST /detect; GET /stats /metrics /healthz)",
-                  flush=True)
+            print(f"serving on http://{host}:{port} (POST /detect /stream/*; "
+                  "GET /stats /stream /metrics /healthz)", flush=True)
             try:
                 httpd.serve_forever()
             except KeyboardInterrupt:
@@ -776,7 +907,7 @@ def main(argv: list[str] | None = None) -> dict:
                 # Drain before the socket closes: handlers still waiting
                 # on their futures answer on their open connections.
                 server.close()
-                httpd.server_close()
+                httpd.server_close()  # closes the stream manager too
         server.close()  # drained: the stats are final
         snap = server.snapshot()
         print(json.dumps({"serve_stats": snap}), flush=True)
@@ -796,5 +927,9 @@ def main(argv: list[str] | None = None) -> dict:
             merged = obs.finalize()
             if merged:
                 print(f"obs: merged Chrome trace at {merged}", flush=True)
+        elif joined_env:
+            # A fleet-spawned replica exports its own fragment only; the
+            # fleet process owns the merge.
+            trace.export()
         if main_thread:
             signal.signal(signal.SIGTERM, previous)

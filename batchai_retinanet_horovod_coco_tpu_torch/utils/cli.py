@@ -98,8 +98,7 @@ def add_durability_flags(parser) -> None:
 
 def add_serve_flags(parser) -> None:
     """The inference server's flag surface (``serve/frontend.py``), with
-    the JAX package's names and defaults; its ``--replica-id`` belongs to
-    the fleet, which is not ported (the serve command refuses it)."""
+    the JAX package's names and defaults."""
     parser.add_argument("--serve-max-delay-ms", type=float, default=10.0,
                         help="dynamic-batching deadline: a partial batch "
                              "fires at most this long after its first "
@@ -126,6 +125,12 @@ def add_serve_flags(parser) -> None:
     parser.add_argument("--serve-drain-timeout-s", type=float, default=30.0,
                         help="graceful close waits this long for in-flight "
                              "requests before rejecting the remainder")
+    parser.add_argument("--replica-id", default=None,
+                        help="stable identity carried in /healthz load "
+                             "fields (fleet routing and canary attribution); "
+                             "default host-pid.  The fleet command line pins "
+                             "it across respawns so a breaker-open replica "
+                             "is readmitted as itself")
 
 
 def add_obs_flags(parser) -> None:

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in thirteen
+Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in fourteen
 phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
@@ -143,7 +143,32 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    sent, a ``serve_request`` span in the exported trace for every
    request, NMS launched once a served batch; it prints the median ms of
    each serve span and the mean images/s with tracing off and on; (e) a watchdog component
-   with a 1 s budget that never beats turns ``/healthz`` 503, naming it.
+   with a 1 s budget that never beats turns ``/healthz`` 503, naming it;
+14. the serve fleet on one card, over phase 12's exported programs: (a) a
+   ``FleetRouter`` over two ``LocalReplica``s (``DetectionServer`` over
+   ``DetectEngine.from_export`` on the card) answers the fixtures from 8
+   client threads, every answer the live engine's at an exported (batch
+   size, row) slot, bit for bit, and NMS launched once a batch the two
+   replicas dispatched; (b) ``python -m ...serve.fleet --spawn 2
+   --export-dir`` answers 8 and 32 HTTP client threads in another process
+   (the same check), reads each replica's peak device memory from its
+   ``/metrics``, and has replica-0 SIGKILLed under 32 clients: every
+   request answered (re-dispatched at most once), one first
+   ``fleet_breaker_open`` for it, the respawned replica readmitted with its
+   weight and ``/healthz`` 200, one fleet-availability SLO violation on the
+   fleet's ``/metrics``; (c) a stub fleet whose stub canary is slowed to
+   250 ms a batch gets exactly one ``canary_rollback`` and its base
+   replica's weight back; (d) the fixtures, each 3 times, as the frames of
+   one stream through ``/stream/open``, ``/stream/frame`` and
+   ``/stream/close``: in order, each frame's answer without ``track_id``
+   the live engine's at an exported slot, with the frame-delta cache off
+   (the in-process fleet edge over HTTP replicas; NMS once a batch) and on
+   (the fleet command line's edge; its hits counted, the frame p50/p99);
+   (e) ``--autoscale --min-replicas 1 --max-replicas 2``: a burst of 32
+   clients scales up to 2 replicas, the new one takes weighted requests,
+   and a trickle of 1 client through idle time drains back to 1, no request
+   failing.  Each fleet runs in a process group of its own, killed
+   whatever happens.
 
 Then it prints one JSON line with each kernel's launches, error, times and
 bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
@@ -165,6 +190,8 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -208,8 +235,15 @@ from batchai_retinanet_horovod_coco_tpu_torch.train import optim as optim_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import state as state_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import step as step_lib
 from batchai_retinanet_horovod_coco_tpu_torch.serve.batcher import assemble_requests
+from batchai_retinanet_horovod_coco_tpu_torch.serve import fleet as serve_fleet
 from batchai_retinanet_horovod_coco_tpu_torch.serve import frontend as serve_frontend
-from batchai_retinanet_horovod_coco_tpu_torch.serve.common import ServeConfig, ServeRequest
+from batchai_retinanet_horovod_coco_tpu_torch.serve.common import (
+    ServeConfig,
+    ServeRequest,
+    StreamConfig,
+)
+from batchai_retinanet_horovod_coco_tpu_torch.serve.replica import HttpReplica, LocalReplica
+from batchai_retinanet_horovod_coco_tpu_torch.serve.stream import StreamManager
 from batchai_retinanet_horovod_coco_tpu_torch.serve.engine import DetectEngine
 from batchai_retinanet_horovod_coco_tpu_torch.serve.frontend import DetectionServer
 from batchai_retinanet_horovod_coco_tpu_torch.utils.checkpoint import CheckpointManager
@@ -261,6 +295,7 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+_SCRIPT_START = time.perf_counter()
 _PHASE_START: list[float] = []
 
 
@@ -713,17 +748,20 @@ def main() -> int:
         phase(11, "from image files through the command line")
         file_launches = files_phase(root, device, kind, smi)
         phase(12, "the deployable server: export, load without model code, serve over HTTP")
-        served_launches = deployable_phase(os.path.join(root, "snap"), root, device, kind, smi)
+        served = deployable_phase(os.path.join(root, "snap"), root, device, kind, smi)
         phase(13, "observability at full width")
         obs_launches = obs_phase(root, [cut_batch(b, batch_size) for b in batches], device, kind, smi)
+        phase(14, "the serve fleet on one card")
+        fleet_launches = fleet_phase(root, served, device, kind, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
         row["launches"] = (launches_by_kernel[key] + run_launches[key] + file_launches[key]
                            + obs_launches[key])
-    nms_row["launches"] = (launches + run_launches["nms"] + file_launches["nms"] + served_launches
-                           + obs_launches["nms"])
+    nms_row["launches"] = (launches + run_launches["nms"] + file_launches["nms"] + served["launches"]
+                           + obs_launches["nms"] + fleet_launches)
     end_phases()
+    print(f"chip_smoke: all 14 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
 
     print(smi)
     print(json.dumps({"kernels": [nms_row, match_row, fwd_row, bwd_row]}))
@@ -1655,7 +1693,9 @@ for t in threads:
     t.start()
 for t in threads:
     t.join()
-json.dump({"wall": time.perf_counter() - t0, "results": results}, sys.stdout)
+# json.dumps, not json.dump: the latter encodes in Python, a minute for
+# the tens of MB of a long load's answers.
+sys.stdout.write(json.dumps({"wall": time.perf_counter() - t0, "results": results}))
 """
 
 
@@ -1796,10 +1836,13 @@ def answers_at_every_row(engine: DetectEngine, files: list[tuple[str, bytes]], b
 
 
 def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
-                     config: RetinaNetConfig = RetinaNetConfig(), sides=(800, 1333)) -> int:
+                     config: RetinaNetConfig = RetinaNetConfig(), sides=(800, 1333)) -> dict:
     """Phase 12 on phase 11's snapshot (a model of ``config``, trained at
     image ``sides``); returns the NMS kernel's launches by the served
-    exported programs."""
+    exported programs (``launches``), the live engine's answer for each
+    fixture at each exported (batch size, row) (``want``, keyed (name,
+    batch size, row)) and the images/s and latencies of the HTTP and
+    in-process loads (``stats``), which phase 14 reuses."""
     export_dir = os.path.join(root, "export")
     files = served_files()
     images = {n: image_io.decode(data) for n, data in files}
@@ -2011,7 +2054,7 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
     del live, engine, model
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "want": want, "stats": stats}
 
 
 # ---- phase 13: observability at full width ---------------------------------
@@ -2300,6 +2343,543 @@ def stall_check() -> None:
         hb.close()
         server.close()
         obs_telemetry.disable()
+
+
+# ---- phase 14: the serve fleet on one card ----------------------------------
+
+# Client threads in another process that post the fixtures in turn until a
+# stop file appears (or a time limit passes); each result carries its
+# start on the system-wide monotonic clock.
+STOPPABLE_CLIENT = """
+import json, os, sys, threading, time, urllib.error, urllib.request
+url, clients, stop_file, limit_s = sys.argv[1], int(sys.argv[2]), sys.argv[3], float(sys.argv[4])
+files = [(path.rsplit("/", 1)[-1], open(path, "rb").read()) for path in sys.argv[5:]]
+results, lock = [], threading.Lock()
+t_start = time.monotonic()
+
+def client(i):
+    j = 0
+    while not os.path.exists(stop_file) and time.monotonic() - t_start < limit_s:
+        name, data = files[(i + j) % len(files)]
+        j += 1
+        t0 = time.monotonic()
+        try:
+            with urllib.request.urlopen(urllib.request.Request(url, data=data, method="POST"),
+                                        timeout=300) as r:
+                code, body = r.status, json.load(r)
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.load(e)
+        except Exception as e:  # a connection that failed is a result too
+            code, body = 0, {"error": repr(e)}
+        with lock:
+            results.append([name, [code, body], time.monotonic() - t0, t0])
+
+threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+sys.stdout.write(json.dumps({"wall": time.monotonic() - t_start, "results": results}))
+"""
+
+
+class Load:
+    """``clients`` HTTP client threads in another process, posting the
+    fixtures to ``url`` until ``stop()``."""
+
+    def __init__(self, url: str, clients: int, root: str, limit_s: float = 300.0):
+        self.stop_file = os.path.join(root, f"stop-load-{time.monotonic_ns()}")
+        paths = [str(JPEG_FIXTURES / n) for n, _ in served_files()]
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", STOPPABLE_CLIENT, url, str(clients), self.stop_file, str(limit_s),
+             *paths], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop(self) -> tuple[list, float]:
+        """[(name, (status, body), seconds, start)] and the wall time."""
+        Path(self.stop_file).touch()
+        out, err = self.proc.communicate(timeout=600)
+        require(self.proc.returncode == 0, f"the load's clients failed:\n{err[-3000:]}")
+        got = json.loads(out)
+        return [(n, tuple(r), secs, t0) for n, r, secs, t0 in got["results"]], got["wall"]
+
+
+class Tail:
+    """The lines a child process writes to ``path``, each with the
+    monotonic time a reader thread first saw it (every 0.05 s)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.lines: list[tuple[float, str]] = []
+        self.error: BaseException | None = None
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        # watchdog: the reader ends at close(), which joins it.
+        self._thread = threading.Thread(target=self._run, daemon=True, name="chip-smoke-tail")
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            with open(self.path) as f:
+                pending = ""
+                while True:
+                    chunk = f.read()
+                    if chunk:
+                        *full, pending = (pending + chunk).split("\n")
+                        now = time.monotonic()
+                        with self._lock:
+                            self.lines += [(now, line) for line in full]
+                    elif self._stop.is_set():
+                        return
+                    else:
+                        time.sleep(0.05)
+        except BaseException as exc:  # re-raised by close(), in the phase
+            self.error = exc
+
+    def events(self, kind: str | None = None) -> list[tuple[float, dict]]:
+        with self._lock:
+            lines = list(self.lines)
+        out = [(t, json.loads(line)) for t, line in lines if line.startswith('{"event"')]
+        return [(t, e) for t, e in out if kind is None or e["event"] == kind]
+
+    def text(self) -> str:
+        with self._lock:
+            return "\n".join(line for _, line in self.lines)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(30)
+        if self.error is not None:
+            raise self.error
+
+
+class FleetCli:
+    """``python -m ...serve.fleet --http 0 *args`` in a process group of its
+    own (the fleet and the replicas it spawns), its standard output and
+    error tailed from files under ``root``."""
+
+    def __init__(self, root: str, name: str, args: list[str], wait: bool = True):
+        self.name = name
+        paths = [os.path.join(root, f"{name}.{s}") for s in ("out", "err")]
+        files = [open(p, "w") for p in paths]
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "batchai_retinanet_horovod_coco_tpu_torch.serve.fleet", "--http", "0",
+             *args], cwd=Path(__file__).resolve().parent, stdout=files[0], stderr=files[1],
+            start_new_session=True)
+        for f in files:
+            f.close()
+        self.out, self.err = Tail(paths[0]), Tail(paths[1])
+        if wait:
+            self.ready()
+
+    def ready(self) -> "FleetCli":
+        """Wait until it serves; its URLs and seconds to come up."""
+        self.url = self._line("fleet serving on ").split()[3]
+        self.up_s = next(t for t, line in self.out.lines if line.startswith("fleet serving on ")) - self.t0
+        obs = [line for _, line in self.out.lines if line.startswith("fleet telemetry on ")]
+        self.obs_url = obs[0].split()[3] if obs else None
+        return self
+
+    def _line(self, prefix: str, timeout: float = 300.0) -> str:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            line = next((line for _, line in list(self.out.lines) if line.startswith(prefix)), None)
+            if line is not None:
+                return line
+            require(self.proc.poll() is None,
+                    f"the {self.name} fleet exited {self.proc.returncode}:\n{self.err.text()[-3000:]}")
+            time.sleep(0.05)
+        require(False, f"the {self.name} fleet did not print {prefix!r}:\n{self.err.text()[-3000:]}")
+
+    def events(self, kind: str | None = None) -> list[tuple[float, dict]]:
+        """Its supervision events (standard output) and its router's and
+        autoscaler's (standard error), in the order seen."""
+        return sorted(self.out.events(kind) + self.err.events(kind), key=lambda te: te[0])
+
+    def status(self) -> dict:
+        code, body = get(f"{self.url}/fleet")
+        require(code == 200, f"/fleet answered {code}")
+        return json.loads(body)
+
+    def replica(self, rid: str) -> dict | None:
+        return next((r for r in self.status()["replicas"] if r["replica_id"] == rid), None)
+
+    def metrics(self, url: str | None = None) -> dict[str, float]:
+        code, body = get(f"{url or self.url}/metrics")
+        require(code == 200, f"/metrics answered {code}")
+        return obs_telemetry.parse_exposition(body.decode())[1]
+
+    def wait(self, what: str, cond, timeout: float) -> float:
+        """Poll ``cond()`` every 0.1 s; the monotonic time it first held."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if cond():
+                return time.monotonic()
+            require(self.proc.poll() is None, f"the {self.name} fleet exited while waiting for {what}")
+            time.sleep(0.1)
+        require(False, f"{self.name} fleet: {what} within {timeout} s; stderr:\n{self.err.text()[-3000:]}")
+
+    def stop(self) -> dict:
+        """SIGTERM: the fleet drains its replicas and exits 0; its final
+        ``fleet_stats``."""
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            self.proc.wait(timeout=180)
+        finally:
+            self.kill()
+        require(self.proc.returncode == 0, f"the {self.name} fleet exited {self.proc.returncode} on SIGTERM:\n"
+                f"{self.err.text()[-3000:]}")
+        stats = [line for _, line in self.out.lines if line.startswith('{"fleet_stats"')]
+        require(len(stats) == 1, f"the {self.name} fleet printed no fleet_stats")
+        return json.loads(stats[0])["fleet_stats"]
+
+    def kill(self) -> None:
+        """Whatever of the group is left: gone (a no-op after a clean stop)."""
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        if self.proc.poll() is None:
+            self.proc.wait(timeout=60)
+        self.out.close()
+        self.err.close()
+
+
+def slot_gap(want: dict, name: str, answer: list[dict]) -> float:
+    """0 when ``answer`` is the live engine's for ``name`` at one of the
+    exported (batch size, row) slots."""
+    return min(answer_gap(answer, w) for (n, *_slot), w in want.items() if n == name)
+
+
+def fleet_phase(root: str, served: dict, device, kind: str, smi: str) -> int:
+    """Phase 14 over phase 12's exported programs; returns the NMS kernel's
+    launches by this process's servers ((a) and (d) in process)."""
+    export_dir = os.path.join(root, "export")
+    launches = in_process_fleet(export_dir, served, device, kind, smi)
+    fleet_cli(root, export_dir, served, device, kind, smi)
+    # (e)'s replica loads its programs while (c)'s stub fleet runs.
+    scaled = FleetCli(root, "autoscale", [
+        "--spawn", "1", "--export-dir", export_dir, "--device", device.type, "--autoscale",
+        "--min-replicas", "1", "--max-replicas", "2", "--autoscale-for-s", "1",
+        "--autoscale-up-cooldown-s", "5", "--autoscale-down-cooldown-s", "5",
+        "--autoscale-interval-s", "0.5", "--poll-interval", "0.5", "--fleet-timeout-s", "300"], wait=False)
+    try:
+        canary_cli(root, kind, smi)
+        autoscale_cli(scaled.ready(), root, served, kind, smi)
+    finally:
+        scaled.kill()
+    return launches
+
+
+def stream_frames(url: str, want: dict, label: str, kind: str, smi: str) -> dict:
+    """The decodable fixtures, each 3 times in a row, as the frames of one
+    stream through ``url``'s /stream/open, /stream/frame and
+    /stream/close: every frame answered 200, in order, and its detections
+    without ``track_id`` the live engine's at an exported slot.  Returns
+    the session's final stats."""
+    files = served_files()
+    code, opened, _, _ = post(f"{url}/stream/open", b"")
+    require(code == 200, f"/stream/open answered {code} {opened}")
+    head = {"X-Retinanet-Stream": opened["session"]}
+    hits, worst, ms = 0, 0.0, []
+    for seq, (name, data) in enumerate((n, d) for n, d in files for _ in range(3)):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"{url}/stream/frame", data=data, method="POST",
+                                     headers={**head, "X-Retinanet-Frame": str(seq)})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, body = r.status, json.load(r)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        require(code == 200 and body["frame"] == seq, f"frame {seq}: {code} {body.get('frame')}")
+        require(all("track_id" in d for d in body["detections"]), f"frame {seq} has no track ids")
+        stripped = [{k: v for k, v in d.items() if k != "track_id"} for d in body["detections"]]
+        worst = max(worst, slot_gap(want, name, stripped))
+        hits += bool(body["cache_hit"])
+    req = urllib.request.Request(f"{url}/stream/close", data=b"", method="POST", headers=head)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        stats = json.load(r)["stats"]
+    print(f"{label}: {len(ms)} frames in order, cache hits {hits} (session's count "
+          f"{stats['cache_hits']}), client p50 {np.percentile(ms, 50):.3f} ms p99 {np.percentile(ms, 99):.3f} "
+          f"ms, session frame p50 {stats.get('p50_ms')} ms p99 {stats.get('p99_ms')} ms; answers against "
+          f"the live engine at an exported slot: largest gap {worst}; {kind}, {smi}")
+    require(worst == 0, f"{label}: a frame's answer differs from the live engine's by {worst}")
+    require(stats["frames"] == len(ms) and stats["cache_hits"] == hits, f"{label}: session stats {stats}")
+    return stats
+
+
+def settled_batches(servers) -> int:
+    """The servers' finished batches, read once the last batch's count
+    has landed (its futures resolve just before the count moves)."""
+    time.sleep(0.2)
+    return sum(s.snapshot()["batches"] for s in servers)
+
+
+def in_process_fleet(export_dir: str, served: dict, device, kind: str, smi: str) -> int:
+    """(a) A ``FleetRouter`` over two ``LocalReplica``s, each a
+    ``DetectionServer`` over ``DetectEngine.from_export`` on the card, at
+    8 client threads; (d, cache off) the same two servers behind
+    ``serve_http`` with a stream manager whose frame-delta cache is off,
+    behind ``serve_fleet_http``: the stream's answers are the live
+    engine's."""
+    want, files = served["want"], served_files()
+    servers = [DetectionServer(DetectEngine.from_export(export_dir, device), ServeConfig(),
+                               replica_id=f"in-process-{k}") for k in range(2)]
+    router = serve_fleet.FleetRouter([LocalReplica(s) for s in servers],
+                                     serve_fleet.FleetConfig(default_timeout_s=300))
+    launches = 0
+    try:
+        client_load(lambda n, d: router.detect(d), files, 8, 2)  # warm-up
+        batches0 = sum(s.snapshot()["batches"] for s in servers)
+        nms_cuda.reset_counts()
+        results, wall = client_load(lambda n, d: router.detect(d), files, 8, 8)
+        batches = settled_batches(servers) - batches0
+        used, plain = nms_cuda.kernel_launches, nms_cuda.plain_calls
+        launches += used
+        worst = max(slot_gap(want, n, r) for n, r, _ in results)
+        stats = latency_line("(a) in-process fleet of 2, 8 client threads", results, wall, kind, smi)
+        base = served["stats"][("in-process", 8)]
+        print(f"  against phase 12's one in-process server at 8 clients: {stats['images_per_s']:.2f} / "
+              f"{base['images_per_s']:.2f} images/s, p50 {stats['p50_ms']:.3f} / {base['p50_ms']:.3f} ms, "
+              f"p99 {stats['p99_ms']:.3f} / {base['p99_ms']:.3f} ms; {batches} batches over "
+              f"{[s.snapshot()['batches'] for s in servers]} per replica, NMS launches {used}, plain {plain}; "
+              f"answers against the live engine at an exported slot: largest gap {worst}")
+        require(worst == 0, f"an in-process fleet answer differs from the live engine's by {worst}")
+        require(used == batches > 0 and plain == 0, f"NMS launches {used} for {batches} batches")
+    finally:
+        router.close()
+
+    # (d), cache off: the fleet edge over HTTP replicas whose streams ride
+    # the device every frame.
+    https = [serve_frontend.serve_http(s, "127.0.0.1", 0,
+                                       stream=StreamManager(s, StreamConfig(delta_threshold=0.0)))
+             for s in servers]
+    for httpd in https:
+        # watchdog: serve_forever returns at httpd.shutdown() in the finally below.
+        threading.Thread(target=httpd.serve_forever, daemon=True, name="chip-smoke-replica-http").start()
+    router = serve_fleet.FleetRouter(
+        [HttpReplica("http://%s:%d" % h.server_address[:2], timeout_s=300) for h in https],
+        serve_fleet.FleetConfig(default_timeout_s=300))
+    edge = serve_fleet.serve_fleet_http(router, "127.0.0.1", 0, request_timeout_s=300)
+    # watchdog: serve_forever returns at edge.shutdown() in the finally below.
+    threading.Thread(target=edge.serve_forever, daemon=True, name="chip-smoke-fleet-http").start()
+    try:
+        batches0 = sum(s.snapshot()["batches"] for s in servers)
+        nms_cuda.reset_counts()
+        stats = stream_frames("http://%s:%d" % edge.server_address[:2], want,
+                              "(d) a stream through the in-process fleet edge, frame-delta cache off",
+                              kind, smi)
+        batches = settled_batches(servers) - batches0
+        used = nms_cuda.kernel_launches
+        launches += used
+        require(stats["cache_hits"] == 0, "a frame hit the cache with the cache off")
+        require(used == batches > 0 and nms_cuda.plain_calls == 0,
+                f"NMS launches {used} for {batches} stream batches")
+    finally:
+        edge.shutdown()
+        edge.server_close()
+        router.close()
+        for httpd in https:
+            httpd.shutdown()
+            httpd.server_close()  # closes its stream manager
+        for s in servers:
+            s.close()
+    del servers
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def gib(v: float | None) -> str:
+    return "not measured" if v is None else f"{v / 2**30:.3f} GiB"
+
+
+def replica_peaks(fleet: FleetCli) -> dict[str, float]:
+    """Each spawned replica's peak device memory, from its own /metrics."""
+    peaks = {}
+    ports = {e["replica_id"]: e["port"] for _, e in fleet.events("fleet_replica_spawned")}
+    for rid, port in sorted(ports.items()):
+        if fleet.replica(rid) is None:
+            continue  # scaled down
+        samples = fleet.metrics(f"http://127.0.0.1:{port}")
+        peaks[rid] = samples.get('device_memory_bytes{device="dev0",kind="peak_bytes_in_use"}')
+    return peaks
+
+
+def fleet_cli(root: str, export_dir: str, served: dict, device, kind: str, smi: str) -> None:
+    """(b) The fleet command line over 2 spawned replicas of the export;
+    8 and 32 client threads in another process; one replica SIGKILLed
+    under load: every request answered (re-dispatched at most once), one
+    breaker open, the respawned replica readmitted with its weight, one
+    fleet-availability SLO violation; then (d, cache on) a stream through
+    its edge."""
+    want = served["want"]
+    fleet = FleetCli(root, "fleet", [
+        "--spawn", "2", "--export-dir", export_dir, "--device", device.type, "--obs-port", "0",
+        "--poll-interval", "0.5", "--slo-poll-s", "0.5", "--respawn-delay-s", "0.5",
+        "--fleet-timeout-s", "300"])
+    try:
+        spawned = {e["replica_id"]: e for _, e in fleet.events("fleet_replica_spawned")}
+        print(f"(b) fleet CLI with 2 replicas of the export up in {fleet.up_s:.1f} s (the replicas start "
+              f"side by side); {kind}, {smi}")
+        http_load(f"{fleet.url}/detect", 8, 2)  # warm-up
+        for clients, per_client in ((8, 8), (32, 4)):
+            results, wall = http_load(f"{fleet.url}/detect", clients, per_client)
+            require(all(r[1][0] == 200 for r in results), f"statuses {Counter(r[1][0] for r in results)}")
+            worst = max(slot_gap(want, n, r[1]["detections"]) for n, r, _ in results)
+            stats = latency_line(f"(b) fleet CLI, 2 replicas, HTTP, {clients} client threads", results, wall,
+                                 kind, smi)
+            base = served["stats"][("http", clients)]
+            print(f"  against phase 12's one server over HTTP: {stats['images_per_s']:.2f} / "
+                  f"{base['images_per_s']:.2f} images/s, p50 {stats['p50_ms']:.3f} / {base['p50_ms']:.3f} ms, "
+                  f"p99 {stats['p99_ms']:.3f} / {base['p99_ms']:.3f} ms; answers against the live engine at an "
+                  f"exported slot: largest gap {worst}")
+            require(worst == 0, f"a fleet answer differs from the live engine's by {worst}")
+        peaks = replica_peaks(fleet)
+        print(f"(b) each replica's peak device memory (its /metrics device_memory_bytes): "
+              + ", ".join(f"{rid} {gib(v)}" for rid, v in peaks.items()) + f"; {kind}, {smi}")
+        require(len(peaks) == 2 and (device.type != "cuda" or all(peaks.values())), f"peaks {peaks}")
+
+        # SIGKILL replica-0 under 32 clients.
+        load = Load(f"{fleet.url}/detect", 32, root)
+        time.sleep(2.0)
+        t_kill = time.monotonic()
+        os.kill(spawned["replica-0"]["pid"], signal.SIGKILL)
+        time.sleep(3.0)
+        results, wall = load.stop()
+        codes = Counter(r[1][0] for r in results)
+        killed_worst = max(slot_gap(want, n, r[1]["detections"]) for n, r, _, _ in results if r[0] == 200)
+        redispatches = fleet.status()["redispatches"]
+        print(f"(b) replica-0 SIGKILLed 2.0 s into 32 client threads: {len(results)} requests in {wall:.1f} s, "
+              f"statuses {dict(codes)}, fleet re-dispatches {redispatches}; largest gap {killed_worst}")
+        require(set(codes) == {200} and killed_worst == 0, f"a request failed across the kill: {dict(codes)}")
+        require(redispatches >= 1, "no request was re-dispatched across the kill")
+        t_back = fleet.wait("replica-0 readmitted with its weight", lambda: (
+            (r := fleet.replica("replica-0")) is not None and r["state"] == "closed" and r["weight"] > 0
+            and fleet.events("fleet_replica_respawned")), timeout=240)
+        (t_respawned, respawned), = fleet.events("fleet_replica_respawned")
+        (t_died, died), = fleet.events("fleet_replica_died")
+        require(died["replica_id"] == "replica-0", f"died {died}")
+        code, body = get(f"http://127.0.0.1:{respawned['port']}/healthz")
+        opens = [e for _, e in fleet.events("fleet_breaker_open") if e["replica_id"] == "replica-0"]
+        first = [e for e in opens if e["reason"] != "half_open_probe_failed"]
+        violations = fleet.metrics(fleet.obs_url).get('slo_violations_total{rule="fleet-availability"}')
+        weight = fleet.replica("replica-0")["weight"]
+        print(f"(b) respawn: the supervisor saw replica-0 die {t_died - t_kill:.1f} s after the kill (rc "
+              f"{died['rc']}); the new process healthy {t_respawned - t_kill:.1f} s after the kill, readmitted with weight "
+              f"{weight} {t_back - t_kill:.1f} s after it; its /healthz {code}; fleet_breaker_open events "
+              f"{len(opens)} ({[e['reason'] for e in opens]}), the first {first}; fleet-availability SLO "
+              f"violations on the fleet's /metrics {violations}; {kind}, {smi}")
+        require(len(first) == 1 and code == 200 and violations == 1.0,
+                f"breaker opens {first}, /healthz {code}, violations {violations}")
+        results, wall = http_load(f"{fleet.url}/detect", 8, 2)
+        require(all(r[1][0] == 200 for r in results)
+                and max(slot_gap(want, n, r[1]["detections"]) for n, r, _ in results) == 0,
+                "the fleet's answers after the respawn")
+
+        # (d), cache on: the replicas' stream managers at their defaults.
+        stats = stream_frames(fleet.url, want, "(d) a stream through the fleet CLI's edge, frame-delta cache on",
+                              kind, smi)
+        require(stats["cache_hits"] == 2 * len(served_files()), f"cache hits {stats['cache_hits']}")
+        t_stop = time.monotonic()
+        final = fleet.stop()
+        print(f"(b) SIGTERM: the fleet drained and exited 0 in {time.monotonic() - t_stop:.1f} s; fleet_stats "
+              f"completed {final['completed']}, "
+              f"failed {final['failed']}, shed {final['shed']}")
+        require(final["failed"] == 0 and not final["shed"], f"fleet_stats {final}")
+    finally:
+        fleet.kill()
+
+
+def canary_cli(root: str, kind: str, smi: str) -> None:
+    """(c) A stub fleet with a stub canary slowed to 250 ms a batch: exactly
+    one ``canary_rollback``, the canary drained at weight 0, the base
+    replica's weight the formula's on its own load again."""
+    fleet = FleetCli(root, "canary", [
+        "--spawn", "1", "--stub-engine", "--stub-delay-ms", "20", "--canary-stub-delay-ms", "250",
+        "--canary-for-s", "2", "--canary-poll-s", "0.5", "--poll-interval", "0.5"])
+    try:
+        before = {r["replica_id"]: r["weight"] for r in fleet.status()["replicas"]}
+        t0 = time.monotonic()
+        results, wall = http_load(f"{fleet.url}/detect", 8, 6)
+        require(all(r[1][0] == 200 for r in results), f"statuses {Counter(r[1][0] for r in results)}")
+        fleet.wait("the canary rolled back", lambda: (
+            fleet.status()["canary_outcome"] == "rolled_back" and fleet.events("canary_rollback")), 90)
+        status = fleet.status()
+        by_id = {r["replica_id"]: r for r in status["replicas"]}
+        (t_rb, rollback), = fleet.events("canary_rollback")
+        base = by_id["replica-0"]
+        formula = serve_fleet.replica_weight(base["load"], base["load"].get("p99_ms"))
+        print(f"(c) canary (stub, 250 ms a batch) weights {before} before; one canary_rollback "
+              f"{t_rb - t0:.1f} s after the load began: rule {rollback['rule']}, value {rollback['value']}, "
+              f"threshold {rollback['threshold']}; then canary {by_id['canary']['state']} at weight "
+              f"{by_id['canary']['weight']}, replica-0 at {base['weight']} (the formula on its load: {formula}); "
+              f"{kind}, {smi}")
+        require(status["canary_rollbacks"] == 1 and by_id["canary"]["state"] == "drained"
+                and by_id["canary"]["weight"] == 0.0 and base["weight"] == formula > 0,
+                f"after the rollback: {status['canary_rollbacks']} {by_id}")
+        results, _ = http_load(f"{fleet.url}/detect", 8, 2)
+        require(all(r[1][0] == 200 for r in results), "a request failed after the rollback")
+        fleet.stop()
+        require(len(fleet.events("canary_rollback")) == 1, "more than one canary_rollback")
+    finally:
+        fleet.kill()
+
+
+def autoscale_cli(fleet: FleetCli, root: str, served: dict, kind: str, smi: str) -> None:
+    """(e) ``--autoscale --min-replicas 1 --max-replicas 2`` (``fleet``): a
+    burst of 32 client threads scales up to 2 replicas on the card, the new
+    one takes weighted requests, and a trickle of 1 client through idle
+    time drains the fleet back to 1; no request fails."""
+    want = served["want"]
+    try:
+        burst = Load(f"{fleet.url}/detect", 32, root)
+        t_burst = time.monotonic()
+        t_decision = fleet.wait("a scale-up decision", lambda: fleet.events("autoscale_decision"), 240)
+        new = fleet.status()["replicas"][-1]["replica_id"]
+        t_first = fleet.wait(f"{new}'s first weighted request", lambda: (
+            (r := fleet.replica(new)) is not None and r["weight"] > 0
+            and (r["load"].get("completed") or 0) > 0), 120)
+        time.sleep(2.0)
+        peaks = replica_peaks(fleet)
+        results, wall = burst.stop()
+        trickle = Load(f"{fleet.url}/detect", 1, root)
+        fleet.wait("the fleet back to 1 replica", lambda: (
+            len(fleet.status()["replicas"]) == 1
+            and any(d["decision"] == "scale_down" for _, d in fleet.events("autoscale_decision"))), 180)
+        time.sleep(1.0)
+        slow, _ = trickle.stop()
+        t_stop = time.monotonic()
+        final = fleet.stop()
+        t_stop = time.monotonic() - t_stop
+        decisions = fleet.events("autoscale_decision")
+        for t, d in decisions:
+            print(f"(e) {t - t_burst:+.1f} s after the burst began: {d['decision']} ({d['reason']}), delta "
+                  f"{d['delta']}, occupancy {d['occupancy']}, replicas before {d['replicas_before']}"
+                  + (f", victims {d['victims']}" if "victims" in d else ""))
+        every = results + slow
+        codes = Counter(r[1][0] for r in every)
+        worst = max(slot_gap(want, n, r[1]["detections"]) for n, r, _, _ in every if r[0] == 200)
+        served_by_new = sum(t0 >= t_first for _, _, _, t0 in results)
+        (t_drained, _), = fleet.events("fleet_replica_draining")
+        (t_removed, _), = fleet.events("fleet_replica_removed")
+        trickle_ms = np.array([r[2] for r in slow]) * 1e3
+        print(f"(e) the victim drained {t_drained - t_burst:+.1f} s and removed {t_removed - t_burst:+.1f} s after "
+              f"the burst began; the trickle's requests p50 {np.percentile(trickle_ms, 50):.3f} ms, max "
+              f"{trickle_ms.max():.3f} ms; SIGTERM stopped the fleet in {t_stop:.1f} s")
+        print(f"(e) fleet up {fleet.up_s:.1f} s; burst of 32 clients: {len(results)} requests in {wall:.1f} s "
+              f"({len(results) / wall:.2f} images/s), scale-up decision {t_decision - t_burst:.1f} s in (the "
+              f"new replica's start included), its first weighted request {t_first - t_decision:.1f} s after "
+              f"the decision ({served_by_new} requests began after it); back to 1 replica "
+              f"{t_removed - t_burst:.1f} s after the burst began, with a trickle of {len(slow)} requests; statuses "
+              f"{dict(codes)}, largest gap {worst}; peak device memory "
+              + ", ".join(f"{rid} {gib(v)}" for rid, v in peaks.items()) + f"; {kind}, {smi}")
+        # A breach that outlasts the scale-up at max_replicas is a capped
+        # decision, which changes nothing.
+        require([d["decision"] for _, d in decisions if d["decision"] != "scale_up_capped"]
+                == ["scale_up", "scale_down"], f"decisions {[d for _, d in decisions]}")
+        require(set(codes) == {200} and worst == 0 and final["failed"] == 0 and not final["shed"],
+                f"statuses {dict(codes)}, gap {worst}, fleet_stats {final}")
+    finally:
+        fleet.kill()
 
 
 if __name__ == "__main__":

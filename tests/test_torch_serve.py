@@ -9,7 +9,8 @@ per-request rejection of a bad payload, encoded payloads decoded by the
 port's codec, the port's torch resize against the JAX package's
 ``resize_for_bucket`` (cv2 ``INTER_LINEAR``), the HTTP frontend's status
 codes and JSON keys against the JAX package's ``serve_http``, and the serve
-command line's refusals.
+command line's flags (``--platform`` refused, the stub engine and replica
+flags parsed as the JAX command line parses them).
 """
 
 import json
@@ -297,12 +298,27 @@ def test_http_answers_as_jax_serve_http(model):
     assert want["timeout"] == [(504, ("error", "trace_id"))]
 
 
-@pytest.mark.parametrize("flags", [
-    ["--stub-engine"], ["--stub-delay-ms", "5"], ["--platform", "cpu"], ["--replica-id", "r1"],
-], ids=lambda f: f[0].lstrip("-"))
+@pytest.mark.parametrize("flags", [["--platform", "cpu"]], ids=lambda f: f[0].lstrip("-"))
 def test_serve_refusals_name_the_roadmap(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         t_frontend.main(["--export-dir", "nowhere", "--http", "0", "--device", "cpu", *flags])
+
+
+STUB_DESTS = ("stub_engine", "stub_delay_ms", "stub_video", "replica_id", "export_dir")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--stub-engine"], ["--stub-engine", "--stub-delay-ms", "5"],
+    ["--stub-engine", "--stub-video"], ["--export-dir", "nowhere", "--replica-id", "r1"],
+], ids=["stub-engine", "stub-delay-ms", "stub-video", "replica-id"])
+def test_serve_accepts_the_stub_and_replica_flags(flags):
+    """The stub engine and replica flags are ported: not refused, and
+    parsed as the JAX command line parses them."""
+    argv = ["--http", "0", *flags]
+    t_frontend.refuse_unported(argv)
+    got = vars(t_frontend.build_parser().parse_args(argv + ["--device", "cpu"]))
+    want = vars(j_frontend.build_parser().parse_args(argv))
+    assert {k: got[k] for k in STUB_DESTS} == {k: want[k] for k in STUB_DESTS}
 
 
 OBS_DESTS = ("obs_trace", "obs_dir", "obs_stall_timeout", "obs_port", "slo_rule", "slo_poll_s",
