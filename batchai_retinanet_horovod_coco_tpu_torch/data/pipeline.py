@@ -13,16 +13,18 @@ images within the resize's and, with ``transform``, the warp's tolerance.
 Images are read by ``data/image_io.py`` (the port's decoder, PIL's pixels)
 and shipped as uint8; the device normalizes (:func:`normalize_images`).
 
-The bilinear resize runs in torch on the host (``F.interpolate``, no
-antialias, rounded back to uint8) in place of ``cv2.INTER_LINEAR``: the two
-agree in shape and scale exactly and in pixels within one grey level.  The
+The bilinear resize runs on the host in the codec library
+(``image_io.resize_bilinear``: ``F.interpolate``'s half-pixel taps and
+weights, no antialias, in f32 on one thread, so its pixels do not depend on
+the thread or process that runs it) in place of ``cv2.INTER_LINEAR``: the
+two agree in shape and scale exactly and in pixels within one grey level.  The
 same geometry serves the serve router, so a served image lands in the same
 bucket at the same size.  :func:`assemble` pads a list of examples into one
 batch; :func:`pad_batch` fills a short eval batch with padding rows.
 
-Not ported (``ROADMAP.md``): the multiprocess shared-memory producer
-(``num_worker_procs > 0`` raises), sharding over processes, and host-side
-normalization.
+``num_worker_procs > 0`` hands the decodes to worker processes instead
+(``shm_pipeline.py``): the same batches, bit for bit.  Not ported
+(``ROADMAP.md``): sharding over processes and host-side normalization.
 """
 from __future__ import annotations
 
@@ -37,7 +39,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from batchai_retinanet_horovod_coco_tpu_torch.data import image_io
 from batchai_retinanet_horovod_coco_tpu_torch.data.transforms import (
@@ -126,17 +127,6 @@ def pick_bucket(
     return max(buckets, key=lambda b: b[0] * b[1])
 
 
-def _resize_bilinear(image: np.ndarray, nh: int, nw: int) -> np.ndarray:
-    """Bilinear resize of one HWC uint8 image, half-pixel centres."""
-    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None]
-    y = F.interpolate(
-        x.float(), size=(nh, nw), mode="bilinear", align_corners=False,
-        antialias=False,
-    )
-    y = y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8)
-    return np.ascontiguousarray(y.numpy())
-
-
 def resize_for_bucket(
     image: np.ndarray,
     bucket: tuple[int, int],
@@ -153,7 +143,7 @@ def resize_for_bucket(
     nh = min(bh, int(round(h * scale)))
     nw = min(bw, int(round(w * scale)))
     if (nh, nw) != (h, w):
-        image = _resize_bilinear(image, nh, nw)
+        image = image_io.resize_bilinear(image, nh, nw)
     return image, scale
 
 
@@ -281,8 +271,12 @@ class PipelineConfig:
     seed: int = 0
     # Decode threads.
     num_workers: int = 8
-    # The JAX package's multiprocess producer; > 0 raises (not ported).
+    # > 0: that many decode worker PROCESSES writing into shared-memory
+    # slabs (shm_pipeline.py) in place of the threads; the same batches.
     num_worker_procs: int = 0
+    # Worker processes: a head-of-line batch that gets no result for this
+    # many seconds raises (a wedged worker); a dead worker raises at once.
+    worker_timeout: float = 120.0
     # Resume: skip this many already consumed batches (train only) at the
     # plan level, without decoding them.
     skip_batches: int = 0
@@ -431,13 +425,15 @@ def build_pipeline(dataset, config: PipelineConfig, train: bool = True) -> _Pipe
     either is raised to the consumer.  The producer heartbeats as
     ``pipe-producer`` and spans its waits on the decodes
     (``pipe_decode_wait``) and its assembly (``pipe_assemble``).
+
+    ``config.num_worker_procs > 0`` returns the multiprocess producer of
+    ``shm_pipeline.py`` instead: the same batches, decoded by processes.
     """
-    if config.num_worker_procs > 0:
-        raise NotImplementedError(
-            "num_worker_procs > 0 selects the multiprocess shared-memory producer "
-            "(data/shm_pipeline.py), which is not ported yet; see ROADMAP.md"
-        )
     _warn_truncation(dataset, config)
+    if config.num_worker_procs > 0:
+        from batchai_retinanet_horovod_coco_tpu_torch.data.shm_pipeline import build_shm_pipeline
+
+        return build_shm_pipeline(dataset, config, train)
     stats = PipelineStats()
     out: queue.Queue = queue.Queue(maxsize=_PREFETCH)
     stop = threading.Event()

@@ -1,7 +1,9 @@
-"""COCO detection-mAP oracle: pycocotools ``COCOeval`` bbox semantics in
-numpy, as the JAX package's ``evaluate/coco_eval.py`` (its numpy path; the
-JAX package's optional native helper is bit-identical to it and is not
-ported).
+"""COCO detection mAP: pycocotools ``COCOeval`` bbox semantics, as the JAX
+package's ``evaluate/coco_eval.py``.  The pairwise IoU and the greedy
+matching run in the C++ helper ``native/cocoeval.cpp``
+(``evaluate/_native.py``), off the interpreter lock; the numpy functions
+``numpy_bbox_iou_xywh`` and ``numpy_match_detections`` are its oracle,
+bit for bit, and are not a fallback.
 
 - IoU thresholds 0.50:0.05:0.95 (10), recall thresholds 0:0.01:1 (101-point
   interpolated AP), maxDets [1, 10, 100];
@@ -20,6 +22,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from batchai_retinanet_horovod_coco_tpu_torch.evaluate import _native
 
 
 @dataclasses.dataclass
@@ -43,6 +47,12 @@ class EvalParams:
 
 
 def bbox_iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
+    """Pairwise IoU of xywh boxes, crowd-aware, by the native helper
+    (``numpy_bbox_iou_xywh`` is its oracle)."""
+    return _native.bbox_iou_xywh(dt, gt, iscrowd)
+
+
+def numpy_bbox_iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
     """Pairwise IoU of xywh boxes, crowd-aware (COCO ``maskUtils.iou`` bbox path).
 
     For a crowd gt the denominator is the detection area alone (a detection
@@ -73,6 +83,17 @@ def bbox_iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.nda
 
 
 def match_detections(
+    ious: np.ndarray,
+    iou_thrs: np.ndarray,
+    g_ignore: np.ndarray,
+    g_crowd: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The greedy matcher by the native helper (``numpy_match_detections``
+    is its oracle)."""
+    return _native.match_detections(ious, iou_thrs, g_ignore, g_crowd)
+
+
+def numpy_match_detections(
     ious: np.ndarray,
     iou_thrs: np.ndarray,
     g_ignore: np.ndarray,

@@ -9,9 +9,9 @@ package (``tune/``) is not ported: the knobs are the fixed defaults below.
 
 ``run_coco_eval`` streams eval batches, detects per shape bucket (one
 detect function each), rescales boxes to the original images and scores
-them with the numpy mAP oracle (``evaluate/coco_eval.py``).  Pipelined (the
-default), it runs three stages, and gives the same results in the same
-order as the sequential path (``pipelined=False``):
+them with COCO mAP (``evaluate/coco_eval.py``, over its native helper).
+Pipelined (the default), it runs three stages, and gives the same results
+in the same order as the sequential path (``pipelined=False``):
 
 1. **device prefetch**: a thread pins each batch's images and starts their
    copy to the card on a side stream, ``EVAL_PREFETCH_DEPTH`` batches
@@ -452,7 +452,7 @@ def run_coco_eval(
     detect_fns: dict[tuple[int, int], Callable] | None = None,
 ) -> dict[str, float]:
     """A full eval pass: detect everything, then COCO mAP's 12 stats
-    (``AP``, ``AP50``, ...) from the numpy oracle.
+    (``AP``, ``AP50``, ...) from ``evaluate/coco_eval.py``.
 
     Pipelined, the consumer thread scores each image as its batch arrives
     (``StreamingCocoEval``); the metrics equal the one-shot scoring's.

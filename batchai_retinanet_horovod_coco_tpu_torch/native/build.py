@@ -25,8 +25,9 @@ SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR.parents[1] / "build" / "native"
 
 # No -march=native: a library may be loaded on another host of the same
-# checkout.
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-Wall")
+# checkout.  No fused multiply-add either (-ffp-contract=off): the resize and
+# the COCOeval helper round each product and sum as their references do.
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-Wall", "-ffp-contract=off")
 
 
 def library_path(name: str) -> Path:

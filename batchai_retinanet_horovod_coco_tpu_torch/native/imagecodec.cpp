@@ -1,34 +1,50 @@
-// Image decoding for the data pipeline: baseline and extended sequential
-// JPEG, and the pixel half of PNG (unfiltering and conversion to RGB; the
-// zlib stream is inflated by the caller).  Plain C interface, bound with
-// ctypes (data/image_io.py), so a call runs without the interpreter lock.
+// Image decoding for the data pipeline: baseline, extended sequential and
+// progressive JPEG, and the pixel half of PNG (unfiltering, de-interlacing
+// and conversion to RGB; the zlib stream is inflated by the caller).  Plain
+// C interface, bound with ctypes (data/image_io.py), so a call runs without
+// the interpreter lock.
 //
-// JPEG: SOF0/SOF1, 8-bit samples, 1 or 3 components, sampling 4:4:4,
-// 4:2:2 (h2v1) and 4:2:0 (h2v2), 8- and 16-bit quantization tables, up to
-// four Huffman tables of each class, restart intervals, and scans that are
-// interleaved or hold one component each.  The arithmetic is libjpeg's
-// default decompression path, so the pixels equal PIL's
-// ``Image.open(path).convert("RGB")``, which decodes with that library:
+// JPEG: SOF0/SOF1 and progressive SOF2 (Huffman), 8-bit samples, 1, 3 or 4
+// components, sampling 4:4:4, 4:2:2 (h2v1) and 4:2:0 (h2v2), 8- and 16-bit
+// quantization tables, up to four Huffman tables of each class, restart
+// intervals, and scans that are interleaved or hold one component each.
+// The arithmetic is libjpeg's default decompression path, so the pixels
+// equal PIL's ``Image.open(path).convert("RGB")``, which decodes with that
+// library:
+// - progressive scans (jdphuff.c): DC first and refine, AC first and
+//   refine with end-of-band runs and correction bits, into a buffer of
+//   coefficients that the inverse DCT reads once every scan is in;
 // - the integer "islow" inverse DCT (jidctint.c), including its output
 //   range limit, which wraps a sample outside [-512, 511] as the library's
 //   table does;
-// - "fancy" triangle-filter upsampling of the chroma (jdsample.c,
-//   h2v1_fancy_upsample and h2v2_fancy_upsample; a component at most two
-//   samples wide is replicated instead, as the library does), with the
-//   component's first and last rows standing in for the rows beyond them;
-// - fixed-point YCbCr to RGB with 16 fraction bits (jdcolor.c).
+// - "fancy" triangle-filter upsampling of subsampled components
+//   (jdsample.c, h2v1_fancy_upsample and h2v2_fancy_upsample; a component
+//   at most two samples wide is replicated instead, as the library does),
+//   with the component's first and last rows standing in for the rows
+//   beyond them;
+// - the colour space the library infers (jdapimin.c): YCbCr or, by the
+//   Adobe APP14 transform 0 or the component ids 'R' 'G' 'B', RGB for three
+//   components; CMYK, or YCCK with Adobe transform 2, for four;
+// - fixed-point YCbCr to RGB and YCCK to CMYK with 16 fraction bits
+//   (jdcolor.c).
 // A grey image is replicated into three channels, as convert("RGB") does.
-// Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-// samples, four-component (CMYK) files and Adobe-transformed RGB are
-// refused with a message naming the marker.
+// Four components are read as PIL reads them, as inverted (Adobe) CMYK,
+// and converted with PIL's cmyk2rgb.  A progressive file whose scans leave
+// some of the first ten coefficients of a component incomplete, which
+// libjpeg would smooth (jdcoefct.c, do_block_smoothing), is refused, as are
+// lossless, hierarchical and arithmetic-coded files and 12-bit samples,
+// with a message naming what is refused.
 //
-// PNG: filter types 0-4 over 1-, 2-, 4- and 8-bit grey, 8-bit grey+alpha,
-// RGB and RGBA, and 1-, 2-, 4- and 8-bit palette images; alpha is dropped
-// and sub-byte grey is scaled to 0..255, as convert("RGB") does.
+// PNG: filter types 0-4, sequential or Adam7-interlaced, over 1-, 2-, 4-, 8-
+// and 16-bit grey, 8- and 16-bit grey+alpha, RGB and RGBA, and 1-, 2-, 4- and
+// 8-bit palette images; alpha is dropped, sub-byte grey is scaled to
+// 0..255, 16-bit grey is clipped to 255 (PIL opens it as I;16) and the
+// other 16-bit types keep their high byte, as convert("RGB") does.
 //
 // Every function returns 0 on success, or 1 with a message in ``err``.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -49,12 +65,14 @@ int report(const char* what, char* err, int errlen) {
   return 1;
 }
 
-// Zigzag position -> natural (row-major) position.
-const int kNatural[64] = {
+// Zigzag position -> natural (row-major) position, with libjpeg's 16 extra
+// entries, so a run that overshoots position 63 in corrupt data lands there.
+const int kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 const long kMaxPixels = 1L << 28;  // a larger image is refused, not allocated
 
@@ -172,8 +190,21 @@ struct Component {
   int bw = 0, bh = 0;  // blocks held (padded to whole MCUs)
   int dsw = 0, dsh = 0;  // downsampled width and height in samples
   int dc_pred = 0;
+  // The quantization table, latched at the component's first scan as
+  // libjpeg does (jdinput.c, latch_quant_tables).
+  // A component in no scan keeps zeros, as libjpeg's multipliers do.
+  bool latched = false;
+  uint16_t quant[64] = {};
+  // Progressive: the Al of the last scan that held coefficient k (natural
+  // order is not needed: libjpeg tracks zigzag positions 0..9), -1 before
+  // any scan did.
+  int coef_bits[10] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
   std::vector<int16_t> coef;  // bh * bw blocks of 64, natural order
 };
+
+// What a scan adds to each block: sequential, or one of the four kinds of
+// progressive scan (jdphuff.c).
+enum class ScanKind { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
 
 struct Jpeg {
   const uint8_t* data;
@@ -182,12 +213,16 @@ struct Jpeg {
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart_interval = 0;
+  bool progressive = false;
   bool seen_jfif = false, seen_adobe = false;
   int adobe_transform = -1;
   uint16_t quant[4][64];
   bool quant_present[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
-  Component comp[3];
+  Component comp[4];
+  // The scan being decoded.
+  int ss = 0, se = 63, al = 0;
+  int eobrun = 0;
 
   Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {}
 
@@ -222,8 +257,7 @@ struct Jpeg {
     if (height == 0) throw Error("JPEG with height 0 (DNL) is not supported");
     if (width == 0) throw Error("JPEG with width 0");
     if (static_cast<long>(width) * height > kMaxPixels) throw Error("JPEG too large");
-    if (ncomp == 4) throw Error("four-component (CMYK) JPEG is not supported");
-    if (ncomp != 1 && ncomp != 3) {
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) {
       throw Error(std::to_string(ncomp) + "-component JPEG is not supported");
     }
     for (int i = 0; i < ncomp; ++i) {
@@ -299,11 +333,11 @@ struct Jpeg {
     pos = 2;
     for (;;) {
       int m = next_marker();
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+        progressive = m == 0xC2;
         read_sof(m);
         return;
       }
-      if (m == 0xC2) throw Error("progressive JPEG (SOF2) is not supported");
       if (m == 0xC3) throw Error("lossless JPEG (SOF3) is not supported");
       if ((m >= 0xC5 && m <= 0xC7) || m == 0xCD || m == 0xCE || m == 0xCF ||
           m == 0xC9 || m == 0xCA || m == 0xCB) {
@@ -331,18 +365,16 @@ struct Jpeg {
     }
   }
 
+  // The colour space libjpeg infers (jdapimin.c, default_decompress_parms).
+  bool rgb_coded() const {
+    if (ncomp != 3) return false;
+    if (seen_jfif) return false;
+    if (seen_adobe) return adobe_transform == 0;
+    return comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+  }
+  bool ycck_coded() const { return ncomp == 4 && seen_adobe && adobe_transform != 0; }
+
   void setup_components() {
-    if (ncomp == 3) {
-      bool rgb = false;
-      if (seen_jfif) {
-        rgb = false;
-      } else if (seen_adobe) {
-        rgb = adobe_transform == 0;
-      } else {
-        rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
-      }
-      if (rgb) throw Error("RGB-coded JPEG (Adobe APP14 transform 0) is not supported");
-    }
     for (int i = 0; i < ncomp; ++i) {
       hmax = std::max(hmax, comp[i].h);
       vmax = std::max(vmax, comp[i].v);
@@ -351,11 +383,11 @@ struct Jpeg {
     mcuy = (height + 8 * vmax - 1) / (8 * vmax);
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
-      if (ncomp == 3) {
+      if (ncomp > 1) {
         int rh = hmax / c.h, rv = vmax / c.v;
         bool ok = hmax % c.h == 0 && vmax % c.v == 0 &&
                   ((rh == 1 && rv == 1) || (rh == 2 && rv == 1) || (rh == 2 && rv == 2));
-        if (!ok || (i == 0 && (rh != 1 || rv != 1))) {
+        if (!ok) {
           throw Error("JPEG chroma sampling other than 4:4:4, 4:2:2 and 4:2:0 is not supported");
         }
       }
@@ -390,7 +422,100 @@ struct Jpeg {
     }
   }
 
-  // Consume an RSTn marker after a restart interval.
+  // jdphuff.c, decode_mcu_DC_first: one block's DC difference, scaled by Al.
+  void dc_first(Bits& bits, Component& c, int16_t* blk) {
+    int t = bits.decode(dc[c.td]);
+    if (t > 11) throw Error("corrupt JPEG data: bad DC size");
+    c.dc_pred += t ? extend(bits.get(t), t) : 0;
+    blk[0] = static_cast<int16_t>(static_cast<unsigned>(c.dc_pred) << al);
+  }
+
+  // decode_mcu_DC_refine: one more bit of the DC.
+  void dc_refine(Bits& bits, int16_t* blk) {
+    if (bits.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  }
+
+  // decode_mcu_AC_first: the band's first bits, with end-of-band runs.
+  void ac_first(Bits& bits, Component& c, int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huffman& ha = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = bits.decode(ha);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(extend(bits.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += bits.get(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // A correction bit for an already nonzero coefficient.
+  void refine(Bits& bits, int16_t* coef) {
+    if (bits.get(1) && (*coef & (1 << al)) == 0) {
+      *coef = static_cast<int16_t>(*coef >= 0 ? *coef + (1 << al) : *coef - (1 << al));
+    }
+  }
+
+  // decode_mcu_AC_refine: newly nonzero coefficients of +-2^Al, and a
+  // correction bit for every coefficient that was already nonzero.
+  void ac_refine(Bits& bits, Component& c, int16_t* blk) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& ha = ac[c.ta];
+      for (; k <= se; ++k) {
+        int rs = bits.decode(ha);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = bits.get(1) ? p1 : -p1;  // the size is 1 in a valid file
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += bits.get(r);
+          break;  // the rest of the block is the end-of-band run's
+        }
+        do {
+          int16_t* coef = &blk[kNatural[k]];
+          if (*coef != 0) {
+            refine(bits, coef);
+          } else if (--r < 0) {
+            break;  // the zero coefficient that the new value takes
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = &blk[kNatural[k]];
+        if (*coef != 0) refine(bits, coef);
+      }
+      --eobrun;
+    }
+  }
+
+  void decode_unit(ScanKind kind, Bits& bits, Component& c, int16_t* blk) {
+    switch (kind) {
+      case ScanKind::kSequential: decode_block(bits, c, blk); break;
+      case ScanKind::kDcFirst: dc_first(bits, c, blk); break;
+      case ScanKind::kDcRefine: dc_refine(bits, blk); break;
+      case ScanKind::kAcFirst: ac_first(bits, c, blk); break;
+      case ScanKind::kAcRefine: ac_refine(bits, c, blk); break;
+    }
+  }
+
+  // Consume an RSTn marker after a restart interval, and reset what the
+  // interval carries: the DC predictions and the end-of-band run.
   void restart(Bits& bits) {
     bits.reset();
     bits.at_marker = false;
@@ -405,6 +530,23 @@ struct Jpeg {
     }
     bits.p = p;
     for (int i = 0; i < ncomp; ++i) comp[i].dc_pred = 0;
+    eobrun = 0;
+  }
+
+  // The kind of a scan from its Ss, Se, Ah and Al, checked as libjpeg does
+  // (jdphuff.c, start_pass_phuff_decoder).
+  ScanKind scan_kind(int ns, int ah) {
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0) {
+        throw Error("JPEG scan is not sequential (SOS Ss/Se/Ah/Al)");
+      }
+      return ScanKind::kSequential;
+    }
+    bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad) throw Error("bad progression parameters in a progressive JPEG scan (SOS)");
+    if (ss == 0) return ah == 0 ? ScanKind::kDcFirst : ScanKind::kDcRefine;
+    return ah == 0 ? ScanKind::kAcFirst : ScanKind::kAcRefine;
   }
 
   void read_scan() {
@@ -412,33 +554,52 @@ struct Jpeg {
     size_t start = pos;
     int ns = static_cast<int>(u8());
     if (ns < 1 || ns > ncomp) throw Error("bad SOS component count");
-    Component* sc[3];
+    Component* sc[4];
+    int tables[4];
     for (int i = 0; i < ns; ++i) {
       int id = static_cast<int>(u8());
-      unsigned t = u8();
+      tables[i] = static_cast<int>(u8());
       Component* c = nullptr;
       for (int j = 0; j < ncomp; ++j) {
         if (comp[j].id == id) c = &comp[j];
       }
       if (c == nullptr) throw Error("SOS names an unknown component");
-      c->td = static_cast<int>(t >> 4);
-      c->ta = static_cast<int>(t & 15);
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].present || !ac[c->ta].present) {
-        throw Error("SOS uses a Huffman table that was not defined (DHT)");
-      }
-      if (!quant_present[c->tq]) throw Error("component uses an undefined quantization table (DQT)");
       sc[i] = c;
     }
-    unsigned ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0) throw Error("JPEG scan is not sequential (SOS Ss/Se/Ah/Al)");
+    ss = static_cast<int>(u8());
+    se = static_cast<int>(u8());
+    unsigned ahal = u8();
+    al = static_cast<int>(ahal & 15);
+    ScanKind kind = scan_kind(ns, static_cast<int>(ahal >> 4));
     if (pos - start + 2 != len) throw Error("bad SOS length");
+    // The Huffman tables the scan reads: a DC refinement reads none.
+    bool need_dc = kind == ScanKind::kSequential || kind == ScanKind::kDcFirst;
+    bool need_ac = kind == ScanKind::kSequential || kind == ScanKind::kAcFirst ||
+                   kind == ScanKind::kAcRefine;
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      c.td = tables[i] >> 4;
+      c.ta = tables[i] & 15;
+      if ((need_dc && (c.td > 3 || !dc[c.td].present)) ||
+          (need_ac && (c.ta > 3 || !ac[c.ta].present))) {
+        throw Error("SOS uses a Huffman table that was not defined (DHT)");
+      }
+      if (!c.latched) {
+        if (!quant_present[c.tq]) throw Error("component uses an undefined quantization table (DQT)");
+        std::memcpy(c.quant, quant[c.tq], sizeof(c.quant));
+        c.latched = true;
+      }
+      for (int k = ss; k <= std::min(se, 9); ++k) c.coef_bits[k] = al;
+    }
     for (int i = 0; i < ncomp; ++i) comp[i].dc_pred = 0;
+    eobrun = 0;
 
     Bits bits;
     bits.p = data + pos;
     bits.end = data + size;
     int interval = 0;
     if (ns == 1) {
+      // One component: its own block grid, not the padded MCU grid.
       Component& c = *sc[0];
       int nbx = (c.dsw + 7) / 8, nby = (c.dsh + 7) / 8;
       for (int by = 0; by < nby; ++by) {
@@ -447,7 +608,7 @@ struct Jpeg {
             restart(bits);
             interval = 0;
           }
-          decode_block(bits, c, &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64]);
+          decode_unit(kind, bits, c, &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64]);
           ++interval;
         }
       }
@@ -463,7 +624,7 @@ struct Jpeg {
             for (int y = 0; y < c.v; ++y) {
               for (int x = 0; x < c.h; ++x) {
                 size_t b = static_cast<size_t>(my * c.v + y) * c.bw + (mx * c.h + x);
-                decode_block(bits, c, &c.coef[b * 64]);
+                decode_unit(kind, bits, c, &c.coef[b * 64]);
               }
             }
           }
@@ -472,6 +633,24 @@ struct Jpeg {
       }
     }
     pos = static_cast<size_t>(bits.p - data);
+  }
+
+  // libjpeg smooths the blocks of a progressive image (jdcoefct.c,
+  // smoothing_ok) when every component has its DC and nonzero quantizers
+  // at the ten positions the smoothing reads, and some component's first
+  // nine AC coefficients are incomplete or missing after the last scan.
+  bool would_smooth() const {
+    static const int kQuantPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comp[i];
+      if (!c.latched || c.coef_bits[0] < 0) return false;
+      for (int q : kQuantPos) {
+        if (c.quant[q] == 0) return false;
+      }
+      for (int k = 1; k < 10; ++k) useful = useful || c.coef_bits[k] != 0;
+    }
+    return useful;
   }
 
   void read_scans() {
@@ -500,6 +679,11 @@ struct Jpeg {
       }
     }
     if (scans == 0) throw Error("JPEG has no scan (SOS)");
+    if (progressive && would_smooth()) {
+      throw Error(
+          "progressive JPEG whose scans leave coefficients incomplete (libjpeg block "
+          "smoothing) is not supported");
+    }
   }
 };
 
@@ -716,14 +900,21 @@ void upsample_row(const Component& c, const std::vector<uint8_t>& plane, int rh,
   out[2 * n - 1] = static_cast<uint8_t>((this_sum * 4 + 7) >> 4);
 }
 
+// PIL's MULDIV255 (ImagingCore's (a * b + 128) / 255, rounded its way).
+inline int muldiv255(int a, int b) {
+  int t = a * b + 128;
+  return ((t >> 8) + t) >> 8;
+}
+
 void jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, int width, int height) {
   Jpeg j(data, size);
   j.read_header();
   if (j.width != width || j.height != height) throw Error("JPEG size differs from the header's");
   j.read_scans();
 
-  std::vector<uint8_t> planes[3];
-  for (int i = 0; i < j.ncomp; ++i) {
+  const int nc = j.ncomp;
+  std::vector<uint8_t> planes[4];
+  for (int i = 0; i < nc; ++i) {
     Component& c = j.comp[i];
     const int stride = c.bw * 8;
     planes[i].assign(static_cast<size_t>(stride) * c.bh * 8, 0);
@@ -731,7 +922,7 @@ void jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, int width, int 
     int nby = (c.dsh + 7) / 8, nbx = (c.dsw + 7) / 8;
     for (int by = 0; by < nby; ++by) {
       for (int bx = 0; bx < nbx; ++bx) {
-        idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], j.quant[c.tq],
+        idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.quant,
                    &planes[i][static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
       }
     }
@@ -739,7 +930,7 @@ void jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, int width, int 
   }
 
   const size_t row = static_cast<size_t>(width) * 3;
-  if (j.ncomp == 1) {
+  if (nc == 1) {
     const Component& c = j.comp[0];
     for (int y = 0; y < height; ++y) {
       const uint8_t* in = &planes[0][static_cast<size_t>(y) * c.bw * 8];
@@ -749,24 +940,50 @@ void jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, int width, int 
     return;
   }
   const YccTables& t = ycc_tables();
-  std::vector<uint8_t> rows[3];
-  int rh[3], rv[3];
-  for (int i = 0; i < 3; ++i) {
+  const bool rgb = j.rgb_coded(), ycck = j.ycck_coded();
+  std::vector<uint8_t> rows[4];
+  int rh[4], rv[4];
+  for (int i = 0; i < nc; ++i) {
     rh[i] = j.hmax / j.comp[i].h;
     rv[i] = j.vmax / j.comp[i].v;
     rows[i].assign(static_cast<size_t>(j.comp[i].dsw) * rh[i] + 16, 0);
   }
   for (int y = 0; y < height; ++y) {
-    for (int i = 0; i < 3; ++i) upsample_row(j.comp[i], planes[i], rh[i], rv[i], y, rows[i].data());
-    const uint8_t* yy = rows[0].data();
-    const uint8_t* cb = rows[1].data();
-    const uint8_t* cr = rows[2].data();
+    for (int i = 0; i < nc; ++i) upsample_row(j.comp[i], planes[i], rh[i], rv[i], y, rows[i].data());
+    const uint8_t* c0 = rows[0].data();
+    const uint8_t* c1 = rows[1].data();
+    const uint8_t* c2 = rows[2].data();
     uint8_t* o = out + y * row;
+    if (nc == 3 && rgb) {
+      for (int x = 0; x < width; ++x) {
+        o[3 * x] = c0[x];
+        o[3 * x + 1] = c1[x];
+        o[3 * x + 2] = c2[x];
+      }
+      continue;
+    }
+    if (nc == 3) {
+      for (int x = 0; x < width; ++x) {
+        int Y = c0[x], b = c1[x], r = c2[x];
+        o[3 * x] = clamp255(Y + t.cr_r[r]);
+        o[3 * x + 1] = clamp255(Y + static_cast<int>((t.cb_g[b] + t.cr_g[r]) >> 16));
+        o[3 * x + 2] = clamp255(Y + t.cb_b[b]);
+      }
+      continue;
+    }
+    const uint8_t* c3 = rows[3].data();
     for (int x = 0; x < width; ++x) {
-      int Y = yy[x], b = cb[x], r = cr[x];
-      o[3 * x] = clamp255(Y + t.cr_r[r]);
-      o[3 * x + 1] = clamp255(Y + static_cast<int>((t.cb_g[b] + t.cr_g[r]) >> 16));
-      o[3 * x + 2] = clamp255(Y + t.cb_b[b]);
+      int cmy[3] = {c0[x], c1[x], c2[x]};
+      if (ycck) {  // jdcolor.c, ycck_cmyk_convert
+        int Y = c0[x], b = c1[x], r = c2[x];
+        cmy[0] = clamp255(255 - (Y + t.cr_r[r]));
+        cmy[1] = clamp255(255 - (Y + static_cast<int>((t.cb_g[b] + t.cr_g[r]) >> 16)));
+        cmy[2] = clamp255(255 - (Y + t.cb_b[b]));
+      }
+      // PIL reads the samples as inverted CMYK ("CMYK;I"), so its cmyk2rgb
+      // sees 255 - s for each, and its 255 - K is the stored K.
+      int nk = c3[x];
+      for (int k = 0; k < 3; ++k) o[3 * x + k] = clamp255(nk - muldiv255(255 - cmy[k], nk));
     }
   }
 }
@@ -783,8 +1000,12 @@ inline uint8_t paeth(int a, int b, int c) {
   return static_cast<uint8_t>(c);
 }
 
+// Adam7's seven passes: first column and row, column and row step.
+const int kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                          {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+
 void png_decode(const uint8_t* in, size_t n, int width, int height, int color_type, int depth,
-                const uint8_t* palette, int palette_entries, uint8_t* out) {
+                int interlace, const uint8_t* palette, int palette_entries, uint8_t* out) {
   int channels;
   switch (color_type) {
     case 0: channels = 1; break;
@@ -795,74 +1016,164 @@ void png_decode(const uint8_t* in, size_t n, int width, int height, int color_ty
     default: throw Error("bad PNG color type");
   }
   bool low = depth < 8;
-  if (depth != 8 && !(low && (color_type == 0 || color_type == 3) &&
-                      (depth == 1 || depth == 2 || depth == 4))) {
-    throw Error("PNG bit depth " + std::to_string(depth) + " is not supported");
-  }
+  bool ok = depth == 8 || (depth == 16 && color_type != 3) ||
+            (low && (color_type == 0 || color_type == 3) && (depth == 1 || depth == 2 || depth == 4));
+  if (!ok) throw Error("PNG bit depth " + std::to_string(depth) + " is not supported");
+  if (interlace > 1) throw Error("PNG interlace method " + std::to_string(interlace) + " is not supported");
   if (static_cast<long>(width) * height > kMaxPixels) throw Error("PNG too large");
-  const size_t stride = (static_cast<size_t>(width) * channels * depth + 7) / 8;
   const size_t bpp = std::max<size_t>(1, static_cast<size_t>(channels) * depth / 8);
-  if (n < static_cast<size_t>(height) * (stride + 1)) throw Error("truncated PNG image data");
-  std::vector<uint8_t> prev(stride, 0), cur(stride);
+  const size_t bytes = depth == 16 ? 2 : 1;  // per sample
   const int scale = low && color_type == 0 ? 255 / ((1 << depth) - 1) : 1;
-  for (int y = 0; y < height; ++y) {
-    const uint8_t* src = in + static_cast<size_t>(y) * (stride + 1);
-    int filter = src[0];
-    ++src;
-    switch (filter) {
-      case 0:
-        std::memcpy(cur.data(), src, stride);
-        break;
-      case 1:
-        for (size_t i = 0; i < stride; ++i)
-          cur[i] = static_cast<uint8_t>(src[i] + (i >= bpp ? cur[i - bpp] : 0));
-        break;
-      case 2:
-        for (size_t i = 0; i < stride; ++i) cur[i] = static_cast<uint8_t>(src[i] + prev[i]);
-        break;
-      case 3:
-        for (size_t i = 0; i < stride; ++i)
-          cur[i] = static_cast<uint8_t>(src[i] + (((i >= bpp ? cur[i - bpp] : 0) + prev[i]) >> 1));
-        break;
-      case 4:
-        for (size_t i = 0; i < stride; ++i) {
-          int a = i >= bpp ? cur[i - bpp] : 0;
-          int c = i >= bpp ? prev[i - bpp] : 0;
-          cur[i] = static_cast<uint8_t>(src[i] + paeth(a, prev[i], c));
-        }
-        break;
-      default:
-        throw Error("bad PNG filter type " + std::to_string(filter));
+  const uint8_t* src = in;
+  const uint8_t* end = in + n;
+  for (int pass = 0; pass < (interlace ? 7 : 1); ++pass) {
+    const int* a = interlace ? kAdam7[pass] : nullptr;
+    const int x0 = a ? a[0] : 0, y0 = a ? a[1] : 0, dx = a ? a[2] : 1, dy = a ? a[3] : 1;
+    const int pw = width > x0 ? (width - x0 + dx - 1) / dx : 0;
+    const int ph = height > y0 ? (height - y0 + dy - 1) / dy : 0;
+    if (pw == 0 || ph == 0) continue;  // an empty pass has no rows, not even filter bytes
+    const size_t stride = (static_cast<size_t>(pw) * channels * depth + 7) / 8;
+    if (static_cast<size_t>(end - src) < static_cast<size_t>(ph) * (stride + 1)) {
+      throw Error("truncated PNG image data");
     }
-    uint8_t* o = out + static_cast<size_t>(y) * width * 3;
-    for (int x = 0; x < width; ++x) {
-      int v0;
-      if (low) {
-        int per = 8 / depth;
-        int shift = 8 - depth * (x % per + 1);
-        v0 = (cur[x / per] >> shift) & ((1 << depth) - 1);
-      } else {
-        v0 = cur[static_cast<size_t>(x) * channels];
+    std::vector<uint8_t> prev(stride, 0), cur(stride);
+    for (int r = 0; r < ph; ++r, src += stride + 1) {
+      int filter = src[0];
+      const uint8_t* s = src + 1;
+      switch (filter) {
+        case 0:
+          std::memcpy(cur.data(), s, stride);
+          break;
+        case 1:
+          for (size_t i = 0; i < stride; ++i)
+            cur[i] = static_cast<uint8_t>(s[i] + (i >= bpp ? cur[i - bpp] : 0));
+          break;
+        case 2:
+          for (size_t i = 0; i < stride; ++i) cur[i] = static_cast<uint8_t>(s[i] + prev[i]);
+          break;
+        case 3:
+          for (size_t i = 0; i < stride; ++i)
+            cur[i] = static_cast<uint8_t>(s[i] + (((i >= bpp ? cur[i - bpp] : 0) + prev[i]) >> 1));
+          break;
+        case 4:
+          for (size_t i = 0; i < stride; ++i) {
+            int pa = i >= bpp ? cur[i - bpp] : 0;
+            int pc = i >= bpp ? prev[i - bpp] : 0;
+            cur[i] = static_cast<uint8_t>(s[i] + paeth(pa, prev[i], pc));
+          }
+          break;
+        default:
+          throw Error("bad PNG filter type " + std::to_string(filter));
       }
-      if (color_type == 3) {
-        if (v0 < palette_entries) {
-          o[3 * x] = palette[3 * v0];
-          o[3 * x + 1] = palette[3 * v0 + 1];
-          o[3 * x + 2] = palette[3 * v0 + 2];
+      uint8_t* orow = out + static_cast<size_t>(y0 + r * dy) * width * 3;
+      for (int x = 0; x < pw; ++x) {
+        uint8_t* o = orow + static_cast<size_t>(x0 + x * dx) * 3;
+        const uint8_t* p = &cur[static_cast<size_t>(x) * channels * bytes];
+        if (low) {
+          int per = 8 / depth;
+          int shift = 8 - depth * (x % per + 1);
+          int v = (cur[x / per] >> shift) & ((1 << depth) - 1);
+          if (color_type == 3) {
+            if (v < palette_entries) {
+              o[0] = palette[3 * v];
+              o[1] = palette[3 * v + 1];
+              o[2] = palette[3 * v + 2];
+            } else {
+              o[0] = o[1] = o[2] = 0;
+            }
+          } else {
+            o[0] = o[1] = o[2] = static_cast<uint8_t>(v * scale);
+          }
+        } else if (color_type == 3) {
+          int v = p[0];
+          if (v < palette_entries) {
+            o[0] = palette[3 * v];
+            o[1] = palette[3 * v + 1];
+            o[2] = palette[3 * v + 2];
+          } else {
+            o[0] = o[1] = o[2] = 0;
+          }
+        } else if (color_type == 0 && depth == 16) {
+          // PIL opens 16-bit grey as I;16, whose conversion clips at 255.
+          int v = (p[0] << 8) | p[1];
+          o[0] = o[1] = o[2] = static_cast<uint8_t>(v > 255 ? 255 : v);
+        } else if (channels >= 3) {  // 16-bit: the high byte of each sample
+          o[0] = p[0];
+          o[1] = p[bytes];
+          o[2] = p[2 * bytes];
         } else {
-          o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = 0;
+          o[0] = o[1] = o[2] = p[0];
         }
-      } else if (channels >= 3) {
-        const uint8_t* p = &cur[static_cast<size_t>(x) * channels];
-        o[3 * x] = p[0];
-        o[3 * x + 1] = p[1];
-        o[3 * x + 2] = p[2];
-      } else {
-        uint8_t g = static_cast<uint8_t>(v0 * scale);
-        o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = g;
+      }
+      std::swap(prev, cur);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- resize
+
+// Bilinear taps along one axis, as F.interpolate (align_corners=False)
+// places them: source index pairs and their f32 weights.
+void bilinear_taps(int n_in, int n_out, std::vector<int>& i0, std::vector<int>& i1,
+                   std::vector<float>& w0, std::vector<float>& w1) {
+  const float scale = static_cast<float>(n_in) / static_cast<float>(n_out);
+  i0.resize(n_out);
+  i1.resize(n_out);
+  w0.resize(n_out);
+  w1.resize(n_out);
+  for (int d = 0; d < n_out; ++d) {
+    float src = (static_cast<float>(d) + 0.5f) * scale - 0.5f;
+    if (src < 0.0f) src = 0.0f;
+    int a = static_cast<int>(src);
+    i0[d] = a;
+    i1[d] = a < n_in - 1 ? a + 1 : a;
+    w1[d] = src - static_cast<float>(a);
+    w0[d] = 1.0f - w1[d];
+  }
+}
+
+// Resize an (h, w, 3) uint8 image to (nh, nw, 3): each source row
+// interpolated across, then the rows down, each product and sum rounded to
+// f32 (native/build.py compiles with -ffp-contract=off: no fused
+// multiply-add), rounded half to even and clamped.  One thread, so the
+// pixels never depend on how work is split.
+void resize_bilinear(const uint8_t* in, int h, int w, uint8_t* out, int nh, int nw) {
+  if (h < 1 || w < 1 || nh < 1 || nw < 1) throw Error("bad resize shape");
+  if (static_cast<long>(nh) * nw > kMaxPixels) throw Error("resize output too large");
+  std::vector<int> x0, x1, y0, y1;
+  std::vector<float> wx0, wx1, wy0, wy1;
+  bilinear_taps(w, nw, x0, x1, wx0, wx1);
+  bilinear_taps(h, nh, y0, y1, wy0, wy1);
+  const size_t row = static_cast<size_t>(nw) * 3;
+  // Two source rows interpolated across, cached by source row index.
+  std::vector<float> across[2] = {std::vector<float>(row), std::vector<float>(row)};
+  int held[2] = {-1, -1};
+  auto across_row = [&](int r) -> const float* {
+    for (int k = 0; k < 2; ++k) {
+      if (held[k] == r) return across[k].data();
+    }
+    int k = held[0] < held[1] ? 0 : 1;  // rows are asked for in order: evict the lower
+    const uint8_t* src = in + static_cast<size_t>(r) * w * 3;
+    float* dst = across[k].data();
+    for (int x = 0; x < nw; ++x) {
+      const uint8_t* a = src + 3 * x0[x];
+      const uint8_t* b = src + 3 * x1[x];
+      for (int c = 0; c < 3; ++c) {
+        dst[3 * x + c] = static_cast<float>(a[c]) * wx0[x] + static_cast<float>(b[c]) * wx1[x];
       }
     }
-    std::swap(prev, cur);
+    held[k] = r;
+    return dst;
+  };
+  for (int y = 0; y < nh; ++y) {
+    const float* top = across_row(y0[y]);
+    const float* bot = across_row(y1[y]);
+    uint8_t* o = out + static_cast<size_t>(y) * row;
+    const float a = wy0[y], b = wy1[y];
+    for (size_t i = 0; i < row; ++i) {
+      float v = std::nearbyint(top[i] * a + bot[i] * b);
+      o[i] = static_cast<uint8_t>(v < 0.0f ? 0.0f : (v > 255.0f ? 255.0f : v));
+    }
   }
 }
 
@@ -895,13 +1206,26 @@ int codec_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, int width,
   }
 }
 
-// Unfilter inflated PNG image data (height rows of a filter byte and the
-// row) and convert it into ``out``: height * width * 3 bytes of RGB.
+// Unfilter inflated PNG image data (rows of a filter byte and the row, in
+// seven passes when ``interlace`` is 1) and convert it into ``out``:
+// height * width * 3 bytes of RGB.
 int codec_png_decode(const uint8_t* data, size_t size, int width, int height, int color_type,
-                     int bit_depth, const uint8_t* palette, int palette_entries, uint8_t* out,
-                     char* err, int errlen) {
+                     int bit_depth, int interlace, const uint8_t* palette, int palette_entries,
+                     uint8_t* out, char* err, int errlen) {
   try {
-    png_decode(data, size, width, height, color_type, bit_depth, palette, palette_entries, out);
+    png_decode(data, size, width, height, color_type, bit_depth, interlace, palette,
+               palette_entries, out);
+    return 0;
+  } catch (const std::exception& e) {
+    return report(e.what(), err, errlen);
+  }
+}
+
+// Resize an (h, w, 3) uint8 image into ``out``: nh * nw * 3 bytes.
+int codec_resize_bilinear(const uint8_t* in, int h, int w, uint8_t* out, int nh, int nw, char* err,
+                          int errlen) {
+  try {
+    resize_bilinear(in, h, w, out, nh, nw);
     return 0;
   } catch (const std::exception& e) {
     return report(e.what(), err, errlen);

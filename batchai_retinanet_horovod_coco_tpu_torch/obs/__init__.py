@@ -65,8 +65,8 @@ def finalize() -> str | None:
     watchdog, merge every per-process trace file of this run into
     ``trace.json``.  Returns the merged path (None when tracing was never
     enabled).  The JAX package's ``finalize`` callers then write a perf
-    report (``obs/analyze``); that analyzer waits for ``ROADMAP.md``
-    queue 1 item 12."""
+    report (``obs/analyze``); that analyzer waits for the tooling item
+    of ``ROADMAP.md`` queue 1."""
     watchdog.stop()
     if not trace.enabled():
         return None

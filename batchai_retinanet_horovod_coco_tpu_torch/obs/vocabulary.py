@@ -113,6 +113,10 @@ VOCABULARY: dict[str, dict] = {
         "kinds": ("span",),
         "consumers": (),
     },
+    "decode": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
     "detect_dispatch": {
         "kinds": ("span",),
         "consumers": (),
@@ -495,6 +499,26 @@ VOCABULARY: dict[str, dict] = {
         "consumers": (),
     },
     "serve_warmup": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
+    "shm.inflight_batches": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "shm.out_qsize": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "shm_assemble": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
+    "shm_head_wait": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
+    "shm_write": {
         "kinds": ("span",),
         "consumers": (),
     },

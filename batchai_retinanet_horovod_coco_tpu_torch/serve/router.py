@@ -5,8 +5,9 @@ or decoded HWC uint8 RGB arrays; bytes are decoded by the package's codec
 (``data/image_io.py::decode``, the pixels PIL gives), then resized on host
 worker threads with the pipeline's own geometry (``bucket_for_source`` /
 ``resize_for_bucket``) and routed into the per-bucket queues the batcher
-coalesces from.  What the codec refuses (progressive or CMYK JPEG, BMP)
-is a ``decode_error``, where the JAX package's PIL decode serves it.
+coalesces from.  What the codec refuses (arithmetic-coded, 12-bit,
+lossless or hierarchical JPEG, RLE BMP, GIF, TIFF, WebP) is a
+``decode_error``, where the JAX package's PIL decode serves it.
 
 Failure routing is per request: a bad payload rejects THAT request with
 ``decode_error`` and the worker moves on; only a crash of the worker loop

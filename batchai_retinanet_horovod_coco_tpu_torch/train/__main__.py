@@ -9,7 +9,8 @@ the flags of ``train.py``, each with its name and default, so a JAX
 command line for one device carries over unchanged; ``--device {cuda,cpu}``
 (default ``cuda``, which raises without a card) is the port's own.  The
 run: datasets → bucketed pipelines of decoded image files
-(``data/pipeline.py``) → the model, the optimizer (sgd's LR is ``--lr`` ×
+(``data/pipeline.py``; with ``--data-worker-procs N`` decoded by N worker
+processes over shared memory, ``data/shm_pipeline.py``) → the model, the optimizer (sgd's LR is ``--lr`` ×
 global batch / 256) and the train state → ``train/loop.py::run_training``
 with checkpoints in the JAX package's format under ``--snapshot-path``, and
 a COCO eval (``evaluate/detect.py::run_coco_eval``, plus VOC AP for csv
@@ -30,8 +31,7 @@ from the reseeded stream.  ``--log-dir``'s ``metrics.jsonl`` is the
 
 Refused with a message naming ``ROADMAP.md``, since what they need is not
 ported: more than one device, spatial sharding, the sharded weight update
-and the quantized allreduce, the distributed launch flags, the
-multiprocess decode, TensorBoard, ``--debug-nans``, ``--pretrained-backbone``,
+and the quantized allreduce, the distributed launch flags, TensorBoard, ``--debug-nans``, ``--pretrained-backbone``,
 a stem other than the default, ``--pack-width``, and the backbones other
 than the ResNets.  The gradient-communication flags and ``--platform`` are
 left out; the ``dp8`` and ``pod`` presets too.
@@ -63,6 +63,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import (
     add_durability_flags,
     add_obs_flags,
     configure_obs,
+    make_pipeline_worker_kwargs,
     resolve_anchor_config,
     save_anchor_config,
 )
@@ -239,8 +240,6 @@ def refuse_unported(args) -> None:
         "--coordinator-address": args.coordinator_address is not None,
         "--num-processes": args.num_processes is not None,
         "--process-id": args.process_id is not None,
-        f"--data-worker-procs {args.data_worker_procs}": args.data_worker_procs > 0,
-        "--data-worker-timeout": args.data_worker_timeout != 120.0,
         "--tensorboard": args.tensorboard,
         "--debug-nans": args.debug_nans,
         "--pretrained-backbone": args.pretrained_backbone is not None,
@@ -487,7 +486,7 @@ def main(argv=None) -> dict[str, float]:
         merged = obs.finalize()
         if merged:
             # The JAX CLI then writes PERF_REPORT.json (obs/analyze),
-            # which waits for ROADMAP.md queue 1 item 12.
+            # which waits for the tooling item of ROADMAP.md queue 1.
             print(f"obs: merged Chrome trace at {merged} (load in Perfetto / "
                   "chrome://tracing)", flush=True)
 
@@ -561,7 +560,9 @@ def _run(args) -> dict[str, float]:
         min_side=args.image_min_side,
         max_side=args.image_max_side,
         max_gt=args.max_gt,
-        num_workers=args.workers,
+        # --workers, --data-worker-procs, --data-worker-timeout: the
+        # shared-memory worker processes when procs > 0, else the threads.
+        **make_pipeline_worker_kwargs(args),
     )
     detect_config = DetectConfig(
         score_threshold=args.score_threshold,

@@ -53,21 +53,19 @@ def add_anchor_flags(parser) -> None:
 
 
 def add_data_pipeline_flags(parser) -> None:
-    """The host input-pipeline flag surface.  ``--data-worker-procs`` and
-    ``--data-worker-timeout`` belong to the multiprocess producer, which is
-    not ported: the train command refuses values other than their
-    defaults."""
+    """The host input-pipeline flag surface: decode threads, or decode
+    worker processes over shared memory (``data/shm_pipeline.py``)."""
     parser.add_argument("--workers", "--data-workers", dest="workers",
                         type=int, default=16,
                         help="decode THREADS of the in-process pool (the "
                              "codec and the resize release the interpreter "
-                             "lock)")
+                             "lock); ignored when --data-worker-procs > 0")
     parser.add_argument("--data-worker-procs", type=int, default=0,
-                        help="decode worker PROCESSES (the JAX package's "
-                             "data/shm_pipeline.py); not ported: only 0")
+                        help="decode worker PROCESSES writing into shared "
+                             "memory (data/shm_pipeline.py); 0 = threads")
     parser.add_argument("--data-worker-timeout", type=float, default=120.0,
-                        help="stall bound of the multiprocess producer; "
-                             "not ported: only the default")
+                        help="seconds a head-of-line batch may wait on the "
+                             "worker processes before the run raises")
     parser.add_argument("--device-prefetch", type=int, default=2,
                         help="batches copied host->device ahead of the "
                              "step by a background thread; 0 = in line")
@@ -209,6 +207,15 @@ def make_serve_config(args):
         preprocess_workers=args.serve_workers,
         default_timeout_s=args.serve_timeout_s,
         drain_timeout_s=args.serve_drain_timeout_s,
+    )
+
+
+def make_pipeline_worker_kwargs(args) -> dict:
+    """``PipelineConfig`` kwargs for the decode-worker flags above."""
+    return dict(
+        num_workers=args.workers,
+        num_worker_procs=args.data_worker_procs,
+        worker_timeout=args.data_worker_timeout,
     )
 
 

@@ -83,19 +83,28 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    without an eval in flight (the card's share of the slowdown, the rest
    the host's), and the 10 CUDA kernels that took the most device time in
    the loop's profiled step (which overlaps step 3's eval) and in steps
-   with no eval in flight;
+   with no eval in flight; the final state's detections scored through
+   the native COCOeval helper and through its numpy oracle must give equal
+   stats, and it prints each one's host ms;
 11. from image files through the command line: (a) builds the image codec
-   (``native/imagecodec.cpp``) with g++, decodes every JPEG fixture of
-   ``tests/fixtures/jpeg`` to the sha256 of PIL's pixels that
-   ``digests.json`` holds (the progressive one must raise), times one
-   640 x 480 decode on the host, and sweeps ``build_pipeline``'s images/s
-   at 1, 2, 4 and 8 decode threads (batch 16, buckets (800, 1344) and
-   (1344, 800)) over a COCO JSON that names the four 640 x 480 fixtures 64
-   times; (b) ``train.main`` at the defaults (ResNet-50, GN, bf16, batch
-   16, sides 800/1333) on that JSON for 6 steps with a checkpoint every 3
-   and a final COCO eval of 16 records, then ``evaluate.main`` on the
-   snapshot, whose 12 stats must equal the run's final eval exactly; it
-   prints images/s and ``data_wait_ms`` from files; (c) the convergence
+   (``native/imagecodec.cpp``) with g++, decodes every fixture of
+   ``tests/fixtures/jpeg`` and ``tests/fixtures/formats`` (progressive,
+   CMYK, YCCK and RGB-coded JPEG, interlaced and 16-bit PNG, BMP) to the
+   sha256 of PIL's pixels that their ``digests.json`` hold, times a 640 x
+   480 baseline and a progressive decode on the host, and sweeps
+   ``build_pipeline``'s images/s at 1, 2, 4 and 8 decode threads and at
+   1, 2 and 4 worker processes over shared memory (batch 16, buckets
+   (800, 1344) and (1344, 800)) over a COCO JSON that names the four
+   640 x 480 fixtures 64 times: each one's first two batches equal 1
+   thread's, no worker initialized CUDA, and no worker or shared-memory
+   segment outlives its pipeline; (b) ``train.main`` at the defaults
+   (ResNet-50, GN, bf16, batch 16, sides 800/1333) on that JSON for 6
+   steps with a checkpoint every 3 and a final COCO eval of 16 records,
+   then ``evaluate.main`` on the snapshot, whose 12 stats must equal the
+   run's final eval exactly, then the same 6 steps on 4 decode threads and
+   on 4 worker processes (``--data-worker-procs 4``: the training kernels
+   launched once a step, no worker or segment left after); it prints
+   images/s, step ms and ``data_wait_ms`` of the three; (c) the convergence
    gate of ``tests/integration/test_convergence_gate.py``: 300 steps of
    its recipe through ``train.main`` on 64 synthetic images, then
    ``--preset eval``, which must reach AP50 > 0.15.  The counters are
@@ -115,12 +124,14 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    exported batch size, then the same load through in-process
    ``submit``: images/s and p50/p99 latency of both.  The counters are
    zeroed before each load and read after it: NMS launched at least once
-   a served batch, the plain version never.  A progressive JPEG is
-   answered 400, an unknown path 404, and the trace header is echoed;
+   a served batch, the plain version never.  An RLE8 BMP, which the codec
+   refuses, is answered 400, an unknown path 404, and the trace header is
+   echoed;
    each fixture posted 8 times at once to a server that seals only full
    batches is answered at every row of a batch of 8 as the live engine
    answers there; ``python -m ...serve --images`` writes records equal
-   to the live answers and each to an HTTP answer for the same file, and
+   to the live answers and each to an HTTP answer for the same file (and
+   an ``error`` record for the RLE8 BMP), and
    ``--http 0`` drains and exits 0 on SIGTERM;
 13. observability at full width: (a) phase 8's model and batches, 6 steps
    of ``train/loop.py`` without and 6 with the numerics summary: every
@@ -181,10 +192,12 @@ from __future__ import annotations
 
 import hashlib
 import json
+import multiprocessing
 import os
 import shutil
 import signal
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -208,7 +221,9 @@ from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
     default_buckets,
     normalize_images,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.data import shm_pipeline as shm_lib
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate import __main__ as evaluate_cli
+from batchai_retinanet_horovod_coco_tpu_torch.evaluate import coco_eval as coco_eval_lib
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate import detect as detect_lib
 from batchai_retinanet_horovod_coco_tpu_torch.models.convert import load_flax_variables
 from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import (
@@ -269,6 +284,7 @@ MATCH_OPS_PER_PAIR = 16
 FOCAL_FWD_OPS = 14
 FOCAL_BWD_OPS = 19
 JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "jpeg"
+FORMAT_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "formats"
 TRAIN_HW = (800, 1344)  # the landscape bucket of the (800, 1333) resize rule
 MAX_GT = 100
 GOLDEN_HW = (64, 64)
@@ -1277,6 +1293,30 @@ def train_eval_resume(batches, root: str, device, kind: str, smi: str) -> dict[s
     require(pipelined == sequential, "pipelined and sequential eval drivers differ")
     require(all(d["image_id"] >= 1 for d in pipelined), "a padding row produced a detection")
 
+    # The same detections scored through the native COCOeval helper and
+    # through its numpy oracle: equal stats, and each one's host time.
+    gt, img_ids = detect_lib.coco_gt_from_dataset(dataset)
+    scored, score_ms = {}, {}
+    for label, (iou_fn, match_fn) in {
+        "native helper": (coco_eval_lib.bbox_iou_xywh, coco_eval_lib.match_detections),
+        "numpy oracle": (coco_eval_lib.numpy_bbox_iou_xywh, coco_eval_lib.numpy_match_detections),
+    }.items():
+        saved_fns = coco_eval_lib.bbox_iou_xywh, coco_eval_lib.match_detections
+        coco_eval_lib.bbox_iou_xywh, coco_eval_lib.match_detections = iou_fn, match_fn
+        try:
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                scored[label] = coco_eval_lib.evaluate_detections(gt, pipelined, img_ids=img_ids)
+                times.append((time.perf_counter() - t0) * 1e3)
+            score_ms[label] = float(np.median(times))
+        finally:
+            coco_eval_lib.bbox_iou_xywh, coco_eval_lib.match_detections = saved_fns
+    print(f"scoring {len(pipelined)} detections of {len(img_ids)} images on the host, median of 3: native "
+          f"helper {score_ms['native helper']:.3f} ms, numpy oracle {score_ms['numpy oracle']:.3f} ms; "
+          f"stats equal: {scored['native helper'] == scored['numpy oracle']}; {kind}, {smi}")
+    require(scored["native helper"] == scored["numpy oracle"], "the native COCOeval helper's stats differ")
+
     # Where the time goes: the checkpoint, a detect batch, the eval.
     ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, f"ckpt-{steps}", n))
                      for n in os.listdir(os.path.join(ckpt_dir, f"ckpt-{steps}")))
@@ -1331,7 +1371,9 @@ def train_eval_resume(batches, root: str, device, kind: str, smi: str) -> dict[s
     alone_ms, during_ms = float(np.mean(alone)), float(np.mean(during))
     sync_wall = len(during) * alone_ms / 1e3 + sync_eval_s
     print(f"step ms (host clock to a sync of the training stream): {alone_ms:.3f} without an eval in "
-          f"flight ({len(alone)} steps), {during_ms:.3f} with one ({len(during)} steps); {kind}, {smi}")
+          f"flight ({len(alone)} steps), {during_ms:.3f} with one ({len(during)} steps; the eval scores "
+          f"through the native COCOeval helper; PERF.md records 394-483 ms with numpy scoring); "
+          f"{kind}, {smi}")
     print(f"async eval: {len(during)} steps and the eval in {async_wall:.3f} s (the eval "
           f"{eval_spans[-1][1] - eval_spans[-1][0]:.3f} s); the same steps alone and a synchronous eval "
           f"({sync_eval_s:.3f} s): {sync_wall:.3f} s; async_eval is {'faster' if async_wall < sync_wall else 'slower'} by "
@@ -1504,43 +1546,63 @@ def files_phase(root: str, device, kind: str, smi: str) -> dict[str, int]:
     return cli_runs(root, device, kind, smi)
 
 
-def codec_and_pipeline(root: str, kind: str, smi: str) -> None:
-    """(a) the codec against the fixtures' digests, one decode's time, and
-    the pipeline's images/s by decode threads."""
-    t0 = time.perf_counter()
-    native_build.compile_library("imagecodec")
-    print(f"built native/imagecodec.cpp with g++ in {time.perf_counter() - t0:.1f} s")
-    digests = json.loads((JPEG_FIXTURES / "digests.json").read_text())
-    for name, want in digests.items():
-        path = JPEG_FIXTURES / name
-        if want["progressive"]:
-            try:
-                image_io.read_rgb(path)
-            except ValueError as e:
-                print(f"{name}: refused as it must be ({e})")
-                continue
-            require(False, f"{name}: a progressive JPEG decoded")
-        pixels = image_io.read_rgb(path)
-        digest = hashlib.sha256(pixels.tobytes()).hexdigest()
-        require(list(pixels.shape) == want["shape"] and digest == want["sha256"],
-                f"{name}: decoded pixels differ from PIL's (sha256 {digest})")
-    print(f"{len(digests) - 1} fixtures decode to their PIL digests bit for bit")
-    data = (JPEG_FIXTURES / "coco_0.jpg").read_bytes()
+def decode_ms(data: bytes, reps: int = 30) -> tuple[float, float]:
+    """Median and min ms of decoding ``data`` on the host."""
     times = []
-    for _ in range(30):
+    for _ in range(reps):
         t0 = time.perf_counter()
         image_io.decode(data)
         times.append((time.perf_counter() - t0) * 1e3)
-    print(f"decode of a 640 x 480 4:2:0 JPEG ({len(data)} bytes): median {np.median(times):.3f} ms, "
-          f"min {min(times):.3f} ms over 30 on the host ({os.cpu_count()} cores); {kind}, {smi}")
+    return float(np.median(times)), min(times)
+
+
+def leftover_workers(processes: list | None = None) -> tuple[list[str], list]:
+    """This process's shared-memory segments and its live decode worker
+    processes (``processes``, else its children of the pipeline's worker
+    name): both must be none once a pipeline is closed."""
+    own = f"{shm_lib.SHM_PREFIX}{os.getpid()}_"
+    segments = sorted(f for f in os.listdir("/dev/shm") if f.startswith(own))
+    if processes is None:
+        processes = [p for p in multiprocessing.active_children() if p.name.startswith("shm-pipe-worker-")]
+    return segments, [p for p in processes if p.is_alive()]
+
+
+def codec_and_pipeline(root: str, kind: str, smi: str) -> None:
+    """(a) the codec against the fixtures' digests, decode times, and the
+    pipeline's images/s by decode threads and by worker processes."""
+    t0 = time.perf_counter()
+    native_build.compile_library("imagecodec")
+    print(f"built native/imagecodec.cpp with g++ in {time.perf_counter() - t0:.1f} s")
+    checked = 0
+    for folder in (JPEG_FIXTURES, FORMAT_FIXTURES):
+        digests = json.loads((folder / "digests.json").read_text())
+        for name, want in digests.items():
+            path = folder / name
+            pixels = image_io.read_rgb(path)
+            digest = hashlib.sha256(pixels.tobytes()).hexdigest()
+            require(list(pixels.shape) == want["shape"] and digest == want["sha256"],
+                    f"{name}: decoded pixels differ from PIL's (sha256 {digest})")
+            if "size" in want:
+                require(list(image_io.read_size(path)) == want["size"], f"{name}: read_size differs from PIL's")
+            checked += 1
+    print(f"{checked} fixtures of tests/fixtures/jpeg and tests/fixtures/formats (progressive, CMYK, YCCK, "
+          f"Adobe RGB JPEG; interlaced and 16-bit PNG; BMP) decode to their PIL digests bit for bit")
+    baseline = (JPEG_FIXTURES / "coco_0.jpg").read_bytes()
+    progressive = (FORMAT_FIXTURES / "progressive_640x480.jpg").read_bytes()
+    (b_med, b_min), (p_med, p_min) = decode_ms(baseline), decode_ms(progressive)
+    print(f"decode of a 640 x 480 4:2:0 JPEG on the host ({os.cpu_count()} cores), median (min) over 30: "
+          f"baseline ({len(baseline)} bytes) {b_med:.3f} ({b_min:.3f}) ms, progressive ({len(progressive)} "
+          f"bytes) {p_med:.3f} ({p_min:.3f}) ms, {p_med / b_med:.2f}x; {kind}, {smi}")
 
     dataset = CocoDataset(fixture_coco(root, 64, 0), str(JPEG_FIXTURES))
-    for workers in (1, 2, 4, 8):
+    reference: list = []
+    for workers, procs in ((1, 0), (2, 0), (4, 0), (8, 0), (1, 1), (1, 2), (1, 4)):
         it = pipeline_lib.build_pipeline(dataset, pipeline_lib.PipelineConfig(
-            batch_size=16, buckets=default_buckets(800, 1333), max_gt=16, num_workers=workers))
+            batch_size=16, buckets=default_buckets(800, 1333), max_gt=16, num_workers=workers,
+            num_worker_procs=procs))
         try:
-            next(it)  # warm-up
-            batches = 3 if workers == 1 else 6
+            first = [next(it), next(it)]  # warm-up (the workers' start), and kept for the comparison
+            batches = 3 if workers + procs == 1 else 6
             t0 = time.perf_counter()
             for _ in range(batches):
                 batch = next(it)
@@ -1548,8 +1610,18 @@ def codec_and_pipeline(root: str, kind: str, smi: str) -> None:
         finally:
             it.close()
         require(batch.images.shape == (16, *TRAIN_HW, 3), f"pipeline batch {batch.images.shape}")
-        print(f"build_pipeline, {workers} decode thread(s): {rate:.2f} images/s at batch 16 into "
-              f"{TRAIN_HW} (decode, flip, resize 640x480 -> 1067x800, pad), against the step's "
+        if not reference:
+            reference = first
+        same = all(np.array_equal(getattr(a, f), getattr(b, f)) for a, b in zip(first, reference)
+                   for f in pipeline_lib.Batch._fields)
+        require(same, f"the first batches with {workers} threads, {procs} processes differ from 1 thread's")
+        if procs:
+            require(not it.workers_touched_cuda, "a decode worker process initialized CUDA")
+            segments, children = leftover_workers(it.processes)
+            require(not segments and not children, f"after close(): segments {segments}, children {children}")
+        label = f"{procs} worker process(es)" if procs else f"{workers} decode thread(s)"
+        print(f"build_pipeline, {label}: {rate:.2f} images/s at batch 16 into {TRAIN_HW} (decode, flip, "
+              f"resize 640x480 -> 1067x800, pad), first 2 batches equal to 1 thread's; against the step's "
               f"72.46 images/s (PERF.md section 5); {kind}, {smi}")
 
 
@@ -1587,6 +1659,7 @@ def cli_runs(root: str, device, kind: str, smi: str) -> dict[str, int]:
           f"median {float(np.median(waits)):.3f} (max {max(waits):.3f}) over steps 2-6, against "
           f"0.35-0.69 ms from memory (PERF.md section 5); losses "
           f"{[round(r['loss'], 4) for r in records]}; {kind}, {smi}")
+    by_feed = {"16 decode threads": records[1:]}
 
     final = {k.removeprefix("eval/"): v for k, v in out.items() if k.startswith("eval/")}
     reset_all_counts()
@@ -1610,13 +1683,30 @@ def cli_runs(root: str, device, kind: str, smi: str) -> dict[str, int]:
     used = counts()
     for k in launches:
         launches[k] += used[k]
-    records = [r for r in read_log(logs4) if "loss" in r]
-    print(f"the same 6 steps on 4 decode threads: "
-          f"{float(np.median([r['images_per_sec'] for r in records[1:]])):.2f} images/s, step "
-          f"{float(np.median([r['step_time_ms'] for r in records[1:]])):.1f} ms, data_wait_ms median "
-          f"{float(np.median([r['data_wait_ms'] for r in records[1:]])):.3f} over steps 2-6; "
-          f"{kind}, {smi}")
+    by_feed["4 decode threads"] = [r for r in read_log(logs4) if "loss" in r][1:]
     require(used["matching"] == 6 and used["plain"] == 0, f"launches {used}")
+
+    # The same steps with the decodes in 4 worker processes over shared
+    # memory (data/shm_pipeline.py): the step's process keeps only assembly.
+    logs_procs = os.path.join(root, "logs_procs")
+    reset_all_counts()
+    out = train_cli.main(files + ["--steps", "6", "--data-worker-procs", "4", "--log-every", "1",
+                                  "--log-dir", logs_procs, "--snapshot-path", os.path.join(root, "snap_procs")])
+    used = counts()
+    for k in launches:
+        launches[k] += used[k]
+    require(out["final_step"] == 6.0, f"final step {out['final_step']} with worker processes")
+    require(used["plain"] == 0 and all(used[k] == 6 for k in ("matching", "focal_fwd", "focal_bwd")),
+            f"launches {used} in 6 steps with worker processes")
+    segments, children = leftover_workers()
+    require(not segments and not children, f"after the run: segments {segments}, children {children}")
+    by_feed["4 worker processes"] = [r for r in read_log(logs_procs) if "loss" in r][1:]
+    for feed, recs in by_feed.items():
+        require(len(recs) == 5 and all(np.isfinite(r["loss"]) for r in recs), f"{feed}: steps {recs}")
+        print(f"train coco from JPEG files, {feed}: {float(np.median([r['images_per_sec'] for r in recs])):.2f} "
+              f"images/s, step {float(np.median([r['step_time_ms'] for r in recs])):.1f} ms, data_wait_ms "
+              f"median {float(np.median([r['data_wait_ms'] for r in recs])):.3f} (max "
+              f"{max(r['data_wait_ms'] for r in recs):.3f}) over steps 2-6; {kind}, {smi}")
 
     # (c) tests/integration/test_convergence_gate.py's recipe on the card.
     gate = ["synthetic", "--synthetic-root", os.path.join(root, "synthetic"), "--synthetic-images",
@@ -1712,9 +1802,18 @@ def http_load(url: str, clients: int, per_client: int) -> tuple[list, float]:
 
 
 def served_files() -> list[tuple[str, bytes]]:
-    """The fixture JPEGs that the codec decodes, by name."""
-    names = sorted(n for n in os.listdir(JPEG_FIXTURES) if n.endswith(".jpg") and n != "progressive.jpg")
+    """The fixture JPEGs, by name (the progressive one among them)."""
+    names = sorted(n for n in os.listdir(JPEG_FIXTURES) if n.endswith(".jpg"))
     return [(n, (JPEG_FIXTURES / n).read_bytes()) for n in names]
+
+
+def rle8_bmp() -> bytes:
+    """A 2 x 2 RLE8-compressed BMP, which the codec refuses."""
+    pixels = bytes([2, 0, 0, 0, 2, 1, 0, 0, 0, 1])  # two runs of 2, end of line, end of bitmap
+    info = struct.pack("<IiiHHIIiiII", 40, 2, 2, 1, 8, 1, len(pixels), 0, 0, 2, 0)
+    offset = 14 + len(info) + 8
+    return (b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset) + info
+            + bytes([0, 0, 0, 0, 255, 255, 255, 0]) + pixels)
 
 
 def live_answer(engine: DetectEngine, image: np.ndarray, batch: int, row: int = 0) -> list[dict]:
@@ -1968,16 +2067,15 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
 
         # The error answers and the trace header, then one answer a file.
         nms_cuda.reset_counts()
-        progressive = (JPEG_FIXTURES / "progressive.jpg").read_bytes()
-        code, body, trace, _ = post(f"{url}/detect", progressive, trace="chip-smoke-trace")
+        code, body, trace, _ = post(f"{url}/detect", rle8_bmp(), trace="chip-smoke-trace")
         require(code == 400 and body.get("reason") == "decode_error" and trace == "chip-smoke-trace"
-                and body.get("trace_id") == trace, f"progressive JPEG: {code} {body} {trace}")
+                and body.get("trace_id") == trace, f"RLE8 BMP: {code} {body} {trace}")
         code, body, trace, _ = post(f"{url}/detect", files[0][1])
         require(code == 200 and trace and len(trace) == 16 and body["trace_id"] == trace,
                 f"minted trace id {trace!r}")
         code, body, _, _ = post(f"{url}/nowhere", files[0][1])
         require(code == 404, f"unknown path answered {code}")
-        print(f"progressive JPEG answered 400 decode_error, unknown path 404, trace header echoed "
+        print(f"RLE8 BMP answered 400 decode_error, unknown path 404, trace header echoed "
               f"(given and minted)")
         for n, data in files:  # one at a time: each alone in a batch of 1
             code, body, _, _ = post(f"{url}/detect", data)
@@ -2012,13 +2110,18 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
     out_jsonl = os.path.join(root, "served.jsonl")
     cli = [sys.executable, "-m", "batchai_retinanet_horovod_coco_tpu_torch.serve", "--export-dir", export_dir,
            *on]
+    images_dir = os.path.join(root, "serve_images")  # the fixtures and a file the codec refuses
+    os.makedirs(images_dir, exist_ok=True)
+    for n, data in files:
+        Path(images_dir, n).write_bytes(data)
+    Path(images_dir, "refused_rle8.bmp").write_bytes(rle8_bmp())
     t0 = time.perf_counter()
-    proc = subprocess.run(cli + ["--images", str(JPEG_FIXTURES), "--output", out_jsonl],
+    proc = subprocess.run(cli + ["--images", images_dir, "--output", out_jsonl],
                           cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
     require(proc.returncode == 0, f"serve --images failed:\n{proc.stderr[-3000:]}")
     records = {r["file"]: r for r in map(json.loads, Path(out_jsonl).read_text().splitlines())}
-    require(sorted(records) == sorted([n for n, _ in files] + ["progressive.jpg"]), f"records {sorted(records)}")
-    require("decode_error" in records["progressive.jpg"].get("error", ""), "progressive.jpg was not refused")
+    require(sorted(records) == sorted([n for n, _ in files] + ["refused_rle8.bmp"]), f"records {sorted(records)}")
+    require("decode_error" in records["refused_rle8.bmp"].get("error", ""), "the RLE8 BMP was not refused")
     worst = max(check(n, records[n]["detections"]) for n, _ in files)
     # The HTTP answers above cover every exported slot, so this holds
     # whichever slot the CLI's batching put a file in.
@@ -2390,6 +2493,7 @@ class Load:
     def __init__(self, url: str, clients: int, root: str, limit_s: float = 300.0):
         self.stop_file = os.path.join(root, f"stop-load-{time.monotonic_ns()}")
         paths = [str(JPEG_FIXTURES / n) for n, _ in served_files()]
+        self.t0 = time.monotonic()
         self.proc = subprocess.Popen(
             [sys.executable, "-c", STOPPABLE_CLIENT, url, str(clients), self.stop_file, str(limit_s),
              *paths], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -2738,9 +2842,18 @@ def fleet_cli(root: str, export_dir: str, served: dict, device, kind: str, smi: 
               + ", ".join(f"{rid} {gib(v)}" for rid, v in peaks.items()) + f"; {kind}, {smi}")
         require(len(peaks) == 2 and (device.type != "cuda" or all(peaks.values())), f"peaks {peaks}")
 
-        # SIGKILL replica-0 under 32 clients.
+        # SIGKILL replica-0 under 32 clients, at an instant when it holds
+        # requests: the router scales a replica's weight by the fleet's best
+        # windowed p99 over its own, so a replica that drew a slow request
+        # can take a small share and hold none at a given instant.
         load = Load(f"{fleet.url}/detect", 32, root)
         time.sleep(2.0)
+        r0_url = f"http://127.0.0.1:{spawned['replica-0']['port']}/healthz"
+        deadline = time.monotonic() + 60.0
+        while (inflight := json.loads(get(r0_url)[1])["load"]["inflight"]) < 2:
+            require(time.monotonic() < deadline, "replica-0 held fewer than 2 requests at every instant of "
+                                                 "60 s under 32 client threads")
+            time.sleep(0.02)
         t_kill = time.monotonic()
         os.kill(spawned["replica-0"]["pid"], signal.SIGKILL)
         time.sleep(3.0)
@@ -2748,8 +2861,9 @@ def fleet_cli(root: str, export_dir: str, served: dict, device, kind: str, smi: 
         codes = Counter(r[1][0] for r in results)
         killed_worst = max(slot_gap(want, n, r[1]["detections"]) for n, r, _, _ in results if r[0] == 200)
         redispatches = fleet.status()["redispatches"]
-        print(f"(b) replica-0 SIGKILLed 2.0 s into 32 client threads: {len(results)} requests in {wall:.1f} s, "
-              f"statuses {dict(codes)}, fleet re-dispatches {redispatches}; largest gap {killed_worst}")
+        print(f"(b) replica-0 SIGKILLed {t_kill - load.t0:.1f} s into 32 client threads, with {inflight} requests "
+              f"in flight on it: {len(results)} requests in {wall:.1f} s, statuses {dict(codes)}, fleet "
+              f"re-dispatches {redispatches}; largest gap {killed_worst}")
         require(set(codes) == {200} and killed_worst == 0, f"a request failed across the kill: {dict(codes)}")
         require(redispatches >= 1, "no request was re-dispatched across the kill")
         t_back = fleet.wait("replica-0 readmitted with its weight", lambda: (

@@ -63,7 +63,8 @@ def test_sources_import_nothing_forbidden():
             "evaluate/__main__.py", "evaluate/export.py", "convert_model.py",
             "serve/__main__.py", "obs/__init__.py", "obs/trace.py", "obs/watchdog.py",
             "obs/events.py", "obs/telemetry.py", "obs/slo.py", "obs/numerics.py",
-            "obs/vocabulary.py", "utils/locks.py"} <= scanned
+            "obs/vocabulary.py", "utils/locks.py", "data/shm_pipeline.py",
+            "evaluate/_native.py"} <= scanned
 
 
 def test_serving_and_training_modules_load_without_jax():
@@ -77,6 +78,8 @@ def test_serving_and_training_modules_load_without_jax():
         "import batchai_retinanet_horovod_coco_tpu_torch.ops.cuda.matching\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.ops.cuda.focal\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.data\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.data.shm_pipeline\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.evaluate._native\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.train.__main__\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.evaluate.__main__\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.evaluate.export\n"

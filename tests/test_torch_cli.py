@@ -22,6 +22,7 @@ import torch
 
 from batchai_retinanet_horovod_coco_tpu.ops import anchors as j_anchors
 from batchai_retinanet_horovod_coco_tpu.utils import cli as j_cli
+from batchai_retinanet_horovod_coco_tpu_torch.data import shm_pipeline as t_shm
 from batchai_retinanet_horovod_coco_tpu_torch.evaluate import __main__ as t_evaluate
 from batchai_retinanet_horovod_coco_tpu_torch.models import convert
 from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import RetinaNetConfig, build_retinanet
@@ -81,12 +82,32 @@ def test_presets():
 @pytest.mark.parametrize("flags", [
     ["--num-devices", "8"], ["--spatial-shards", "2"], ["--quantized-allreduce"],
     ["--shard-weight-update"], ["--distributed-auto"], ["--coordinator-address", "h:1"],
-    ["--num-processes", "2"], ["--process-id", "0"], ["--data-worker-procs", "4"],
+    ["--num-processes", "2"], ["--process-id", "0"], ["--data-worker-procs", "1"],
     ["--data-worker-timeout", "30"], ["--tensorboard"], ["--debug-nans"],
     ["--pretrained-backbone", "r50.pth"], ["--stem", "conv"], ["--pack-width"],
     ["--backbone", "mobilenet"],
 ], ids=lambda f: f[0])
-def test_unported_flags_are_refused(flags):
+def test_unported_flags_are_refused(flags, tmp_path, monkeypatch):
+    """Each flag whose setting needs what is not ported is refused, naming
+    it.  The decode-worker flags, refused before, now run a 2-step
+    synthetic run on the CPU: ``--data-worker-procs`` through the
+    shared-memory worker processes, ``--data-worker-timeout`` with them
+    off."""
+    if flags[0] in ("--data-worker-procs", "--data-worker-timeout"):
+        built, real = [], t_shm.build_shm_pipeline
+
+        def spy(*args, **kwargs):
+            built.append(real(*args, **kwargs))
+            return built[-1]
+
+        monkeypatch.setattr(t_shm, "build_shm_pipeline", spy)
+        out = t_train.main(synthetic_flags(tmp_path) + flags + ["--steps", "2"])
+        assert out["final_step"] == 2.0
+        assert t_cli.make_pipeline_worker_kwargs(t_train.parse_args(["synthetic", *flags]))[
+            "num_worker_procs" if flags[0] == "--data-worker-procs" else "worker_timeout"] == float(flags[1])
+        assert len(built) == (flags[0] == "--data-worker-procs")
+        assert all(p.exitcode is not None for pipe in built for p in pipe.processes)
+        return
     with pytest.raises(SystemExit, match="ROADMAP.md") as info:
         t_train.main(["synthetic", "--device", "cpu", *flags])
     assert flags[0] in str(info.value)

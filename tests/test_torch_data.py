@@ -71,14 +71,10 @@ def assert_warp_close(got: np.ndarray, want: np.ndarray) -> None:
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
 def test_fixture_decodes_to_its_digest(name):
-    """Each committed fixture decodes to the pixels PIL gave when it was
-    written (its sha256 in digests.json) and to PIL's decode now, bit for
-    bit; the progressive one raises, naming the file and the marker."""
+    """Each committed fixture, the progressive one included, decodes to the
+    pixels PIL gave when it was written (its sha256 in digests.json) and to
+    PIL's decode now, bit for bit."""
     path = FIXTURES / name
-    if DIGESTS[name]["progressive"]:
-        with pytest.raises(ValueError, match=rf"{name}: progressive JPEG \(SOF2\)"):
-            image_io.read_rgb(path)
-        return
     got = image_io.read_rgb(path)
     assert list(got.shape) == DIGESTS[name]["shape"]
     assert hashlib.sha256(got.tobytes()).hexdigest() == DIGESTS[name]["sha256"]
@@ -173,6 +169,14 @@ def png_bytes(depth: int, interlace: int) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
+# The case the codec once refused and now decodes, to PIL's pixels.
+NOW_DECODED = ("16-bit PNG",)
+# The interlaced case's image data is one row of 4 pixels as a sequential
+# file lays it out, too short for Adam7's passes: PIL refuses it as
+# truncated, and so does the codec, which reads interlacing now.
+NOW_TRUNCATED = {"interlaced": "truncated PNG image data"}
+
+
 @pytest.mark.parametrize("data,message", [
     (png_bytes(16, 0), "16-bit PNG"),
     (png_bytes(8, 1), "interlaced"),
@@ -181,18 +185,33 @@ def png_bytes(depth: int, interlace: int) -> bytes:
     (b"\xff\xd8\xff\xc9\x00\x0b\x08\x00\x10\x00\x10\x01\x01\x11\x00", r"SOF9"),
 ])
 def test_unsupported_files_raise(data, message, tmp_path):
+    """GIF, truncated PNGs and an arithmetic-coded JPEG raise, naming the
+    file; the 16-bit PNG, refused before the codec read it, now decodes to
+    PIL's pixels.  Interlaced PNGs that PIL decodes are in
+    ``tests/test_torch_formats.py``."""
     path = tmp_path / "bad.img"
     path.write_bytes(data)
+    if message in NOW_DECODED:
+        assert np.array_equal(image_io.read_rgb(path), pil_rgb(data))
+        assert image_io.read_size(path) == Image.open(path).size
+        return
+    if message in NOW_TRUNCATED:
+        with pytest.raises(OSError, match="truncated"):
+            pil_rgb(data)
+        message = NOW_TRUNCATED[message]
     with pytest.raises(ValueError, match=message) as info:
         image_io.read_rgb(path)
     assert str(path) in str(info.value)
 
 
 def test_cmyk_jpeg_raises(tmp_path):
+    """A CMYK JPEG, refused before, decodes as PIL does: inverted (Adobe)
+    CMYK through PIL's cmyk2rgb."""
     path = tmp_path / "cmyk.jpg"
     Image.new("CMYK", (16, 16), (10, 20, 30, 40)).save(path, "JPEG")
-    with pytest.raises(ValueError, match="CMYK"):
-        image_io.read_rgb(path)
+    got = image_io.read_rgb(path)
+    assert np.array_equal(got, pil_rgb(path.read_bytes()))
+    assert got[0, 0].tolist() == [207, 198, 190]
 
 
 # ----------------------------------------------------------- transforms
@@ -381,9 +400,23 @@ def test_pipeline_raises_a_decode_error(tmp_path, jax_dataset):
 
 
 def test_worker_processes_are_not_ported(jax_dataset):
+    """The multiprocess producer, refused before, builds and gives the
+    thread path's batches (``tests/test_torch_shm_pipeline.py`` holds it to
+    its contract)."""
     root, _ = jax_dataset
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_pipeline.build_pipeline(port_dataset(root), t_pipeline.PipelineConfig(num_worker_procs=2))
+    t_ds = port_dataset(root)
+    cfg = t_pipeline.PipelineConfig(**COMMON)
+    want = t_pipeline.build_pipeline(t_ds, cfg)
+    got = t_pipeline.build_pipeline(t_ds, t_pipeline.PipelineConfig(**{**COMMON, "num_worker_procs": 1}))
+    try:
+        for _ in range(3):
+            a, b = next(got), next(want)
+            for field in ("images", *BATCH_FIELDS):
+                np.testing.assert_array_equal(getattr(a, field), getattr(b, field), err_msg=field)
+    finally:
+        got.close()
+        want.close()
+    assert all(p.exitcode is not None for p in got.processes)
 
 
 def test_synthetic_writer_equals_jax(tmp_path, monkeypatch):

@@ -22,6 +22,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.nn.functional as F
 
 from batchai_retinanet_horovod_coco_tpu.data import coco as j_coco
 from batchai_retinanet_horovod_coco_tpu.data import pipeline as j_pipeline
@@ -118,6 +119,25 @@ def test_voc_eval_equals_jax(weighted):
 # ---------------------------------------------------------------------------
 
 
+def interpolate_into_hw(image: np.ndarray) -> tuple[np.ndarray, float]:
+    """``t_pipeline.resize_for_bucket(image, HW, *HW)`` with the bilinear
+    resize done by ``F.interpolate``, so the set keeps the pixels it was
+    built with.  The pipeline's own resize (``image_io.resize_bilinear``)
+    differs from it by one level in a few samples; on this set that moves
+    two detections of image 6 whose scores lie 4.5e-8 apart into the other
+    order, while the frameworks' scores differ by up to 1.2e-7.  The eval
+    driver, not the resize, is under test here; the resize is held against
+    JAX in tests/test_torch_data.py."""
+    h, w = image.shape[:2]
+    scale = min(t_pipeline.resize_scale(h, w, HW[0], HW[1]), HW[0] / h, HW[1] / w)
+    nh, nw = min(HW[0], int(round(h * scale))), min(HW[1], int(round(w * scale)))
+    if (nh, nw) == (h, w):
+        return image, scale
+    x = torch.from_numpy(image).permute(2, 0, 1)[None].float()
+    y = F.interpolate(x, size=(nh, nw), mode="bilinear", align_corners=False, antialias=False)
+    return np.ascontiguousarray(y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()), scale
+
+
 @pytest.fixture(scope="module")
 def val_set(tmp_path_factory):
     """A COCO-format validation set of 6 seeded uint8 images (one without
@@ -143,7 +163,7 @@ def val_set(tmp_path_factory):
     dataset = t_coco.CocoDataset(str(path), keep_empty=True)
     examples = []
     for rec in dataset.records:
-        image, scale = t_pipeline.resize_for_bucket(pixels[rec.image_id], HW, HW[0], HW[1])
+        image, scale = interpolate_into_hw(pixels[rec.image_id])
         examples.append((rec.image_id, (image, rec.boxes * scale, rec.labels, scale)))
     batches = []
     for i in range(0, len(examples), 4):

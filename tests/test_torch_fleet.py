@@ -537,13 +537,14 @@ def test_fleet_cli_redispatches_a_killed_stub_replica(tmp_path):
     stderr = open(tmp_path / "fleet.err", "w+")
     proc = subprocess.Popen(FLEET_CMD, cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=stderr,
                             text=True)
-    pids, url, obs = {}, None, None
+    pids, ports, url, obs = {}, {}, None, None
     try:
         for line in proc.stdout:
             if line.startswith("{"):
                 ev = json.loads(line)
                 if ev["event"] == "fleet_replica_spawned":
                     pids[ev["replica_id"]] = ev["pid"]
+                    ports[ev["replica_id"]] = ev["port"]
             elif line.startswith("fleet telemetry on"):
                 obs = line.split()[3]
             elif line.startswith("fleet serving on"):
@@ -562,7 +563,13 @@ def test_fleet_cli_redispatches_a_killed_stub_replica(tmp_path):
         load = [threading.Thread(target=client, args=(15,)) for _ in range(4)]
         for t in load:
             t.start()
-        time.sleep(0.2)
+        # Kill replica-0 while it holds a request, so the kill tests the
+        # re-dispatch whatever share of the load the router gave it.
+        deadline = time.time() + 20
+        while json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{ports['replica-0']}/healthz", timeout=10).read())["load"]["inflight"] < 1:
+            assert time.time() < deadline and any(t.is_alive() for t in load), "replica-0 held no request"
+            time.sleep(0.01)
         os.kill(pids["replica-0"], signal.SIGKILL)
         for t in load:
             t.join(60)

@@ -13,7 +13,9 @@ command line's flags (``--platform`` refused, the stub engine and replica
 flags parsed as the JAX command line parses them).
 """
 
+import hashlib
 import json
+import struct
 import threading
 from pathlib import Path
 import urllib.error
@@ -187,17 +189,34 @@ def test_pad_template_matches_jax_pipeline():
     assert batch.valid.tolist() == [True, False]
 
 
+def bmp_bytes(image: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 RGB image as a 24-bit bottom-up BMP."""
+    h, w = image.shape[:2]
+    stride = (3 * w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : 3 * w] = image[::-1, :, ::-1].reshape(h, 3 * w)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 0, 0, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54) + info + rows.tobytes()
+
+
 def test_encoded_payloads_are_decoded_by_the_codec(model):
-    """PNG bytes serve as their decoded pixels; a progressive JPEG, which
-    the codec refuses, is that request's ``decode_error``."""
+    """PNG, progressive JPEG and BMP bytes serve as their decoded pixels
+    (the progressive file's are PIL's, its digest); bytes of a format the
+    codec refuses are that request's ``decode_error``."""
     engine = make_engine(model)
     image = make_images(seed=5)[0]
-    progressive = (REPO_ROOT / "tests" / "fixtures" / "jpeg" / "progressive.jpg").read_bytes()
+    fixtures = REPO_ROOT / "tests" / "fixtures" / "jpeg"
+    progressive = (fixtures / "progressive.jpg").read_bytes()
+    pixels = image_io.decode(progressive)
+    digest = json.loads((fixtures / "digests.json").read_text())["progressive.jpg"]["sha256"]
+    assert hashlib.sha256(pixels.tobytes()).hexdigest() == digest
     with DetectionServer(engine, ServeConfig(max_delay_ms=10, preprocess_workers=1)) as server:
         assert server.detect(image_io.encode_png(image), timeout_s=60) == expected(model, engine, image)
+        assert server.detect(progressive, timeout_s=60) == expected(model, engine, pixels)
+        assert server.detect(bmp_bytes(image), timeout_s=60) == expected(model, engine, image)
         with pytest.raises(RequestRejected) as info:
-            server.detect(progressive, timeout_s=60)
-        assert info.value.reason == "decode_error" and "progressive" in str(info.value)
+            server.detect(b"GIF89a" + bytes(32), timeout_s=60)
+        assert info.value.reason == "decode_error" and "not a JPEG" in str(info.value)
 
 
 class BlockingPortEngine(DetectEngine):
