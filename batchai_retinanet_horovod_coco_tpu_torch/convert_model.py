@@ -13,8 +13,8 @@ weights inside, and runs without the model code (``evaluate/export.py``).
 The flags are the root file's, with their names and defaults, except that
 ``--platform`` / ``--platforms`` become ``--device {cuda,cpu}`` (default
 ``cuda``, which raises without a card): the programs are traced on the
-device they will serve on.  Backbones other than the ResNets and stems
-other than the default are refused, naming ``ROADMAP.md``.
+device they will serve on.  Every backbone of the JAX package converts,
+with every ``--stem`` (the same parameters and math).
 """
 
 from __future__ import annotations
@@ -23,12 +23,8 @@ import argparse
 import os
 import sys
 
-from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import (
-    BACKBONE_STAGES,
-    BACKBONES,
-    DEFAULT_STEM,
-    STEMS,
-)
+from batchai_retinanet_horovod_coco_tpu_torch.models.resnet import STEMS
+from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import BACKBONES, DEFAULT_STEM
 from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import add_anchor_flags
 
 # The JAX command line's flags that this one replaces with --device.
@@ -48,8 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backbone", default="resnet50", choices=BACKBONES)
     p.add_argument("--norm", default="gn", choices=["gn", "bn", "frozen_bn"])
     p.add_argument("--stem", default=DEFAULT_STEM, choices=STEMS,
-                   help="the JAX package's stem formulation; the port computes "
-                        "the default's math with a plain conv")
+                   help="stem formulation (param layout is identical; "
+                        "either loads any snapshot)")
     p.add_argument("--f32", action="store_true",
                    help="compute in float32 (default bfloat16)")
     p.add_argument("--batch-size", type=int, default=None,
@@ -78,27 +74,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(argv: list[str], args=None) -> None:
-    """Raise ``SystemExit`` naming every flag whose setting needs what the
-    port does not have.  ``argv`` is scanned before parsing, so a refused
+def refuse_unported(argv: list[str]) -> None:
+    """Raise ``SystemExit`` naming every flag of the JAX command line that
+    this one replaces.  ``argv`` is scanned before parsing, so a refused
     flag is named even where the parser would stop at another error."""
     refused = [a.split("=", 1)[0] for a in argv if a.split("=", 1)[0] in REFUSED_FLAGS]
     if refused:
         raise SystemExit(
             f"{', '.join(refused)}: not ported to the PyTorch package (it exports "
             "for the device it runs on: pass --device cuda or --device cpu); see ROADMAP.md"
-        )
-    if args is None:
-        return
-    unported = {
-        f"--backbone {args.backbone}": args.backbone not in BACKBONE_STAGES,
-        f"--stem {args.stem}": args.stem != DEFAULT_STEM,
-    }
-    refused = [flag for flag, hit in unported.items() if hit]
-    if refused:
-        raise SystemExit(
-            f"{', '.join(refused)}: not ported to the PyTorch package yet (it has the "
-            "ResNet backbones and the default stem); see ROADMAP.md"
         )
 
 
@@ -138,7 +122,6 @@ def main(argv: list[str] | None = None) -> str:
     argv = list(sys.argv[1:] if argv is None else argv)
     refuse_unported(argv)
     args = build_parser().parse_args(argv)
-    refuse_unported(argv, args)
 
     import torch
 
@@ -167,6 +150,7 @@ def main(argv: list[str] | None = None) -> str:
         num_classes=args.num_classes,
         backbone=args.backbone,
         norm_kind=args.norm,
+        stem=args.stem,
         anchor=anchor_config,
         dtype=torch.float32 if args.f32 else torch.bfloat16,
     ))

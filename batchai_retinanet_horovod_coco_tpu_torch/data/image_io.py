@@ -10,12 +10,11 @@ lock and a thread pool of decoders scales with its threads.  The JPEG
 pixels are libjpeg's (islow IDCT, fancy upsampling, its colour tables),
 which PIL decodes with; a PNG's zlib stream is inflated here with the
 standard library and unfiltered in the library.  BMP (uncompressed 1-, 4-
-and 8-bit palette, 16-, 24- and 32-bit, and the bit-field layouts PIL
-reads) is unpacked here with numpy.  A file the codec does not decode
-(arithmetic-coded, 12-bit, lossless or hierarchical JPEG, a progressive
-JPEG that libjpeg would smooth, RLE-compressed BMP, GIF, TIFF, WebP or any
-other format) raises ``ValueError`` naming the file; nothing falls back to
-another decoder.
+and 8-bit palette, 16-, 24- and 32-bit, the bit-field layouts PIL reads,
+and RLE8 and RLE4 as PIL's ``BmpRleDecoder`` expands them) is unpacked
+here.  A file the codec does not decode (arithmetic-coded, 12-bit,
+lossless or hierarchical JPEG, GIF, TIFF, WebP or any other format) raises
+``ValueError`` naming the file; nothing falls back to another decoder.
 """
 
 from __future__ import annotations
@@ -192,6 +191,74 @@ def _bmp_channels(pixels: np.ndarray, bits: int, masks) -> np.ndarray:
     return np.stack([px[..., ((m & -m).bit_length() - 1) // 8] for m in masks[:3]], -1)
 
 
+def _bmp_rle_indices(data: bytes, pos: int, width: int, height: int, rle4: bool,
+                     name: str) -> np.ndarray:
+    """The (height, width) palette indices of an RLE8 or RLE4 stream that
+    starts at ``data[pos]``, top row first, as PIL's ``BmpRleDecoder``
+    expands them: an encoded run is cut at the row's end (the row's count
+    is not reset until an end of line); an absolute run is not cut, and in
+    RLE4 it reads count // 2 bytes, two nibbles each, then skips to an even
+    file offset; end of line pads the row with index 0; a delta reads four
+    bytes after the escape and skips (right + up * width) pixels of the last
+    two, at index 0; a stream that ends before the image is full raises."""
+    out = bytearray()
+    x, end, dest = 0, len(data), width * height
+    while len(out) < dest:
+        if pos + 2 > end:
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:  # an encoded run
+            count = min(count, max(0, width - x))
+            if rle4:
+                out += (bytes((byte >> 4, byte & 15)) * ((count + 1) // 2))[:count]
+            else:
+                out += bytes((byte,)) * count
+            x += count
+        elif byte == 0:  # end of line
+            out += bytes(-len(out) % width)
+            x = 0
+        elif byte == 1:  # end of bitmap
+            break
+        elif byte == 2:  # delta
+            if pos + 2 > end:
+                break
+            if pos + 4 > end:
+                raise ValueError(f"{name}: truncated delta in the RLE-compressed BMP")
+            right, up = data[pos + 2], data[pos + 3]
+            pos += 4
+            out += bytes(right + up * width)
+            x = len(out) % width
+        else:  # an absolute run
+            take = byte // 2 if rle4 else byte
+            chunk = data[pos:pos + take]
+            pos += take
+            if rle4:
+                nibbles = np.frombuffer(chunk, np.uint8)
+                out += np.stack([nibbles >> 4, nibbles & 15], 1).tobytes()
+            else:
+                out += chunk
+            if len(chunk) < take:
+                break
+            x += byte
+            pos += pos % 2  # to an even offset in the file
+    if len(out) < dest:
+        raise ValueError(f"{name}: not enough image data in the RLE-compressed BMP")
+    return np.frombuffer(bytes(out[:dest]), np.uint8).reshape(height, width)
+
+
+def _bmp_palette(data: bytes, h: dict, colors: int) -> np.ndarray:
+    """The (256, 3) RGB colours of a palette file's indices; an index past
+    the table is black, as PIL has it."""
+    entry = h["entry"]
+    count = min(colors, 256, (len(data) - 14 - h["size"]) // entry)
+    table = np.frombuffer(data, np.uint8, count * entry, 14 + h["size"])
+    palette = np.zeros((256, 3), np.uint8)
+    got = table.reshape(count, entry)[:, 2::-1]
+    palette[: len(got)] = got
+    return palette
+
+
 def _decode_bmp(data: bytes, name: str) -> np.ndarray:
     h = _bmp_header(data, name)
     width, height, bits, compression = h["width"], h["height"], h["bits"], h["compression"]
@@ -199,8 +266,9 @@ def _decode_bmp(data: bytes, name: str) -> np.ndarray:
         raise ValueError(f"{name}: BMP too large ({width} x {height})")
     if bits not in (1, 4, 8, 16, 24, 32):
         raise ValueError(f"{name}: BMP pixel depth {bits} is not supported")
-    if compression in _BMP_RLE:
-        raise ValueError(f"{name}: {_BMP_RLE[compression]}-compressed BMP is not supported")
+    if compression in _BMP_RLE and bits > 8:
+        raise ValueError(f"{name}: {_BMP_RLE[compression]}-compressed BMP of {bits}-bit pixels "
+                         "is not supported")
     masks = h["masks"]
     if compression == 3:
         layout_ok = (bits == 32 and (masks in _BMP_MASKS_32 or not any(masks))) or (
@@ -208,12 +276,19 @@ def _decode_bmp(data: bytes, name: str) -> np.ndarray:
             bits == 16 and masks[:3] in (_BMP_565, _BMP_555))
         if not layout_ok:
             raise ValueError(f"{name}: BMP bit-field layout {tuple(hex(m) for m in masks)} is not supported")
-    elif compression != 0:
+    elif compression != 0 and compression not in _BMP_RLE:
         raise ValueError(f"{name}: BMP compression {compression} is not supported")
     colors = h["colors"] or 1 << bits
     offset = h["offset"]
     if offset == 14 + h["size"] and bits <= 8:
         offset += 4 * colors  # as PIL: an offset that points at the palette skips it
+    if bits <= 8 and not 0 < colors <= 65536:
+        raise ValueError(f"{name}: BMP palette of {colors} colours is not supported")
+    if compression in _BMP_RLE:
+        index = _bmp_rle_indices(data, offset, width, height, compression == 2, name)
+        if not h["top_down"]:
+            index = index[::-1]
+        return _bmp_palette(data, h, colors)[index]
     stride = ((width * bits + 31) >> 3) & ~3
     end = offset + stride * height
     if len(data) < end:
@@ -223,14 +298,7 @@ def _decode_bmp(data: bytes, name: str) -> np.ndarray:
         rows = rows[::-1]
     if bits > 8:
         return _bmp_channels(rows[:, : width * bits // 8], bits, masks)
-    if not 0 < colors <= 65536:
-        raise ValueError(f"{name}: BMP palette of {colors} colours is not supported")
-    entry = h["entry"]
-    count = min(colors, 256, (len(data) - 14 - h["size"]) // entry)
-    table = np.frombuffer(data, np.uint8, count * entry, 14 + h["size"])
-    palette = np.zeros((256, 3), np.uint8)
-    got = table.reshape(count, entry)[:, 2::-1]
-    palette[: len(got)] = got
+    palette = _bmp_palette(data, h, colors)
     if bits == 8:
         index = rows[:, :width]
     else:

@@ -12,7 +12,8 @@ named after the flax scopes, so the mapping is mechanical:
     batch_stats/<scope...>/var              → <scope...>.running_var
 
 The conv transpose is the inverse of the JAX package's
-``models/import_weights.py::_conv``.  Every flax leaf is used exactly once
+``models/import_weights.py::_conv``; a depthwise kernel (k, k, 1, C)
+becomes torch's grouped weight (C, 1, k, k) by the same transpose.  Every flax leaf is used exactly once
 and every torch parameter and buffer is set exactly once: a leaf with no
 torch counterpart, a torch tensor with no leaf, or a shape that differs
 raises.

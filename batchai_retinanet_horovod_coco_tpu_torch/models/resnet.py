@@ -12,8 +12,17 @@ padding and a 3x3/2 max pool with (1, 1) padding, and a pluggable norm:
 - ``"frozen_bn"``: BatchNorm over the running statistics in either mode.
 
 The JAX package's ``space_to_depth`` stems and ``pack_width`` stage are
-exact TPU reformulations over the same ``(7, 7, C, 64)`` stem parameter,
-so the one plain stem here serves every stem setting of a checkpoint.
+exact TPU reformulations of the plain stem and stage 2 over the same
+parameter tree (its ``models/resnet.py``, ``StemConv`` and the
+width-packing block), so the one plain stem and stage here compute every
+``stem`` and ``pack_width`` setting of a checkpoint.  The shapes the JAX
+model refuses for a setting (H or W not divisible by the fold, an odd
+stage-2 width when packed) raise the same ``ValueError`` here, so a command
+line behaves the same in both packages.
+
+``Conv2d``, the norms, ``NormFactory`` and :func:`max_pool` are shared by
+the other backbones (``mobilenet.py``, ``vgg.py``, ``densenet.py``), as in
+the JAX package.
 
 Parameters stay f32; activations follow ``dtype`` (bf16 by default): each
 conv casts its input and weights to ``dtype``, each norm computes in f32
@@ -32,12 +41,25 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def same_pads(h: int, w: int, kernel_size: int, stride: int) -> tuple[int, int, int, int]:
+    """XLA's SAME padding of an (h, w) input as (left, right, top, bottom)
+    for ``F.pad``: ceil(n / stride) outputs, the odd pixel after (so a
+    stride-2 3x3 window on an even size pads (0, 1))."""
+    pads = []
+    for n in (w, h):
+        total = max((-(-n // stride) - 1) * stride + kernel_size - n, 0)
+        pads += [total // 2, total - total // 2]
+    return tuple(pads)
+
+
 class Conv2d(nn.Module):
     """Conv with f32 parameters computing in ``dtype``.
 
     ``padding`` is ((top, bottom), (left, right)), or ``"same"`` for XLA's
     SAME rule (for stride 2 on an even size that pads (0, 1), where torch's
-    symmetric ``padding=1`` would pad (1, 1)).
+    symmetric ``padding=1`` would pad (1, 1)).  ``groups`` is flax's
+    ``feature_group_count``: ``groups == in_channels`` is a depthwise conv,
+    whose flax kernel (k, k, 1, C) is this weight (C, 1, k, k).
     """
 
     def __init__(
@@ -49,14 +71,16 @@ class Conv2d(nn.Module):
         padding: tuple[tuple[int, int], tuple[int, int]] | str = ((0, 0), (0, 0)),
         bias: bool = True,
         dtype: torch.dtype = torch.bfloat16,
+        groups: int = 1,
     ):
         super().__init__()
         self.kernel_size = kernel_size
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
+        self.groups = groups
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kernel_size, kernel_size)
+            torch.empty(out_channels, in_channels // groups, kernel_size, kernel_size)
         )
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
@@ -65,11 +89,7 @@ class Conv2d(nn.Module):
         if self.padding != "same":
             (top, bottom), (left, right) = self.padding
             return left, right, top, bottom
-        pads = []
-        for n in (w, h):
-            total = max((-(-n // self.stride) - 1) * self.stride + self.kernel_size - n, 0)
-            pads += [total // 2, total - total // 2]
-        return tuple(pads)
+        return same_pads(h, w, self.kernel_size, self.stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         left, right, top, bottom = self._pads(x.shape[-2], x.shape[-1])
@@ -80,7 +100,18 @@ class Conv2d(nn.Module):
             x = F.pad(x, (left, right, top, bottom))
             pad = (0, 0)
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x, self.weight.to(self.dtype), bias, self.stride, pad)
+        return F.conv2d(x, self.weight.to(self.dtype), bias, self.stride, pad, 1, self.groups)
+
+
+def max_pool(x: torch.Tensor, kernel_size: int, stride: int, padding: str = "valid") -> torch.Tensor:
+    """flax's ``nn.max_pool`` over NCHW ``x``: ``"valid"`` (no padding,
+    floor(n / stride) windows) or ``"same"`` (XLA's SAME rule, padded with
+    -inf so padding never wins the max)."""
+    if padding == "same":
+        x = F.pad(x, same_pads(x.shape[-2], x.shape[-1], kernel_size, stride), value=float("-inf"))
+    elif padding != "valid":
+        raise ValueError(f"unknown pooling padding: {padding!r}")
+    return F.max_pool2d(x, kernel_size, stride)
 
 
 def symmetric(k: int) -> tuple[tuple[int, int], tuple[int, int]]:
@@ -190,18 +221,33 @@ class BottleneckBlock(nn.Module):
         return F.relu(y + residual)
 
 
+# The JAX package's stem formulations (one parameter layout, one math).
+STEMS = ("conv", "space_to_depth", "space_to_depth4")
+
+
 class ResNet(nn.Module):
-    """ResNet exposing {"c3", "c4", "c5"} (strides 8/16/32) in NCHW."""
+    """ResNet exposing {"c3", "c4", "c5"} (strides 8/16/32) in NCHW.
+
+    ``stem`` and ``pack_width`` name the JAX package's formulations; each
+    is computed here with the plain stem and stage 2, after the JAX model's
+    shape checks."""
 
     def __init__(
         self,
         stage_sizes: Sequence[int],
         norm_kind: str = "gn",
         dtype: torch.dtype = torch.bfloat16,
+        stem: str = "conv",
+        pack_width: bool = False,
     ):
         super().__init__()
+        if stem not in STEMS:
+            raise ValueError(f"unknown stem: {stem!r}")
         norm = NormFactory(norm_kind, dtype)
         self.dtype = dtype
+        self.stem = stem
+        self.pack_width = pack_width
+        self.widths = tuple(64 * 4 * 2**i for i in range(1, 4))  # C3, C4, C5
         self.stem_conv = Conv2d(3, 64, 7, 2, symmetric(7), False, dtype)
         self.stem_norm = norm(64)
         self.stage_names: list[list[str]] = []
@@ -223,9 +269,22 @@ class ResNet(nn.Module):
             filters *= 2
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        if self.stem != "conv":
+            block = 4 if self.stem == "space_to_depth4" else 2
+            h, w = x.shape[-2:]
+            if h % block or w % block:
+                raise ValueError(
+                    f"space_to_depth({block}) stem needs H, W divisible by "
+                    f"{block}; got {(h, w)}"
+                )
         x = F.relu(self.stem_norm(self.stem_conv(x.to(self.dtype))))
         # -inf padding: padding never wins the max.
         x = F.max_pool2d(x, 3, 2, 1)
+        if self.pack_width and x.shape[-1] % 2:
+            raise ValueError(
+                f"pack_width needs an even stage2 width; got "
+                f"{x.shape[-1]} (make W divisible by 8)"
+            )
         features: dict[str, torch.Tensor] = {}
         for stage, names in enumerate(self.stage_names):
             for name in names:

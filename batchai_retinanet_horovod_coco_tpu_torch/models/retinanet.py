@@ -1,7 +1,10 @@
 """RetinaNet assembly: backbone → FPN → shared heads → concatenated outputs.
 
-The JAX package's ``models/retinanet.py`` for the ResNet backbones.  The
-public layout is the JAX one: images in (B, H, W, 3), outputs
+The JAX package's ``models/retinanet.py`` with its whole backbone registry
+(:func:`build_backbone`: the ResNets, MobileNetV1 at widths 1 and 0.5,
+VGG-16/19 and DenseNet-121/169/201), each module named ``backbone`` and
+producing C3-C5, whose widths the FPN takes.  The public layout is the JAX
+one: images in (B, H, W, 3), outputs
 ``{"cls_logits": (B, A, K), "box_deltas": (B, A, 4)}`` in f32, anchors in
 the order of ``ops.anchors.anchors_for_image_shape`` (level-major, then
 (y, x), then the 9 anchors of a location).  Inside, the modules run in
@@ -21,6 +24,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.models.heads import (
     BoxHead,
     ClassificationHead,
 )
+from batchai_retinanet_horovod_coco_tpu_torch.models import densenet, mobilenet, vgg
 from batchai_retinanet_horovod_coco_tpu_torch.models.resnet import (
     BatchNorm,
     Conv2d,
@@ -31,12 +35,19 @@ from batchai_retinanet_horovod_coco_tpu_torch.models.resnet import (
 from batchai_retinanet_horovod_coco_tpu_torch.ops.anchors import AnchorConfig
 from batchai_retinanet_horovod_coco_tpu_torch.utils.device import resolve_device
 
+DEFAULT_STEM = "space_to_depth"  # the JAX package's default; the same math as "conv"
+
 
 @dataclasses.dataclass(frozen=True)
 class RetinaNetConfig:
     num_classes: int = 80
     backbone: str = "resnet50"
     norm_kind: str = "gn"  # "gn" | "bn" | "frozen_bn"  (see models/resnet.py)
+    # The JAX package's ResNet stem formulation and width-packed stage 2:
+    # computed here by the plain stem and stage, with the JAX model's shape
+    # checks (models/resnet.py).  ResNet backbones only.
+    stem: str = DEFAULT_STEM
+    pack_width: bool = False
     fpn_channels: int = 256
     head_width: int = 256
     head_depth: int = 4
@@ -49,6 +60,7 @@ class RetinaNetConfig:
         return self.anchor.num_anchors_per_location
 
 
+# ResNet blocks per stage.
 BACKBONE_STAGES = {
     "resnet50": (3, 4, 6, 3),
     "resnet101": (3, 4, 23, 3),
@@ -57,28 +69,44 @@ BACKBONE_STAGES = {
     "resnet_test": (1, 1, 1, 1),
 }
 
-# The JAX package's backbone names; the command lines refuse those outside
-# BACKBONE_STAGES.
-BACKBONES = ("resnet50", "resnet101", "resnet152", "resnet_test", "mobilenet", "mobilenet050",
-             "vgg16", "vgg19", "densenet121", "densenet169", "densenet201")
-# The JAX package's stem formulations (one parameter layout); the port
-# computes the default's math with a plain conv and refuses the others.
-STEMS = ("conv", "space_to_depth", "space_to_depth4")
-DEFAULT_STEM = "space_to_depth"
+# The JAX package's backbone names, every one built here.
+BACKBONES = tuple(BACKBONE_STAGES) + (
+    "mobilenet", "mobilenet050", "vgg16", "vgg19", "densenet121", "densenet169", "densenet201",
+)
+
+
+def build_backbone(config: RetinaNetConfig) -> nn.Module:
+    """The backbone registry, as the JAX package's: a module producing
+    {"c3", "c4", "c5"} at strides 8/16/32 in NCHW, with their widths in
+    ``.widths``.  ``norm_kind`` applies where the architecture has norms
+    (not VGG); ``stem`` and ``pack_width`` are ResNet settings, and
+    ``pack_width`` raises the JAX package's ``ValueError`` on any other
+    backbone."""
+    name = config.backbone
+    stages = BACKBONE_STAGES.get(name)
+    if config.pack_width and stages is None:
+        raise ValueError(
+            f"pack_width is a ResNet-stage2 reformulation; backbone "
+            f"{name!r} does not support it"
+        )
+    if stages is not None:
+        return ResNet(stages, config.norm_kind, config.dtype, config.stem, config.pack_width)
+    if name in ("mobilenet", "mobilenet050"):
+        return mobilenet.MobileNetV1(0.5 if name == "mobilenet050" else 1.0, config.norm_kind, config.dtype)
+    if name in vgg.VGG_STAGES:
+        return vgg.VGG(vgg.VGG_STAGES[name], config.dtype)
+    if name in densenet.DENSENET_STAGES:
+        return densenet.DenseNet(densenet.DENSENET_STAGES[name], norm_kind=config.norm_kind,
+                                 dtype=config.dtype)
+    raise ValueError(f"unsupported backbone: {name!r}")
 
 
 class RetinaNet(nn.Module):
     def __init__(self, config: RetinaNetConfig):
         super().__init__()
-        stages = BACKBONE_STAGES.get(config.backbone)
-        if stages is None:
-            raise ValueError(
-                f"unsupported backbone {config.backbone!r}; this port has "
-                f"{sorted(BACKBONE_STAGES)}"
-            )
         self.config = config
-        self.backbone = ResNet(stages, config.norm_kind, config.dtype)
-        self.fpn = FPN((512, 1024, 2048), config.fpn_channels, config.dtype)
+        self.backbone = build_backbone(config)
+        self.fpn = FPN(self.backbone.widths, config.fpn_channels, config.dtype)
         self.cls_head = ClassificationHead(
             config.num_classes,
             config.anchors_per_location,
@@ -98,8 +126,9 @@ class RetinaNet(nn.Module):
 
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX package's initializers, drawn from ``generator``: lecun
-        normal for backbone and FPN convs, normal(0.01) for the head convs,
-        zero biases except the classification prior, unit norm scales."""
+        normal for backbone and FPN convs (a depthwise kernel's fan-in is
+        its k * k taps), normal(0.01) for the head convs, zero biases (VGG's
+        too) except the classification prior, unit norm scales."""
         heads = {id(m) for h in (self.cls_head, self.box_head) for m in h.modules()}
         with torch.no_grad():
             for module in self.modules():

@@ -30,10 +30,11 @@
 // A grey image is replicated into three channels, as convert("RGB") does.
 // Four components are read as PIL reads them, as inverted (Adobe) CMYK,
 // and converted with PIL's cmyk2rgb.  A progressive file whose scans leave
-// some of the first ten coefficients of a component incomplete, which
-// libjpeg would smooth (jdcoefct.c, do_block_smoothing), is refused, as are
-// lossless, hierarchical and arithmetic-coded files and 12-bit samples,
-// with a message naming what is refused.
+// some of the first ten coefficients of a component incomplete is
+// block-smoothed as libjpeg-turbo 3.1 smooths it (jdcoefct.c,
+// decompress_smooth_data; see smooth_component).  Lossless, hierarchical
+// and arithmetic-coded files and 12-bit samples are refused, with a message
+// naming what is refused.
 //
 // PNG: filter types 0-4, sequential or Adam7-interlaced, over 1-, 2-, 4-, 8-
 // and 16-bit grey, 8- and 16-bit grey+alpha, RGB and RGBA, and 1-, 2-, 4- and
@@ -639,7 +640,7 @@ struct Jpeg {
   // smoothing_ok) when every component has its DC and nonzero quantizers
   // at the ten positions the smoothing reads, and some component's first
   // nine AC coefficients are incomplete or missing after the last scan.
-  bool would_smooth() const {
+  bool smoothing_ok() const {
     static const int kQuantPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
     bool useful = false;
     for (int i = 0; i < ncomp; ++i) {
@@ -679,13 +680,148 @@ struct Jpeg {
       }
     }
     if (scans == 0) throw Error("JPEG has no scan (SOS)");
-    if (progressive && would_smooth()) {
-      throw Error(
-          "progressive JPEG whose scans leave coefficients incomplete (libjpeg block "
-          "smoothing) is not supported");
-    }
   }
 };
+
+// One estimated coefficient of block smoothing (jdcoefct.c): num over the
+// quantizer q times 256, rounded, its magnitude capped below 2^Al when the
+// coefficient is known to Al bits (Al > 0).
+inline int16_t smooth_estimate(int64_t num, int64_t q, int al) {
+  const bool negative = num < 0;
+  int pred = static_cast<int>(((q << 7) + (negative ? -num : num)) / (q << 8));
+  if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return static_cast<int16_t>(negative ? -pred : pred);
+}
+
+// libjpeg-turbo 3.1's block smoothing of one component (jdcoefct.c,
+// decompress_smooth_data), which PIL's decode runs on a progressive file
+// whose scans leave some of the first ten coefficients incomplete.  Each
+// block's first nine AC coefficients that are still zero and not known
+// exactly are estimated from the DC values of the 5x5 blocks around it;
+// when no AC scan reached the component at all (change_dc), the DC is
+// re-estimated too and AC03, AC12, AC21 and AC30 join.  The coefficient
+// states are those the last scan left (PIL decodes without buffered-image
+// mode).  Edge blocks see their nearest neighbours repeated, as the
+// library's sliding registers do; the rows beside a block are chosen by
+// the library's own test on the iMCU row, which near the bottom may read a
+// padding block row or repeat a row early.  Reads ``c.coef``, writes the
+// blocks the library would pass to the inverse DCT into ``out``.
+void smooth_component(const Component& c, int total_imcu_rows, std::vector<int16_t>& out) {
+  const int* bits = c.coef_bits;
+  const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 && bits[4] == -1 &&
+                         bits[5] == -1 && bits[6] == -1 && bits[7] == -1 && bits[8] == -1 &&
+                         bits[9] == -1;
+  const int64_t Q00 = c.quant[0], Q01 = c.quant[1], Q10 = c.quant[8], Q20 = c.quant[16],
+                Q11 = c.quant[9], Q02 = c.quant[2], Q03 = c.quant[3], Q12 = c.quant[10],
+                Q21 = c.quant[17], Q30 = c.quant[24];
+  const int height_in_blocks = (c.dsh + 7) / 8, width_in_blocks = (c.dsw + 7) / 8;
+  const int last_imcu = total_imcu_rows - 1, last_col = width_in_blocks - 1;
+  auto block = [&](int row, int col) { return &c.coef[(static_cast<size_t>(row) * c.bw + col) * 64]; };
+  for (int imcu = 0; imcu < total_imcu_rows; ++imcu) {
+    int block_rows = c.v;
+    if (imcu == last_imcu) {
+      block_rows = height_in_blocks % c.v;
+      if (block_rows == 0) block_rows = c.v;
+    }
+    const int image_block_rows = block_rows * total_imcu_rows;
+    for (int br = 0; br < block_rows; ++br) {
+      const int row = imcu * c.v + br;
+      const int image_block_row = imcu * block_rows + br;
+      const int prev = image_block_row > 0 ? row - 1 : row;
+      const int prev_prev = image_block_row > 1 ? row - 2 : prev;
+      const int next = image_block_row < image_block_rows - 1 ? row + 1 : row;
+      const int next_next = image_block_row < image_block_rows - 2 ? row + 2 : next;
+      const int rows[5] = {prev_prev, prev, row, next, next_next};
+      // dc[r][k]: the DC of row r at column col - 2 + k.
+      int dc[5][5];
+      for (int r = 0; r < 5; ++r) {
+        for (int k = 0; k < 5; ++k) dc[r][k] = block(rows[r], 0)[0];
+      }
+      for (int col = 0; col <= last_col; ++col) {
+        if (col == 0 && col < last_col) {
+          for (int r = 0; r < 5; ++r) dc[r][3] = dc[r][4] = block(rows[r], 1)[0];
+        }
+        if (col + 1 < last_col) {
+          for (int r = 0; r < 5; ++r) dc[r][4] = block(rows[r], col + 2)[0];
+        }
+        const int DC01 = dc[0][0], DC02 = dc[0][1], DC03 = dc[0][2], DC04 = dc[0][3], DC05 = dc[0][4];
+        const int DC06 = dc[1][0], DC07 = dc[1][1], DC08 = dc[1][2], DC09 = dc[1][3], DC10 = dc[1][4];
+        const int DC11 = dc[2][0], DC12 = dc[2][1], DC13 = dc[2][2], DC14 = dc[2][3], DC15 = dc[2][4];
+        const int DC16 = dc[3][0], DC17 = dc[3][1], DC18 = dc[3][2], DC19 = dc[3][3], DC20 = dc[3][4];
+        const int DC21 = dc[4][0], DC22 = dc[4][1], DC23 = dc[4][2], DC24 = dc[4][3], DC25 = dc[4][4];
+        int16_t* ws = &out[(static_cast<size_t>(row) * c.bw + col) * 64];
+        if (bits[1] != 0 && ws[1] == 0) {  // AC01
+          ws[1] = smooth_estimate(
+              Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 +
+                                  3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 -
+                                  3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 +
+                                  DC24 + DC25)
+                               : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+              Q01, bits[1]);
+        }
+        if (bits[2] != 0 && ws[8] == 0) {  // AC10
+          ws[8] = smooth_estimate(
+              Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                                  13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 -
+                                  38 * DC18 - 13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 +
+                                  3 * DC24 + DC25)
+                               : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+              Q10, bits[2]);
+        }
+        if (bits[3] != 0 && ws[16] == 0) {  // AC20
+          ws[16] = smooth_estimate(
+              Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 -
+                                  5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                               : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+              Q20, bits[3]);
+        }
+        if (bits[4] != 0 && ws[9] == 0) {  // AC11
+          ws[9] = smooth_estimate(
+              Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+                                  DC21 - DC25)
+                               : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                                  DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09)),
+              Q11, bits[4]);
+        }
+        if (bits[5] != 0 && ws[2] == 0) {  // AC02
+          ws[2] = smooth_estimate(
+              Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 +
+                                  7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                               : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+              Q02, bits[5]);
+        }
+        if (change_dc) {
+          if (bits[6] != 0 && ws[3] == 0) {  // AC03
+            ws[3] = smooth_estimate(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19),
+                                    Q03, bits[6]);
+          }
+          if (bits[7] != 0 && ws[10] == 0) {  // AC12
+            ws[10] = smooth_estimate(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19),
+                                     Q12, bits[7]);
+          }
+          if (bits[8] != 0 && ws[17] == 0) {  // AC21
+            ws[17] = smooth_estimate(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19),
+                                     Q21, bits[8]);
+          }
+          if (bits[9] != 0 && ws[24] == 0) {  // AC30
+            ws[24] = smooth_estimate(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19),
+                                     Q30, bits[9]);
+          }
+          ws[0] = smooth_estimate(
+              Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 +
+                     6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+                     152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 +
+                     6 * DC19 - 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                     2 * DC25),
+              Q00, 0);
+        }
+        for (int r = 0; r < 5; ++r) {
+          for (int k = 0; k < 4; ++k) dc[r][k] = dc[r][k + 1];
+        }
+      }
+    }
+  }
+}
 
 // jidctint.c (jpeg_idct_islow), 8-bit samples.
 const int kConstBits = 13;
@@ -913,16 +1049,23 @@ void jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, int width, int 
   j.read_scans();
 
   const int nc = j.ncomp;
+  const bool smooth = j.progressive && j.smoothing_ok();
   std::vector<uint8_t> planes[4];
   for (int i = 0; i < nc; ++i) {
     Component& c = j.comp[i];
+    std::vector<int16_t> smoothed;
+    if (smooth) {
+      smoothed = c.coef;
+      smooth_component(c, j.mcuy, smoothed);
+    }
+    const std::vector<int16_t>& coef = smooth ? smoothed : c.coef;
     const int stride = c.bw * 8;
     planes[i].assign(static_cast<size_t>(stride) * c.bh * 8, 0);
     // Only the blocks that hold samples of the image.
     int nby = (c.dsh + 7) / 8, nbx = (c.dsw + 7) / 8;
     for (int by = 0; by < nby; ++by) {
       for (int bx = 0; bx < nbx; ++bx) {
-        idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.quant,
+        idct_islow(&coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.quant,
                    &planes[i][static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
       }
     }

@@ -29,11 +29,18 @@ from the reseeded stream.  ``--log-dir``'s ``metrics.jsonl`` is the
 ``obs/events.py::EventSink`` stream (a run header, ``train/<metric>`` and
 ``eval/<metric>`` records, events).
 
+Every backbone of the JAX package is built (``--backbone``: the ResNets,
+``mobilenet``, ``mobilenet050``, ``vgg16``, ``vgg19``, ``densenet121``,
+``densenet169``, ``densenet201``), every ``--stem`` and ``--pack-width``
+(the same math as the plain stem and stage 2, with the JAX model's shape
+checks), and ``--pretrained-backbone`` imports a torchvision ResNet-50
+state dict into the backbone (``models/import_weights.py``; the
+reference's recipe adds ``--norm frozen_bn``).
+
 Refused with a message naming ``ROADMAP.md``, since what they need is not
 ported: more than one device, spatial sharding, the sharded weight update
-and the quantized allreduce, the distributed launch flags, TensorBoard, ``--debug-nans``, ``--pretrained-backbone``,
-a stem other than the default, ``--pack-width``, and the backbones other
-than the ResNets.  The gradient-communication flags and ``--platform`` are
+and the quantized allreduce, the distributed launch flags, TensorBoard and
+``--debug-nans``.  The gradient-communication flags and ``--platform`` are
 left out; the ``dp8`` and ``pod`` presets too.
 """
 
@@ -50,12 +57,8 @@ import numpy as np
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import default_buckets
-from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import (
-    BACKBONE_STAGES,
-    BACKBONES,
-    DEFAULT_STEM,
-    STEMS,
-)
+from batchai_retinanet_horovod_coco_tpu_torch.models.resnet import STEMS
+from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import BACKBONES, DEFAULT_STEM
 from batchai_retinanet_horovod_coco_tpu_torch.obs.events import EventSink, emit_event
 from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import (
     add_anchor_flags,
@@ -139,13 +142,17 @@ def build_parser() -> argparse.ArgumentParser:
         g.add_argument("--backbone", default="resnet50", choices=BACKBONES)
         g.add_argument("--norm", default="gn", choices=["gn", "bn", "frozen_bn"])
         g.add_argument("--stem", default=DEFAULT_STEM, choices=STEMS,
-                       help="the JAX package's stem formulation; the port "
-                            "computes the default's math with a plain conv")
-        g.add_argument("--pack-width", action="store_true", help="not ported")
+                       help="the JAX package's stem formulation (ResNet); each is "
+                            "the plain stem's math, which the port computes")
+        g.add_argument("--pack-width", action="store_true",
+                       help="the JAX package's width-packed stage 2 (ResNet only; "
+                            "W divisible by 8); the plain stage's math here")
         g.add_argument("--f32", action="store_true", help="compute in float32 (default bfloat16)")
         add_anchor_flags(g)
         g.add_argument("--freeze-backbone", action="store_true")
-        g.add_argument("--pretrained-backbone", default=None, help="not ported")
+        g.add_argument("--pretrained-backbone", default=None,
+                       help="torch resnet50 state dict (.pth/.npz) to import; "
+                            "use with --norm frozen_bn (the reference recipe)")
 
         g = sp.add_argument_group("data")
         g.add_argument("--batch-size", type=int, default=16, help="GLOBAL batch size")
@@ -242,16 +249,12 @@ def refuse_unported(args) -> None:
         "--process-id": args.process_id is not None,
         "--tensorboard": args.tensorboard,
         "--debug-nans": args.debug_nans,
-        "--pretrained-backbone": args.pretrained_backbone is not None,
-        f"--stem {args.stem}": args.stem != DEFAULT_STEM,
-        "--pack-width": args.pack_width,
-        f"--backbone {args.backbone}": args.backbone not in BACKBONE_STAGES,
     }
     refused = [flag for flag, hit in unported.items() if hit]
     if refused:
         raise SystemExit(
             f"{', '.join(refused)}: not ported to the PyTorch package yet (it trains on one "
-            "card, with the ResNet backbones); see ROADMAP.md"
+            "card); see ROADMAP.md"
         )
 
 
@@ -530,6 +533,8 @@ def _run(args) -> dict[str, float]:
         num_classes=num_classes,
         backbone=args.backbone,
         norm_kind=args.norm,
+        stem=args.stem,
+        pack_width=args.pack_width,
         anchor=anchor_config,
         dtype=torch.float32 if args.f32 else torch.bfloat16,
     )
@@ -552,6 +557,13 @@ def _run(args) -> dict[str, float]:
         """A fresh train state from the flags: at start and for each
         --auto-resume, whose resume then restores the last checkpoint."""
         model = build_retinanet(model_config, device=device, seed=args.seed)
+        if args.pretrained_backbone:
+            from batchai_retinanet_horovod_coco_tpu_torch.models.import_weights import (
+                import_pretrained_backbone,
+            )
+
+            import_pretrained_backbone(model, args.pretrained_backbone)
+            print(f"imported backbone weights from {args.pretrained_backbone}")
         return create_train_state(model, opt_config, device)
 
     state = build_state()

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in fourteen
+Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in fifteen
 phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
@@ -89,7 +89,8 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
 11. from image files through the command line: (a) builds the image codec
    (``native/imagecodec.cpp``) with g++, decodes every fixture of
    ``tests/fixtures/jpeg`` and ``tests/fixtures/formats`` (progressive,
-   CMYK, YCCK and RGB-coded JPEG, interlaced and 16-bit PNG, BMP) to the
+   block-smoothed cut progressive, CMYK, YCCK and RGB-coded JPEG,
+   interlaced and 16-bit PNG, BMP with RLE8 and RLE4) to the
    sha256 of PIL's pixels that their ``digests.json`` hold, times a 640 x
    480 baseline and a progressive decode on the host, and sweeps
    ``build_pipeline``'s images/s at 1, 2, 4 and 8 decode threads and at
@@ -124,14 +125,14 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    exported batch size, then the same load through in-process
    ``submit``: images/s and p50/p99 latency of both.  The counters are
    zeroed before each load and read after it: NMS launched at least once
-   a served batch, the plain version never.  An RLE8 BMP, which the codec
+   a served batch, the plain version never.  A GIF, which the codec
    refuses, is answered 400, an unknown path 404, and the trace header is
    echoed;
    each fixture posted 8 times at once to a server that seals only full
    batches is answered at every row of a batch of 8 as the live engine
    answers there; ``python -m ...serve --images`` writes records equal
    to the live answers and each to an HTTP answer for the same file (and
-   an ``error`` record for the RLE8 BMP), and
+   an ``error`` record for the GIF), and
    ``--http 0`` drains and exits 0 on SIGTERM;
 13. observability at full width: (a) phase 8's model and batches, 6 steps
    of ``train/loop.py`` without and 6 with the numerics summary: every
@@ -179,7 +180,27 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    clients scales up to 2 replicas, the new one takes weighted requests,
    and a trickle of 1 client through idle time drains back to 1, no request
    failing.  Each fleet runs in a process group of its own, killed
-   whatever happens.
+   whatever happens;
+15. the model family on one card, each at its published widths, FPN 256,
+   heads 256 x 4, 80 classes, 9 anchors: (a) ``mobilenet``,
+   ``mobilenet050``, ``vgg16``, ``vgg19``, ``densenet121``, ``densenet169``
+   and ``densenet201`` build on the card, and one f32 forward of a 256 x
+   256 image (TF32 off since phase 5) equals the same model's on the CPU
+   within 1e-3 of the output's range; (b) ``mobilenet``, ``vgg16`` and
+   ``densenet121`` each take 3 steps of ``train/loop.py`` on phase 8's
+   batches at (800, 1344), global batch 8, GroupNorm, bf16: the counters
+   zeroed before and read after, the training kernels launched once a
+   step, the plain versions never; step ms, images/s and peak memory each;
+   (c) the DenseNet's state goes through ``convert_model`` at (800, 1344)
+   and batch 1: the program alone in a fresh process imports no model code
+   and launches NMS, and ``DetectEngine.from_export`` answers a fixture
+   JPEG as the live engine on the same weights, bit for bit, NMS launched;
+   (d) ``train coco --pretrained-backbone`` with a seeded random state dict
+   in torchvision's ResNet-50 layout and ``--norm frozen_bn`` runs 2 steps
+   on the fixture JPEGs: every imported tensor equals the file's on the
+   card before the first step, the frozen statistics are still the file's
+   after it, the training kernels launched once a step.  The phase must
+   take at most 240 s.
 
 Then it prints one JSON line with each kernel's launches, error, times and
 bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
@@ -197,7 +218,6 @@ import os
 import shutil
 import signal
 import socket
-import struct
 import subprocess
 import sys
 import tempfile
@@ -769,15 +789,17 @@ def main() -> int:
         obs_launches = obs_phase(root, [cut_batch(b, batch_size) for b in batches], device, kind, smi)
         phase(14, "the serve fleet on one card")
         fleet_launches = fleet_phase(root, served, device, kind, smi)
+        phase(15, "the model family on one card")
+        family_launches = model_family_phase(root, batches, device, kind, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
         row["launches"] = (launches_by_kernel[key] + run_launches[key] + file_launches[key]
-                           + obs_launches[key])
+                           + obs_launches[key] + family_launches[key])
     nms_row["launches"] = (launches + run_launches["nms"] + file_launches["nms"] + served["launches"]
-                           + obs_launches["nms"] + fleet_launches)
+                           + obs_launches["nms"] + fleet_launches + family_launches["nms"])
     end_phases()
-    print(f"chip_smoke: all 14 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
+    print(f"chip_smoke: all 15 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
 
     print(smi)
     print(json.dumps({"kernels": [nms_row, match_row, fwd_row, bwd_row]}))
@@ -1585,8 +1607,9 @@ def codec_and_pipeline(root: str, kind: str, smi: str) -> None:
             if "size" in want:
                 require(list(image_io.read_size(path)) == want["size"], f"{name}: read_size differs from PIL's")
             checked += 1
-    print(f"{checked} fixtures of tests/fixtures/jpeg and tests/fixtures/formats (progressive, CMYK, YCCK, "
-          f"Adobe RGB JPEG; interlaced and 16-bit PNG; BMP) decode to their PIL digests bit for bit")
+    print(f"{checked} fixtures of tests/fixtures/jpeg and tests/fixtures/formats (progressive, cut and "
+          f"block-smoothed progressive, CMYK, YCCK, Adobe RGB JPEG; interlaced and 16-bit PNG; BMP, RLE8 "
+          f"and RLE4) decode to their PIL digests bit for bit")
     baseline = (JPEG_FIXTURES / "coco_0.jpg").read_bytes()
     progressive = (FORMAT_FIXTURES / "progressive_640x480.jpg").read_bytes()
     (b_med, b_min), (p_med, p_min) = decode_ms(baseline), decode_ms(progressive)
@@ -1807,13 +1830,10 @@ def served_files() -> list[tuple[str, bytes]]:
     return [(n, (JPEG_FIXTURES / n).read_bytes()) for n in names]
 
 
-def rle8_bmp() -> bytes:
-    """A 2 x 2 RLE8-compressed BMP, which the codec refuses."""
-    pixels = bytes([2, 0, 0, 0, 2, 1, 0, 0, 0, 1])  # two runs of 2, end of line, end of bitmap
-    info = struct.pack("<IiiHHIIiiII", 40, 2, 2, 1, 8, 1, len(pixels), 0, 0, 2, 0)
-    offset = 14 + len(info) + 8
-    return (b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset) + info
-            + bytes([0, 0, 0, 0, 255, 255, 255, 0]) + pixels)
+def refused_gif() -> bytes:
+    """A 1 x 1 GIF, which the codec refuses (it decodes JPEG, PNG and BMP)."""
+    return (b"GIF89a\x01\x00\x01\x00\x80\x00\x00\x00\x00\x00\xff\xff\xff!\xf9\x04\x01\x00\x00"
+            b"\x00\x00,\x00\x00\x00\x00\x01\x00\x01\x00\x00\x02\x02D\x01\x00;")
 
 
 def live_answer(engine: DetectEngine, image: np.ndarray, batch: int, row: int = 0) -> list[dict]:
@@ -2067,15 +2087,15 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
 
         # The error answers and the trace header, then one answer a file.
         nms_cuda.reset_counts()
-        code, body, trace, _ = post(f"{url}/detect", rle8_bmp(), trace="chip-smoke-trace")
+        code, body, trace, _ = post(f"{url}/detect", refused_gif(), trace="chip-smoke-trace")
         require(code == 400 and body.get("reason") == "decode_error" and trace == "chip-smoke-trace"
-                and body.get("trace_id") == trace, f"RLE8 BMP: {code} {body} {trace}")
+                and body.get("trace_id") == trace, f"GIF: {code} {body} {trace}")
         code, body, trace, _ = post(f"{url}/detect", files[0][1])
         require(code == 200 and trace and len(trace) == 16 and body["trace_id"] == trace,
                 f"minted trace id {trace!r}")
         code, body, _, _ = post(f"{url}/nowhere", files[0][1])
         require(code == 404, f"unknown path answered {code}")
-        print(f"RLE8 BMP answered 400 decode_error, unknown path 404, trace header echoed "
+        print(f"GIF answered 400 decode_error, unknown path 404, trace header echoed "
               f"(given and minted)")
         for n, data in files:  # one at a time: each alone in a batch of 1
             code, body, _, _ = post(f"{url}/detect", data)
@@ -2114,14 +2134,15 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
     os.makedirs(images_dir, exist_ok=True)
     for n, data in files:
         Path(images_dir, n).write_bytes(data)
-    Path(images_dir, "refused_rle8.bmp").write_bytes(rle8_bmp())
+    # A GIF under a suffix the command line lists: its bytes are what the codec refuses.
+    Path(images_dir, "refused_gif.jpg").write_bytes(refused_gif())
     t0 = time.perf_counter()
     proc = subprocess.run(cli + ["--images", images_dir, "--output", out_jsonl],
                           cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
     require(proc.returncode == 0, f"serve --images failed:\n{proc.stderr[-3000:]}")
     records = {r["file"]: r for r in map(json.loads, Path(out_jsonl).read_text().splitlines())}
-    require(sorted(records) == sorted([n for n, _ in files] + ["refused_rle8.bmp"]), f"records {sorted(records)}")
-    require("decode_error" in records["refused_rle8.bmp"].get("error", ""), "the RLE8 BMP was not refused")
+    require(sorted(records) == sorted([n for n, _ in files] + ["refused_gif.jpg"]), f"records {sorted(records)}")
+    require("decode_error" in records["refused_gif.jpg"].get("error", ""), "the GIF was not refused")
     worst = max(check(n, records[n]["detections"]) for n, _ in files)
     # The HTTP answers above cover every exported slot, so this holds
     # whichever slot the CLI's batching put a file in.
@@ -2540,9 +2561,20 @@ class Tail:
             self.error = exc
 
     def events(self, kind: str | None = None) -> list[tuple[float, dict]]:
+        """The JSON events of the lines.  The fleet and its replicas share
+        one output file, and one process's event can land on another's line
+        before its newline: each line is read as a run of JSON objects."""
         with self._lock:
             lines = list(self.lines)
-        out = [(t, json.loads(line)) for t, line in lines if line.startswith('{"event"')]
+        decoder, out = json.JSONDecoder(), []
+        for t, line in lines:
+            pos = 0
+            while line.startswith('{"event"', pos):
+                try:
+                    event, pos = decoder.raw_decode(line, pos)
+                except json.JSONDecodeError:
+                    break  # the rest of the line is another process's text
+                out.append((t, event))
         return [(t, e) for t, e in out if kind is None or e["event"] == kind]
 
     def text(self) -> str:
@@ -2994,6 +3026,252 @@ def autoscale_cli(fleet: FleetCli, root: str, served: dict, kind: str, smi: str)
                 f"statuses {dict(codes)}, gap {worst}, fleet_stats {final}")
     finally:
         fleet.kill()
+
+
+# Phase 15: the backbones the port added to the ResNets, and one a family
+# for training (the DenseNet also through the converter).
+NEW_BACKBONES = ("mobilenet", "mobilenet050", "vgg16", "vgg19", "densenet121", "densenet169",
+                 "densenet201")
+FAMILY_TRAINED = ("mobilenet", "vgg16", "densenet121")
+FAMILY_HW = (256, 256)
+FAMILY_SIDES = (800, 1333)  # the resize rule of the DenseNet's export: bucket (800, 1344)
+FAMILY_BATCH = 8
+FAMILY_STEPS = 3
+FAMILY_TIMED = 7  # steps after the loop's, each timed alone by CUDA events
+# A full-width f32 forward of the card (TF32 off) against the CPU's, of
+# the output's range: the two sum the convolutions in other orders.  The
+# seven backbones' gaps read at most 6.446e-06 (NVIDIA H100 80GB HBM3,
+# 700 W); TF32 convolutions would exceed this.
+FAMILY_FWD_RTOL = 1e-4
+
+
+def torchvision_resnet_layout(stage_sizes=(3, 4, 6, 3), classes: int = 1000) -> dict[str, tuple]:
+    """The names and shapes of a torchvision bottleneck ResNet's state dict
+    (``resnet50`` by default), ``fc.*`` and ``num_batches_tracked`` among
+    them: what ``--pretrained-backbone`` reads.  Phase 15 (d) and the
+    import tests fill it with seeded random values."""
+    layout: dict[str, tuple] = {"conv1.weight": (64, 3, 7, 7)}
+
+    def bn(prefix: str, n: int) -> None:
+        layout.update({f"{prefix}.{k}": (n,) for k in ("weight", "bias", "running_mean", "running_var")})
+        layout[f"{prefix}.num_batches_tracked"] = ()
+
+    bn("bn1", 64)
+    inplanes = 64
+    for i, blocks in enumerate(stage_sizes, 1):
+        planes = 64 * 2 ** (i - 1)
+        for b in range(blocks):
+            p = f"layer{i}.{b}"
+            layout[f"{p}.conv1.weight"] = (planes, inplanes, 1, 1)
+            bn(f"{p}.bn1", planes)
+            layout[f"{p}.conv2.weight"] = (planes, planes, 3, 3)
+            bn(f"{p}.bn2", planes)
+            layout[f"{p}.conv3.weight"] = (planes * 4, planes, 1, 1)
+            bn(f"{p}.bn3", planes * 4)
+            if b == 0:
+                layout[f"{p}.downsample.0.weight"] = (planes * 4, inplanes, 1, 1)
+                bn(f"{p}.downsample.1", planes * 4)
+            inplanes = planes * 4
+    layout.update({"fc.weight": (classes, inplanes), "fc.bias": (classes,)})
+    return layout
+
+
+def model_family_phase(root: str, batches, device, kind: str, smi: str) -> dict[str, int]:
+    """Phase 15: (a) each new backbone at full width, one f32 forward on the
+    card against the CPU; (b) one a family trains 3 steps through
+    ``train/loop.py`` at (800, 1344), global batch 8, GN, bf16; (c) the
+    DenseNet through ``convert_model`` and ``DetectEngine.from_export``; (d)
+    ``train coco --pretrained-backbone --norm frozen_bn``.  Returns the
+    kernels' launches."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(("matching", "focal_fwd", "focal_bwd", "nms"), 0)
+
+    def add(used: dict) -> None:
+        for k in launches:
+            launches[k] += used[k]
+
+    # (a) Every new name builds on the card; the card's f32 forward equals
+    # the CPU's within FAMILY_FWD_RTOL of the range.
+    torch.backends.cudnn.allow_tf32 = False  # f32 convolutions in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images = torch.from_numpy(np.random.default_rng(15).integers(0, 256, (1, *FAMILY_HW, 3), dtype=np.uint8))
+    for name in NEW_BACKBONES:
+        config = RetinaNetConfig(backbone=name, dtype=torch.float32)  # FPN 256, heads 256 x 4, 80 classes
+        cpu_model = build_retinanet(config, device="cpu", seed=3)
+        gpu_model = build_retinanet(config, device=device, seed=3)
+        with torch.inference_mode():
+            want = cpu_model(normalize_images(images))
+            got = gpu_model(normalize_images(images.to(device)))
+        errs = []
+        for key in ("cls_logits", "box_deltas"):
+            a, b = got[key].cpu(), want[key]
+            errs.append(float((a - b).abs().max()) / float(b.abs().max()))
+            require(bool(torch.isfinite(a).all()) and errs[-1] <= FAMILY_FWD_RTOL,
+                    f"{name}: the card's {key} differ from the CPU's by {errs[-1]:.3e} of the range")
+        print(f"{name}: widths C3-C5 {gpu_model.backbone.widths}, "
+              f"{sum(p.numel() for p in gpu_model.parameters())} parameters; f32 forward at {FAMILY_HW}, "
+              f"card against CPU: cls {errs[0]:.3e}, box {errs[1]:.3e} of the range (limit {FAMILY_FWD_RTOL})")
+        del cpu_model, gpu_model, want, got
+    torch.cuda.empty_cache()
+
+    # (b) Three steps of train/loop.py for one backbone a family, then
+    # FAMILY_TIMED more through the same step, each between two CUDA events
+    # after a sync: the device's span of a step, and the host's time to
+    # issue it (a span no longer than the issue time is the host's).
+    cut = [cut_batch(b, FAMILY_BATCH) for b in batches[:FAMILY_STEPS]]
+    print(f"host: load average {os.getloadavg()}, {threading.active_count()} threads in this process, "
+          f"{os.cpu_count()} cores")
+    snapshot = os.path.join(root, "densenet_snap")
+    for name in FAMILY_TRAINED:
+        model = build_retinanet(RetinaNetConfig(backbone=name), device=device, seed=0)  # gn, bf16
+        state = state_lib.create_train_state(model, optim_lib.OptimizerConfig(), device)
+        logged: list[dict] = []
+        reset_all_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loop_lib.run_training(
+            state, iter(cut), 80, loop_lib.LoopConfig(total_steps=FAMILY_STEPS, log_every=1),
+            log=lambda step, scalars: logged.append(scalars),
+        )
+        wall = time.perf_counter() - t0
+        used = counts()
+        add(used)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(used["plain"] == 0 and all(used[k] == FAMILY_STEPS for k in ("matching", "focal_fwd", "focal_bwd")),
+                f"{name}: launches {used} in {FAMILY_STEPS} steps")
+        require(all(np.isfinite([sc["loss"], sc["grad_norm"]]).all() for sc in logged), f"{name}: a non-finite loss")
+        loop_ms = float(np.median([sc["step_time_ms"] for sc in logged[1:]]))
+        step_fn = step_lib.make_train_step(model, TRAIN_HW, 80, device=device)
+        spans, issues = [], []
+        for i in range(FAMILY_TIMED):
+            arrays = loop_lib.device_batch(cut[i % len(cut)], device)
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            step_fn(state, arrays)
+            stop.record()
+            issues.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            spans.append(start.elapsed_time(stop))
+        step_ms, issue_ms = float(np.median(spans)), float(np.median(issues))
+        print(f"{name}: {FAMILY_STEPS} steps at {TRAIN_HW}, global batch {FAMILY_BATCH}, GN, bf16 in {wall:.1f} s; "
+              f"losses {[round(sc['loss'], 4) for sc in logged]}; loop step {loop_ms:.1f} ms (median of steps "
+              f"2-{FAMILY_STEPS}, host clock); then {FAMILY_TIMED} steps: span {step_ms:.1f} ms (median; "
+              f"{min(spans):.1f}-{max(spans):.1f}, CUDA events), issued by the host in {issue_ms:.1f} ms (median), "
+              f"{FAMILY_BATCH * 1e3 / step_ms:.2f} images/s; peak memory {peak:.2f} GiB; launches {used}; "
+              f"{kind}, {smi}")
+        if name == "densenet121":
+            manager = CheckpointManager(snapshot)
+            require(manager.save(state), "the DenseNet snapshot was not saved")
+            manager.close()
+        del state, model
+        torch.cuda.empty_cache()
+
+    # (c) The DenseNet's snapshot through the converter at one bucket and
+    # batch 1; loaded without model code (a fresh process) and in this one.
+    export_dir = os.path.join(root, "densenet_export")
+    bucket = default_buckets(*FAMILY_SIDES)[0]
+    t0 = time.perf_counter()
+    convert_cli.main(["--snapshot-path", snapshot, "--output", export_dir, "--num-classes", "80",
+                      "--backbone", "densenet121", "--buckets", f"{bucket[0]}x{bucket[1]}",
+                      "--image-min-side", str(FAMILY_SIDES[0]), "--image-max-side", str(FAMILY_SIDES[1]),
+                      "--batch-sizes", "1", "--score-threshold", "0.001", "--device", device.type])
+    convert_s = time.perf_counter() - t0
+    manifest = json.loads(Path(export_dir, "manifest.json").read_text())
+    (artifact,) = manifest["artifacts"]
+    proc = subprocess.run(
+        [sys.executable, "-c", LOAD_ALONE, os.path.join(export_dir, artifact["file"]),
+         json.dumps([1, *bucket, 3]), device.type],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600,
+    )
+    require(proc.returncode == 0, f"loading the DenseNet program alone failed:\n{proc.stderr[-3000:]}")
+    alone = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(alone["models"] == [] and alone["modules"] == [] and alone["launches"] >= 1
+            and alone["plain"] == 0, f"the DenseNet program alone: {alone}")
+    model = RetinaNet(RetinaNetConfig(backbone="densenet121"))
+    saved = CheckpointManager(snapshot).restore_arrays()
+    load_flax_variables(model, saved["params"], saved["batch_stats"])
+    dconfig = detect_lib.DetectConfig(score_threshold=0.001)
+    live = DetectEngine.from_state(model, (bucket,), (1,), dconfig, device, *FAMILY_SIDES)
+    engine = DetectEngine.from_export(export_dir, device)
+    name, data = served_files()[0]
+    image = image_io.decode(data)
+    reset_all_counts()
+    answer = live_answer(engine, image, 1)
+    used = counts()
+    add(used)
+    gap = answer_gap(answer, live_answer(live, image, 1))
+    print(f"convert_model: DenseNet-121 at {bucket}, batch 1 in {convert_s:.1f} s, "
+          f"{os.path.getsize(os.path.join(export_dir, artifact['file']))} bytes; alone in a fresh process: "
+          f"load {alone['load_s']:.2f} s, first run {alone['first_run_s']:.2f} s, NMS launches "
+          f"{alone['launches']}, models imported {alone['models']}; from_export answered {name} with "
+          f"{len(answer)} detections, largest gap to the live engine {gap}; launches {used}; {kind}, {smi}")
+    require(used["nms"] >= 1 and used["plain"] == 0, f"the DenseNet export's launches {used}")
+    require(gap == 0 and len(answer) > 0, f"the DenseNet export's answer differs from the live engine's: {gap}")
+    del model, live, engine
+    torch.cuda.empty_cache()
+
+    # (d) The reference's recipe: a torchvision-layout ResNet-50 (random,
+    # seeded) imported by --pretrained-backbone under --norm frozen_bn; the
+    # imported tensors equal the file's on the card before the first step.
+    from batchai_retinanet_horovod_coco_tpu_torch.models import import_weights
+
+    rng = np.random.default_rng(16)
+    weights = {}
+    for k, shape in torchvision_resnet_layout().items():
+        leaf = k.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            weights[k] = torch.tensor(int(rng.integers(1, 1000)))
+            continue
+        if len(shape) == 4:  # variance 1 / fan-in, so the frozen network's activations stay small
+            value = rng.normal(0.0, np.sqrt(1.0 / np.prod(shape[1:])), shape)
+        elif leaf in ("weight", "running_var") and not k.startswith("fc."):
+            value = rng.uniform(0.5, 1.5, shape)
+        else:
+            value = rng.normal(0.0, 0.05, shape)
+        weights[k] = torch.from_numpy(value.astype(np.float32))
+    pth = os.path.join(root, "resnet50_torchvision.pth")
+    torch.save(weights, pth)
+    expected = import_weights.convert_torch_resnet50(weights)
+    checked: list[int] = []
+    real_create = state_lib.create_train_state
+
+    def create_and_check(model, *args, **kwargs):
+        card = {k: v for k, v in model.state_dict().items()}
+        checked.append(sum(torch.equal(card[f"backbone.{k}"], v.to(device)) for k, v in expected.items()))
+        return real_create(model, *args, **kwargs)
+
+    train_json, val_json = fixture_coco(root, 32, 15), fixture_coco(root, 4, 16)
+    flags = ["coco", root, "--train-annotations", os.path.basename(train_json), "--train-images",
+             str(JPEG_FIXTURES), "--val-annotations", os.path.basename(val_json), "--val-images",
+             str(JPEG_FIXTURES), "--snapshot-path", os.path.join(root, "pretrained_snap"),
+             "--pretrained-backbone", pth, "--norm", "frozen_bn", "--steps", "2", "--log-every", "1"]
+    state_lib.create_train_state = create_and_check
+    reset_all_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train_cli.main(flags)
+    finally:
+        state_lib.create_train_state = real_create
+    used = counts()
+    add(used)
+    stats = CheckpointManager(os.path.join(root, "pretrained_snap")).restore_arrays()["batch_stats"]
+    frozen = np.array_equal(stats["backbone"]["stage5_block2"]["norm3"]["var"],
+                            weights["layer4.2.bn3.running_var"].numpy())
+    print(f"train coco --pretrained-backbone (torchvision ResNet-50 layout, {len(weights)} tensors, "
+          f"{len(expected)} imported) --norm frozen_bn: 2 steps in {time.perf_counter() - t0:.1f} s; "
+          f"imported tensors equal to the file's on the card before the first step: {checked} of "
+          f"{len(expected)}; frozen statistics unchanged after the steps: {frozen}; launches {used}")
+    require(out["final_step"] == 2.0, f"final step {out['final_step']}")
+    require(checked == [len(expected)], f"imported tensors equal on the card: {checked} of {len(expected)}")
+    require(frozen, "the frozen BatchNorm statistics moved or were not imported")
+    require(used["plain"] == 0 and all(used[k] == 2 for k in ("matching", "focal_fwd", "focal_bwd")),
+            f"--pretrained-backbone launches {used}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 15 in {phase_s:.1f} s (limit 240 s); launches {launches}")
+    require(phase_s <= 240, f"phase 15 took {phase_s:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

@@ -7,13 +7,17 @@ What PIL writes, it writes: progressive JPEGs (a 640x480 4:2:0 file, grey,
 4:2:2, 33x47 and with a restart interval), a CMYK JPEG and an RGB-coded
 one (``keep_rgb=True``, Adobe transform 0).  What PIL cannot write is built
 here by hand: a YCCK JPEG (PIL's CMYK file with its Adobe transform byte
-set to 2, which libjpeg then reads as YCCK), interlaced (Adam7) PNGs of
-every colour type and depth, 16-bit PNGs of every colour type, and BMPs
-(1-, 4- and 8-bit palette, 16-bit 5-5-5, 24- and 32-bit, bit fields 5-6-5,
-5-5-5 and 32-bit with alpha, top-down and OS/2 headers).  The JSON holds
-each file's PIL size and the shape and sha256 of its pixels as PIL decodes
-them (``np.asarray(Image.open(f).convert("RGB"))``), for machines without
-PIL.  ``png`` and ``bmp`` are the hand builders; the tests use them too.
+set to 2, which libjpeg then reads as YCCK), progressive files cut after
+scan 1, 3 and 6 with an EOI appended (libjpeg block-smooths what their
+scans leave incomplete), interlaced (Adam7) PNGs of every colour type and
+depth, 16-bit PNGs of every colour type, and BMPs (1-, 4- and 8-bit
+palette, 16-bit 5-5-5, 24- and 32-bit, bit fields 5-6-5, 5-5-5 and 32-bit
+with alpha, top-down and OS/2 headers, and RLE8 and RLE4 streams with
+encoded and absolute runs, end-of-line escapes, deltas and odd widths).
+The JSON holds each file's PIL size and the shape and sha256 of its pixels
+as PIL decodes them (``np.asarray(Image.open(f).convert("RGB"))``), for
+machines without PIL.  ``png``, ``bmp``, ``rle`` and ``cut_after_scan``
+are the hand builders; the tests use them too.
 """
 
 import hashlib
@@ -123,6 +127,82 @@ def bmp(rows: list[bytes], width: int, bits: int, palette=None, header: int = 40
             + pixels)
 
 
+def rle(rows: list, rle4: bool, holes: dict | None = None) -> bytes:
+    """An RLE8 or RLE4 stream of ``rows`` (palette indices, top to bottom,
+    rows may be shorter than the image), as the BMP format writes it:
+    bottom row first; three or more pixels that repeat one index (RLE4: an
+    alternating pair) as an encoded run, other stretches as absolute runs
+    padded to 16 bits (RLE4: of an even count), what is left as runs of one
+    or two; an end of line after each row but the top one, then an end of
+    bitmap.  ``holes`` maps a row (top-down) to (column, skip): the ``skip``
+    pixels from ``column`` are passed over with a delta escape
+    (0, 2, skip, 0)."""
+    holes = holes or {}
+    period = 2 if rle4 else 1
+
+    def run_at(row, x, stop):  # the length of the encoded run that starts at x
+        n = 1
+        while x + n < stop and n < 255 and (n < period or row[x + n] == row[x + n - period]):
+            n += 1
+        return n
+
+    out = bytearray()
+    for y in range(len(rows) - 1, -1, -1):
+        row = [int(v) for v in rows[y]]
+        hole, skip = holes.get(y, (len(row), 0))
+        x = 0
+        while x < len(row):
+            if x == hole and skip:
+                out += bytes((0, 2, skip, 0))
+                x += skip
+                continue
+            stop = hole if x < hole else len(row)
+            n = run_at(row, x, stop)
+            if n < 3 and stop - x >= 3:  # an absolute run, while no encoded run starts
+                n = 3
+                while x + n < stop and n < 254 and run_at(row, x + n, stop) < 3:
+                    n += 1
+                n -= n % 2 if rle4 else 0  # RLE4: whole bytes (2 is an escape)
+            if n < 3:
+                pair = (row[x] << 4 | row[x + 1 if n > 1 else x]) if rle4 else row[x]
+                out += bytes((n, pair))
+                x += n
+                continue
+            if n == run_at(row, x, stop):
+                pair = (row[x] << 4 | row[x + 1]) if rle4 else row[x]
+                out += bytes((n, pair))
+                x += n
+                continue
+            chunk = row[x:x + n]
+            body = bytes(a << 4 | b for a, b in zip(chunk[::2], chunk[1::2])) if rle4 else bytes(chunk)
+            out += bytes((0, n)) + body + bytes(len(body) % 2)
+            x += n
+        if y:
+            out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def bmp_rle(rows: list, width: int, rle4: bool, palette, **options) -> bytes:
+    """An RLE8 or RLE4 BMP of ``rows`` (palette indices, top to bottom);
+    ``options`` go to :func:`rle`."""
+    data = bytearray(bmp([b""] * len(rows), width, 4 if rle4 else 8, palette))
+    table_end = struct.unpack_from("<I", data, 10)[0]
+    stream = rle(rows, rle4, **options)
+    data = data[:table_end] + stream
+    struct.pack_into("<I", data, 2, len(data))
+    struct.pack_into("<I", data, 30, 2 if rle4 else 1)
+    struct.pack_into("<I", data, 34, len(stream))
+    return bytes(data)
+
+
+def cut_after_scan(data: bytes, scans: int) -> bytes:
+    """A progressive JPEG cut after its first ``scans`` scans, with an EOI."""
+    pos = -2
+    for _ in range(scans + 1):
+        pos = data.index(b"\xff\xda", pos + 2)
+    return data[:pos] + b"\xff\xd9"
+
+
 def _jpegs():
     from PIL import Image
 
@@ -143,6 +223,11 @@ def _jpegs():
     yield "adobe_rgb.jpg", save(rgb(15, 48, 64), quality=90, keep_rgb=True)
     yield "cmyk.jpg", cmyk
     yield "ycck.jpg", cmyk[:adobe] + b"\x02" + cmyk[adobe + 1:]
+    # 4:2:0 at 120 x 160: 15 luma block rows, so near the bottom the
+    # smoothing's row choice reads a padding block row (jdcoefct.c).
+    full = save(rgb(17, 120, 160), quality=92, subsampling=2, progressive=True)
+    for scans in (1, 3, 6):
+        yield f"progressive_cut{scans}.jpg", cut_after_scan(full, scans)
 
 
 def _pngs():
@@ -192,6 +277,20 @@ def _bmps():
     yield "bmp_16bit_555.bmp", bmp(small, w, 16)
     yield "bmp_16bit_555_bitfields_v4.bmp", bmp(small, w, 16, header=108, compression=3,
                                                 masks=(0x7C00, 0x3E0, 0x1F, 0))
+    # RLE: flat rectangles make encoded runs, the noisy gradient absolute
+    # ones; odd widths; the second file of each kind has deltas and rows
+    # that end early (the rest of the row is the end of line's padding).
+    for bits in (8, 4):
+        palette = rng.integers(0, 256, (1 << bits, 3)).tolist()
+        index = scene(40 + bits, h, w, 1, (1 << bits) - 1)[..., 0]
+        yield f"bmp_rle{bits}.bmp", bmp_rle(index, w, bits == 4, palette)
+        # PIL reads a delta's offsets from the two bytes after the ones the
+        # format defines, so a delta skips to the end of the image here: the
+        # holes are in the top rows, which the stream holds last.
+        narrow = scene(50 + bits, 9, 13, 1, (1 << bits) - 1)[..., 0]
+        short = [r[: 13 - (y % 3) * 2] for y, r in enumerate(narrow)]
+        yield f"bmp_rle{bits}_deltas.bmp", bmp_rle(short, 13, bits == 4, palette,
+                                                  holes={0: (2, 3), 1: (4, 5)})
 
 
 def fixtures():

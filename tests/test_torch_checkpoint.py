@@ -35,7 +35,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.train import optim as t_optim
 from batchai_retinanet_horovod_coco_tpu_torch.train import state as t_state
 from batchai_retinanet_horovod_coco_tpu_torch.train import step as t_step
 from batchai_retinanet_horovod_coco_tpu_torch.utils import checkpoint as t_ckpt
-from test_torch_train import GOLDEN, GOLDEN_OPT, HW, RTOL, golden_batch, small_model
+from test_torch_train import GOLDEN, GOLDEN_OPT, HW, RTOL, drop_tmp_path, golden_batch, small_model  # noqa: F401
 
 CPU = torch.device("cpu")
 # sgd as the golden run; adam at a small LR; the plateau schedule with a
@@ -61,9 +61,9 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def port_state(norm_kind: str, opt: str, seed: int = 42) -> t_state.TrainState:
-    return t_state.create_train_state(small_model(norm_kind, seed), t_optim.OptimizerConfig(**OPTS[opt]),
-                                      device="cpu")
+def port_state(norm_kind: str, opt: str, seed: int = 42, backbone: str = "resnet_test") -> t_state.TrainState:
+    return t_state.create_train_state(small_model(norm_kind, seed, backbone),
+                                      t_optim.OptimizerConfig(**OPTS[opt]), device="cpu")
 
 
 def port_steps(state: t_state.TrainState, seeds) -> list[float]:
@@ -71,12 +71,11 @@ def port_steps(state: t_state.TrainState, seeds) -> list[float]:
     return [float(step(state, t_loop.device_batch(golden_batch(s), CPU))["loss"]) for s in seeds]
 
 
-def jax_state(norm_kind: str, opt: str, weights_from: t_state.TrainState):
+def jax_state(norm_kind: str, opt: str, weights_from: t_state.TrainState, backbone: str = "resnet_test"):
     """The JAX model, its TrainState (weights copied from the port's model
     through ``flax_from_state_dict``) and its train step."""
-    model = j_retinanet.build_retinanet(
-        j_retinanet.RetinaNetConfig(**GOLDEN, norm_kind=norm_kind, stem="conv", dtype=jnp.float32)
-    )
+    model = j_retinanet.build_retinanet(j_retinanet.RetinaNetConfig(
+        **dict(GOLDEN, backbone=backbone), norm_kind=norm_kind, stem="conv", dtype=jnp.float32))
     tx, _ = j_optim.make_optimizer(j_optim.OptimizerConfig(**OPTS[opt]))
     params, stats = convert.flax_from_state_dict(weights_from.model.state_dict())
     params = jax.tree.map(jnp.asarray, params)
@@ -280,14 +279,20 @@ def test_restore_refuses_another_model(tmp_path):
     leaves_equal(t_state.snapshot(other), before)  # nothing written
 
 
-@pytest.mark.parametrize("norm_kind,opt", [("gn", "sgd"), ("bn", "adam-plateau"), ("gn", "sgd-momentum0")])
-def test_checkpoints_move_between_the_packages(tmp_path, norm_kind, opt):
+@pytest.mark.parametrize(
+    "norm_kind,opt,backbone",
+    [("gn", "sgd", "resnet_test"), ("bn", "adam-plateau", "resnet_test"),
+     ("gn", "sgd-momentum0", "resnet_test"), ("gn", "sgd", "mobilenet")],
+    ids=["gn-sgd", "bn-adam-plateau", "gn-sgd-momentum0", "gn-sgd-mobilenet"],
+)
+def test_checkpoints_move_between_the_packages(tmp_path, norm_kind, opt, backbone):
     """JAX trains 2 steps and its CheckpointManager saves; the port restores
     that onto other weights and its step 3 gives JAX's step-3 loss.  Then
     the port saves its step-3 state, JAX's CheckpointManager restores it
-    into a fresh JAX state, and step 4 agrees the same way."""
-    seeded = port_state(norm_kind, opt)
-    j_st, j_step_fn = jax_state(norm_kind, opt, seeded)
+    into a fresh JAX state, and step 4 agrees the same way.  The MobileNet
+    case carries depthwise kernels, (3, 3, 1, C) in the checkpoint."""
+    seeded = port_state(norm_kind, opt, backbone=backbone)
+    j_st, j_step_fn = jax_state(norm_kind, opt, seeded, backbone)
     template = j_st
     for seed in (0, 1):
         j_st, _ = jax_step(j_step_fn, j_st, seed)
@@ -296,7 +301,7 @@ def test_checkpoints_move_between_the_packages(tmp_path, norm_kind, opt):
     j_manager.close()
     j_st, want3 = jax_step(j_step_fn, j_st, 2)
 
-    port = port_state(norm_kind, opt, seed=7)
+    port = port_state(norm_kind, opt, seed=7, backbone=backbone)
     t_ckpt.CheckpointManager(str(tmp_path / "jax")).restore(port)
     assert port.step == 2
     (got3,) = port_steps(port, [2])

@@ -3,7 +3,8 @@
 ``evaluate.py``, on the CPU (``--device cpu``).
 
 The parser keeps ``train.py``'s flag names and defaults; flags that need
-what is not ported are refused naming ``ROADMAP.md``.  Runs are
+what is not ported are refused naming ``ROADMAP.md``; every backbone, stem
+and ``--pretrained-backbone`` runs.  Runs are
 ``resnet_test`` at 64 x 64 (the CLI's heads are full width: FPN 256, heads
 256 x 4).  A snapshot that the JAX ``train.py`` writes is evaluated by the
 port's ``evaluate`` on the same JPEG files as JAX's ``evaluate.py``; the
@@ -13,6 +14,7 @@ port's ``evaluate`` on the same JPEG files as JAX's ``evaluate.py``; the
 
 import json
 import os
+import shutil
 import sys
 from pathlib import Path
 
@@ -32,6 +34,8 @@ from batchai_retinanet_horovod_coco_tpu_torch.train.optim import OptimizerConfig
 from batchai_retinanet_horovod_coco_tpu_torch.train.state import create_train_state
 from batchai_retinanet_horovod_coco_tpu_torch.utils import checkpoint as t_ckpt
 from batchai_retinanet_horovod_coco_tpu_torch.utils import cli as t_cli
+from chip_smoke import torchvision_resnet_layout
+from test_torch_train import drop_tmp_path  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # train.py, evaluate.py
 import evaluate as j_evaluate  # noqa: E402
@@ -87,12 +91,31 @@ def test_presets():
     ["--pretrained-backbone", "r50.pth"], ["--stem", "conv"], ["--pack-width"],
     ["--backbone", "mobilenet"],
 ], ids=lambda f: f[0])
-def test_unported_flags_are_refused(flags, tmp_path, monkeypatch):
+def test_unported_flags_are_refused(flags, tmp_path, monkeypatch, capsys):
     """Each flag whose setting needs what is not ported is refused, naming
     it.  The decode-worker flags, refused before, now run a 2-step
     synthetic run on the CPU: ``--data-worker-procs`` through the
     shared-memory worker processes, ``--data-worker-timeout`` with them
-    off."""
+    off.  So do the model flags: ``--stem conv``, ``--pack-width``,
+    ``--backbone mobilenet``, and ``--pretrained-backbone`` with a random
+    torchvision-layout file (one block a stage, as ``resnet_test``) under
+    ``--norm frozen_bn``, whose statistics the snapshot then holds."""
+    if flags[0] in ("--pretrained-backbone", "--stem", "--pack-width", "--backbone"):
+        if flags[0] == "--pretrained-backbone":
+            rng = np.random.default_rng(0)
+            layout = torchvision_resnet_layout((1, 1, 1, 1))
+            weights = {k: torch.from_numpy(rng.uniform(0.5, 1.5, s).astype(np.float32)) for k, s in layout.items()}
+            torch.save(weights, tmp_path / flags[1])
+            flags = [flags[0], str(tmp_path / flags[1]), "--norm", "frozen_bn"]
+        out = t_train.main(synthetic_flags(tmp_path) + flags + ["--steps", "2"])
+        assert out["final_step"] == 2.0
+        assert t_ckpt.latest_step(str(tmp_path / "ckpt")) == 2
+        stats = t_ckpt.CheckpointManager(str(tmp_path / "ckpt")).restore_arrays()["batch_stats"]
+        if flags[0] == "--pretrained-backbone":
+            assert f"imported backbone weights from {flags[1]}" in capsys.readouterr().out
+            np.testing.assert_array_equal(stats["backbone"]["stage5_block0"]["proj_norm"]["var"],
+                                          weights["layer4.0.downsample.1.running_var"].numpy())
+        return
     if flags[0] in ("--data-worker-procs", "--data-worker-timeout"):
         built, real = [], t_shm.build_shm_pipeline
 
@@ -220,7 +243,8 @@ def jax_snapshot(tmp_path_factory):
     coco = ["coco", str(root / "data"), "--train-annotations", "instances_train.json",
             "--train-images", "train", "--val-annotations", "instances_val.json", "--val-images", "val",
             *model, "--warmup-steps", "0", "--lr", "0.32", "--score-threshold", "0.001"]
-    return root, coco
+    yield root, coco
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_jax_snapshot_evaluates_in_port(jax_snapshot):

@@ -23,6 +23,7 @@ engine and against the JAX package's export of the same checkpoint.
 
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -61,7 +62,10 @@ from batchai_retinanet_horovod_coco_tpu_torch.serve import frontend as t_fronten
 from batchai_retinanet_horovod_coco_tpu_torch.serve.batcher import assemble_requests
 from batchai_retinanet_horovod_coco_tpu_torch.serve.common import ServeRequest
 from batchai_retinanet_horovod_coco_tpu_torch.serve.engine import DetectEngine
+from batchai_retinanet_horovod_coco_tpu_torch.train.optim import OptimizerConfig
+from batchai_retinanet_horovod_coco_tpu_torch.train.state import create_train_state
 from batchai_retinanet_horovod_coco_tpu_torch.utils.checkpoint import CheckpointManager
+from test_torch_train import drop_tmp_path  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the root convert_model.py
 import convert_model as j_convert  # noqa: E402
@@ -108,7 +112,8 @@ def snapshot(tmp_path_factory):
     state = like.replace(step=np.int32(7), params=params, batch_stats=batch_stats,
                          opt_state=tx.init(params))
     j_ckpt.CheckpointManager(str(root / "ckpt"), async_save=False).save(state, force=True)
-    return str(root / "ckpt"), model
+    yield str(root / "ckpt"), model
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -121,7 +126,8 @@ def exports(snapshot, tmp_path_factory):
                     "--batch-size", "1", "--platform", "cpu"])
     t_convert.main(["--snapshot-path", ckpt, "--output", str(root / "port"), *CONVERT,
                     "--batch-sizes", "1,2", "--device", "cpu"])
-    return str(root / "jax"), str(root / "port")
+    yield str(root / "jax"), str(root / "port")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -147,7 +153,8 @@ def bf16_export(tmp_path_factory):
             unittest.mock.patch.object(t_export, "atomic_write_text", recorder(t_export.atomic_write_text)):
         t_export.export_model(model, str(root / "exp"), (HW,), (1, 2), DCONFIG, device="cpu",
                               version="v-bf16")
-    return str(root / "exp"), model, writes
+    yield str(root / "exp"), model, writes
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -415,12 +422,42 @@ def test_server_runs_the_artifact_without_model_code_and_drains_on_sigterm(bf16_
 
 
 @pytest.mark.parametrize("flags", [
-    ["--platform", "cpu"], ["--platforms=cpu,tpu"], ["--backbone", "mobilenet"], ["--stem", "conv"],
+    ["--platform", "cpu"], ["--platforms=cpu,tpu"], ["--backbone", "vgg16"], ["--stem", "conv"],
 ], ids=["platform", "platforms", "backbone", "stem"])
-def test_convert_refusals_name_the_roadmap(flags, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        t_convert.main(["--snapshot-path", str(tmp_path), "--output", str(tmp_path / "out"),
-                        "--num-classes", "3", "--device", "cpu", *flags])
+def test_convert_refusals_name_the_roadmap(flags, tmp_path, served_files):
+    """``--platform(s)`` are refused, naming ``ROADMAP.md``.  A backbone
+    other than the ResNets and another stem, refused before, now convert: a
+    VGG-16 snapshot of the port (full-width FPN and heads, f32) and the
+    ``resnet_test`` snapshot under ``--stem conv`` export on the CPU, load
+    through ``DetectEngine.from_export`` and answer as the live engine on
+    the same weights, bit for bit."""
+    if flags[0].startswith("--platform"):
+        with pytest.raises(SystemExit, match="ROADMAP.md"):
+            t_convert.main(["--snapshot-path", str(tmp_path), "--output", str(tmp_path / "out"),
+                            "--num-classes", "3", "--device", "cpu", *flags])
+        return
+    backbone = flags[1] if flags[0] == "--backbone" else "resnet_test"
+    model = build_retinanet(RetinaNetConfig(num_classes=NUM_CLASSES, backbone=backbone,
+                                            dtype=torch.float32), device="cpu", seed=6)
+    with torch.no_grad():
+        model.cls_head.logits.weight.mul_(LOGIT_SCALE)
+    state = create_train_state(model, OptimizerConfig(), device="cpu")
+    manager = CheckpointManager(str(tmp_path / "ckpt"))
+    assert manager.save(state)
+    manager.close()
+    convert_flags = [a for a in CONVERT if a not in ("--backbone", "resnet_test")]
+    t_convert.main(["--snapshot-path", str(tmp_path / "ckpt"), "--output", str(tmp_path / "out"),
+                    *convert_flags, "--backbone", backbone, *flags, "--batch-sizes", "1",
+                    "--device", "cpu"])
+    loaded = DetectEngine.from_export(str(tmp_path / "out"), device="cpu")
+    live = DetectEngine.from_state(model, (HW,), (1,), t_detect.DetectConfig(score_threshold=0.001),
+                                   device="cpu", min_side=64, max_side=64)
+    batch = padded(decoded(served_files)[:1], 1)
+    got = loaded.fetch(loaded.dispatch(HW, batch))
+    want = live.fetch(live.dispatch(HW, batch))
+    for field in t_nms.Detections._fields:
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
+    assert int(got.valid.sum()) > 0
 
 
 def test_convert_defaults_and_card(tmp_path):

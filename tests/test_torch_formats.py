@@ -1,13 +1,16 @@
 """The codec's formats beyond sequential JPEG and plain PNG, against PIL:
-progressive JPEG, CMYK, YCCK and RGB-coded JPEG, interlaced and 16-bit
-PNG, and BMP (``native/imagecodec.cpp`` and ``data/image_io.py``).
+progressive JPEG (block-smoothed where its scans leave coefficients
+incomplete), CMYK, YCCK and RGB-coded JPEG, interlaced and 16-bit PNG, and
+BMP, RLE8 and RLE4 among them (``native/imagecodec.cpp`` and
+``data/image_io.py``).
 
 Tolerance: none.  Every image here decodes to PIL's pixels
 (``np.asarray(Image.open(f).convert("RGB"))``, PIL 12.1 over libjpeg-turbo)
 bit for bit, and ``read_size`` gives PIL's ``.size``.  The fixtures of
 ``tests/fixtures/formats/`` carry PIL's digests for machines without PIL;
-``make_fixtures.py`` there writes them and holds the PNG and BMP builders
-used here.  What stays refused raises ``ValueError`` naming the file.
+``make_fixtures.py`` there writes them and holds the PNG, BMP, RLE and
+cut-progressive builders used here.  What stays refused raises
+``ValueError`` naming the file.
 """
 
 import hashlib
@@ -59,7 +62,10 @@ def test_fixture_equals_its_digest_and_pil(name):
 def test_fixtures_cover_the_cases():
     data = {n: (FIXTURES / n).read_bytes() for n in DIGESTS}
     progressive = [n for n, d in data.items() if b"\xff\xc2" in d]
-    assert len(progressive) == 5 and DIGESTS["progressive_640x480.jpg"]["shape"] == [480, 640, 3]
+    assert len(progressive) == 8 and DIGESTS["progressive_640x480.jpg"]["shape"] == [480, 640, 3]
+    # Cut after scans 1, 3 and 6 of PIL's 10, so libjpeg block-smooths them.
+    assert {n: data[n].count(b"\xff\xda") for n in progressive if "cut" in n} == {
+        "progressive_cut1.jpg": 1, "progressive_cut3.jpg": 3, "progressive_cut6.jpg": 6}
     assert b"\xff\xdd" in data["progressive_restart.jpg"]  # DRI: a restart interval
     for name, transform in (("adobe_rgb.jpg", 0), ("cmyk.jpg", 0), ("ycck.jpg", 2)):
         adobe = data[name].index(b"Adobe")
@@ -72,6 +78,9 @@ def test_fixtures_cover_the_cases():
     bmps = [n for n in data if n.endswith(".bmp")]
     assert {struct.unpack_from("<H", data[n], 28 if struct.unpack_from("<I", data[n], 14)[0] > 12
                                else 24)[0] for n in bmps} == {1, 4, 8, 16, 24, 32}
+    rle = {n: struct.unpack_from("<I", data[n], 30)[0] for n in bmps if "rle" in n}
+    assert sorted(rle.values()) == [1, 1, 2, 2] and all(DIGESTS[n]["shape"][1] % 2 for n in rle)
+    assert all(b"\x00\x02" in data[n] for n in rle if "deltas" in n)  # delta escapes
     assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 150_000
 
 
@@ -169,18 +178,110 @@ def test_bmp_palette_short_and_full_equals_pil(bits, tmp_path):
             assert_equals_pil(make.bmp(rows, 13, bits, pal, top_down=top_down), tmp_path)
 
 
+# (h, w, PIL options, mode) of progressive files cut after each of their
+# scans: 4:2:0 with an odd count of luma block rows (the smoothing reads a
+# padding block row near the bottom), 4:2:2, 4:4:4, grey, CMYK, tiny and
+# restart intervals.
+CUT_CASES = [
+    (120, 160, dict(quality=95, subsampling=2), "RGB"),
+    (40, 56, dict(quality=92, subsampling=2), "RGB"),
+    (24, 24, dict(quality=75, subsampling=2), "RGB"),
+    (33, 47, dict(quality=90, subsampling=2), "RGB"),
+    (17, 9, dict(quality=50, subsampling=1), "RGB"),
+    (64, 64, dict(quality=92, subsampling=0), "RGB"),
+    (8, 8, dict(quality=80, subsampling=2), "RGB"),
+    (48, 40, dict(quality=30, subsampling=2, restart_marker_blocks=2), "RGB"),
+    (40, 56, dict(quality=92), "L"),
+    (41, 23, dict(quality=85), "L"),
+    (33, 47, dict(quality=90), "CMYK"),
+]
+
+
+@pytest.mark.parametrize("h,w,options,mode", CUT_CASES)
+def test_cut_progressive_jpeg_equals_pil(h, w, options, mode, tmp_path):
+    """Every prefix of a progressive file's scans, with an EOI: libjpeg
+    block-smooths what they leave incomplete, from the DC values of the 5x5
+    blocks around each block, the DC too while no AC scan has come."""
+    img = Image.fromarray(scene(h * 7 + w, h, w)).convert(mode)
+    buf = io.BytesIO()
+    img.save(buf, "JPEG", progressive=True, **options)
+    full = buf.getvalue()
+    for scans in range(1, full.count(b"\xff\xda")):
+        assert_equals_pil(make.cut_after_scan(full, scans), tmp_path)
+
+
+def random_rle_stream(rng: np.random.Generator, width: int, rle4: bool) -> bytes:
+    """Encoded and absolute runs (some past the row's end, some of an odd
+    count), ends of line, deltas and perhaps an end of bitmap, at random."""
+    out = bytearray()
+    for _ in range(int(rng.integers(1, 30))):
+        op = rng.integers(0, 10)
+        if op < 5:
+            out += bytes([int(rng.integers(1, 2 * width + 2)), int(rng.integers(0, 256))])
+        elif op < 6:
+            out += b"\x00\x00"
+        elif op < 7:
+            out += bytes([0, 2, int(rng.integers(0, 4)), int(rng.integers(0, 2))])
+        elif op < 9:
+            n = int(rng.integers(3, 2 * width + 3))
+            body = rng.integers(0, 256, (n + 1) // 2 if rle4 else n).astype(np.uint8).tobytes()
+            out += bytes([0, n]) + body + bytes(len(body) % 2)
+        else:
+            out += b"\x00\x01"
+    if rng.integers(4):
+        out += b"\x00\x01"
+    return bytes(out)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_random_rle_bmp_equals_pil(seed, tmp_path):
+    """RLE streams at random: each decodes to PIL's pixels, or both PIL and
+    the codec raise (a stream that ends before the image is full), the
+    codec's ValueError naming the file."""
+    rng = np.random.default_rng(seed)
+    decoded = 0
+    for _ in range(60):
+        rle4 = bool(rng.integers(2))
+        width, height = int(rng.integers(1, 12)), int(rng.integers(1, 8))
+        palette = rng.integers(0, 256, (16 if rle4 else int(rng.integers(2, 257)), 3)).tolist()
+        data = bytearray(make.bmp([b""] * height, width, 4 if rle4 else 8, palette,
+                                  top_down=bool(rng.integers(5) == 0)))
+        data += random_rle_stream(rng, width, rle4)
+        struct.pack_into("<I", data, 30, 2 if rle4 else 1)
+        data = bytes(data)
+        try:
+            want = pil_rgb(data)
+        except (OSError, ValueError):
+            want = None
+        path = tmp_path / "random.bmp"
+        path.write_bytes(data)
+        if want is None:
+            with pytest.raises(ValueError, match="RLE-compressed BMP") as info:
+                image_io.read_rgb(path)
+            assert str(path) in str(info.value)
+            continue
+        assert np.array_equal(image_io.read_rgb(path), want)
+        decoded += 1
+    assert decoded >= 20
+
+
+def test_rle_bmp_skips_and_short_rows_are_index_0(tmp_path):
+    """What a delta or an early end of line passes over is palette index 0,
+    as PIL has it; a delta's offsets are the two bytes after the four the
+    format defines; an encoded run is cut at the row's end."""
+    palette = [(200, 10, 10), (10, 200, 10), (10, 10, 200), (90, 90, 90)]
+    stream = bytes([3, 1, 0, 0, 2, 2, 0, 2, 9, 9, 1, 0, 1, 3, 0, 0, 7, 3, 0, 1])
+    data = bytearray(make.bmp([b""] * 3, 5, 8, palette))
+    data += stream
+    struct.pack_into("<I", data, 30, 1)
+    want = [[3, 3, 3, 3, 3], [2, 2, 0, 3, 0], [1, 1, 1, 0, 0]]  # top row first
+    got = image_io.decode(bytes(data))
+    assert np.array_equal(got, np.array(palette, np.uint8)[want])
+    assert np.array_equal(got, pil_rgb(bytes(data)))
+
+
 def jpeg_with_sof(marker: int, precision: int = 8) -> bytes:
     return b"\xff\xd8\xff" + bytes([marker]) + b"\x00\x0b" + bytes([precision]) + b"\x00\x10\x00\x10\x01\x01\x11\x00"
-
-
-def incomplete_progressive() -> bytes:
-    """A progressive file cut after its first scans: libjpeg would smooth
-    its blocks."""
-    buf = io.BytesIO()
-    Image.fromarray(scene(7, 32, 48)).save(buf, "JPEG", progressive=True)
-    data = buf.getvalue()
-    second_scan = data.index(b"\xff\xda", data.index(b"\xff\xda") + 2)
-    return data[:second_scan] + b"\xff\xd9"
 
 
 def pil_bytes(fmt: str) -> bytes:
@@ -189,23 +290,14 @@ def pil_bytes(fmt: str) -> bytes:
     return buf.getvalue()
 
 
-def rle_bmp(compression: int) -> bytes:
-    data = bytearray(make.bmp([bytes(4)] * 2, 4, 8 if compression == 1 else 4, [(0, 0, 0)] * 2))
-    struct.pack_into("<I", data, 30, compression)
-    return bytes(data)
-
-
 REFUSED = {
     "arithmetic-jpeg": (lambda: jpeg_with_sof(0xC9), r"SOF9"),
     "lossless-jpeg": (lambda: jpeg_with_sof(0xC3), r"lossless JPEG \(SOF3\)"),
     "hierarchical-jpeg": (lambda: jpeg_with_sof(0xC5), r"SOF5"),
     "12-bit-jpeg": (lambda: jpeg_with_sof(0xC1, 12), r"12-bit JPEG samples"),
-    "smoothed-progressive-jpeg": (incomplete_progressive, r"block smoothing"),
     "gif": (lambda: pil_bytes("GIF"), r"not a JPEG or PNG or BMP"),
     "tiff": (lambda: pil_bytes("TIFF"), r"not a JPEG or PNG or BMP"),
     "webp": (lambda: pil_bytes("WEBP"), r"not a JPEG or PNG or BMP"),
-    "rle8-bmp": (lambda: rle_bmp(1), r"RLE8-compressed BMP"),
-    "rle4-bmp": (lambda: rle_bmp(2), r"RLE4-compressed BMP"),
 }
 
 

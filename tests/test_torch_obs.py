@@ -52,7 +52,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.train import __main__ as t_train
 from batchai_retinanet_horovod_coco_tpu_torch.train import loop as t_loop
 from batchai_retinanet_horovod_coco_tpu_torch.utils import locks as t_locks
 
-from test_torch_train import small_model
+from test_torch_train import drop_tmp_path, small_model  # noqa: F401
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 PORT_DIR = REPO_ROOT / "batchai_retinanet_horovod_coco_tpu_torch"
