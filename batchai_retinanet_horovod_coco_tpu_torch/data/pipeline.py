@@ -23,8 +23,12 @@ bucket at the same size.  :func:`assemble` pads a list of examples into one
 batch; :func:`pad_batch` fills a short eval batch with padding rows.
 
 ``num_worker_procs > 0`` hands the decodes to worker processes instead
-(``shm_pipeline.py``): the same batches, bit for bit.  Not ported
-(``ROADMAP.md``): sharding over processes and host-side normalization.
+(``shm_pipeline.py``): the same batches, bit for bit.  In a data-parallel
+world each rank reads its shard: ``shard_index`` r of ``shard_count`` takes
+``records[r::shard_count]`` of the epoch's order, after the per-(seed,
+epoch) shuffle and the exclusions, and skips its own consumed batches, as
+the JAX package's ranks do.  Not ported (``ROADMAP.md``): host-side
+normalization.
 """
 from __future__ import annotations
 
@@ -269,6 +273,9 @@ class PipelineConfig:
     transform: TransformConfig | None = None
     shuffle: bool = True
     seed: int = 0
+    # Data-parallel sharding: this process sees records[shard_index::shard_count].
+    shard_index: int = 0
+    shard_count: int = 1
     # Decode threads.
     num_workers: int = 8
     # > 0: that many decode worker PROCESSES writing into shared-memory
@@ -342,8 +349,9 @@ def example_rng(config: PipelineConfig, train: bool, epoch: int, idx: int) -> np
 
 
 def epoch_indices(dataset, config: PipelineConfig, train: bool, epoch: int) -> list[int]:
-    """The record indices of ``epoch``, shuffled per (seed, epoch) for
-    training; ``config.exclude_ids`` leave holes after the shuffle."""
+    """This shard's record indices of ``epoch``, shuffled per (seed,
+    epoch) for training; ``config.exclude_ids`` leave holes after the
+    shuffle, before the sharding, so every shard sees the same holes."""
     idx = np.arange(len(dataset.records))
     if train and config.shuffle:
         np.random.default_rng(np.random.SeedSequence([config.seed, epoch])).shuffle(idx)
@@ -352,7 +360,7 @@ def epoch_indices(dataset, config: PipelineConfig, train: bool, epoch: int) -> l
         idx = np.asarray(
             [i for i in idx if int(dataset.records[i].image_id) not in excluded], dtype=np.int64
         )
-    return list(idx)
+    return list(idx[config.shard_index :: config.shard_count])
 
 
 def batch_plans(

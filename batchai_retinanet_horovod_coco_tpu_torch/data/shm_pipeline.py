@@ -19,7 +19,8 @@ Architecture
   plans batches with the same ``batch_plans`` / ``example_rng`` the thread
   path uses, assigns slots, and assembles finished batches IN SUBMISSION
   ORDER with the same ``assemble`` / ``pad_batch``, so for a fixed seed the
-  two paths give the same batches, bit for bit.
+  two paths give the same batches, bit for bit (a data-parallel rank's
+  shard, ``shard_index``/``shard_count``, included).
 - ``PipelineStats`` is counted at assembly, in the parent.
 
 Robustness contract (``tests/test_torch_shm_pipeline.py``):

@@ -6,7 +6,9 @@ package's ``evaluate.py``:
 The training command line with ``--eval-only`` (``train/__main__.py``), so
 the two cannot drift: it restores the latest checkpoint under
 ``--snapshot-path`` and prints the COCO stats, then the VOC ones (csv and
-pascal datasets).
+pascal datasets).  With the launch flags (``--num-devices N`` and the
+rest) the eval is sharded over a data-parallel world: each rank detects
+its slice of the val set, and the detections are gathered before scoring.
 """
 
 from __future__ import annotations

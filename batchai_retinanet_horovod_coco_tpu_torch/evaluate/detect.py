@@ -26,6 +26,11 @@ in the same order as the sequential path (``pipelined=False``):
    image as its batch arrives (``StreamingCocoEval``), behind a bounded
    queue, FIFO, with the error contract of the prefetch thread.
 
+In a data-parallel world each rank detects its own shard of the val set
+(the pipeline's ``shard_index``/``shard_count``) and
+:func:`allgather_process_detections` merges the shards, so every rank
+scores the same full list (rank 0 logs it).
+
 The stages heartbeat to ``obs/watchdog.py`` (``eval-device-prefetch``,
 ``eval-driver``, ``eval-consumer``) and span their work
 (``build_detect_fn``, ``detect_dispatch``, ``detect_fetch``,
@@ -439,6 +444,37 @@ def collect_detections(
         hb.close()
 
 
+def allgather_process_detections(results: list[dict], world) -> list[dict]:
+    """Every rank's COCO result dicts, merged in rank order: the JAX
+    package's cross-process gather of the sharded eval.  The dicts pack
+    into fixed-width arrays padded to the largest rank's count: the image
+    id as its two 32-bit halves and the category id (int64), the box and
+    score (f64, the values the dicts hold, so the merged list equals one
+    process's).  ``world`` None: the identity."""
+    if world is None:
+        return results
+    n = len(results)
+    ids = torch.zeros((n, 3), dtype=torch.int64)  # image id low, high; category id
+    vals = torch.zeros((n, 5), dtype=torch.float64)  # x, y, w, h, score
+    for i, r in enumerate(results):
+        image_id = int(r["image_id"])
+        ids[i] = torch.tensor([image_id & 0xFFFFFFFF, image_id >> 32, int(r["category_id"])])
+        vals[i] = torch.tensor([*r["bbox"], r["score"]])
+    counts = [int(c) for c in world.all_gather(torch.tensor([n], dtype=torch.int64))]
+    n_max = max(counts)
+    if n_max == 0:
+        return []
+    pad = n_max - n
+    ids_g = world.all_gather(torch.nn.functional.pad(ids, (0, 0, 0, pad)))
+    vals_g = world.all_gather(torch.nn.functional.pad(vals, (0, 0, 0, pad)))
+    merged: list[dict] = []
+    for count, rank_ids, rank_vals in zip(counts, ids_g, vals_g):
+        for (lo, hi, cat), v in zip(rank_ids[:count].tolist(), rank_vals[:count].tolist()):
+            merged.append({"image_id": lo | (hi << 32), "category_id": cat,
+                           "bbox": v[:4], "score": v[4]})
+    return merged
+
+
 def run_coco_eval(
     model: torch.nn.Module,
     dataset: CocoDataset,
@@ -450,6 +486,7 @@ def run_coco_eval(
     voc_weighted_average: bool = False,
     pipelined: bool = True,
     detect_fns: dict[tuple[int, int], Callable] | None = None,
+    world=None,
 ) -> dict[str, float]:
     """A full eval pass: detect everything, then COCO mAP's 12 stats
     (``AP``, ``AP50``, ...) from ``evaluate/coco_eval.py``.
@@ -459,18 +496,20 @@ def run_coco_eval(
     ``voc_metrics`` adds PASCAL-VOC AP@0.5 (``voc_*`` keys) from the same
     detections, its mean weighted by each class's annotation count with
     ``voc_weighted_average``.
-    One process: the JAX package's cross-process gather of detections is
-    the identity here.
+    ``world``: ``batches`` are this rank's shard of the val set; the
+    detections of every rank are gathered (:func:`allgather_process_detections`)
+    and scored after the gather, on every rank.
     """
     gt, img_ids = coco_gt_from_dataset(dataset)
     scorer = None
-    if pipelined:
+    if pipelined and world is None:
         scorer = StreamingCocoEval(gt, img_ids, cat_ids=list(dataset.label_to_cat_id.values()))
     dt = collect_detections(
         model, dataset, batches, config, device,
         pipelined=pipelined, detect_fns=detect_fns,
         on_batch=scorer.add if scorer is not None else None,
     )
+    dt = allgather_process_detections(dt, world)
     metrics = scorer.finish() if scorer is not None else evaluate_detections(gt, dt, img_ids=img_ids)
     if voc_metrics:
         metrics.update(evaluate_detections_voc(gt, dt, weighted_average=voc_weighted_average))

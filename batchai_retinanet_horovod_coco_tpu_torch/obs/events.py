@@ -143,11 +143,10 @@ def _cuda():
     return torch.cuda
 
 
-def _device_header_fields() -> dict[str, Any]:
+def _device_header_fields(process_index: int = 0, process_count: int = 1) -> dict[str, Any]:
     """device_kind/process fields for the run header — ONLY when CUDA is
-    already initialised (never force a device init from the logger).  One
-    process drives the port's card: process index 0 of 1.  As a side
-    effect, publishes the process index into the obs env contract, so
+    already initialised (never force a device init from the logger).  As a
+    side effect, publishes the process index into the obs env contract, so
     children spawned later inherit it."""
     cuda = _cuda()
     if cuda is None:
@@ -156,8 +155,8 @@ def _device_header_fields() -> dict[str, Any]:
         fields = {
             "device_kind": cuda.get_device_name(cuda.current_device()),
             "local_device_count": cuda.device_count(),
-            "process_index": 0,
-            "process_count": 1,
+            "process_index": process_index,
+            "process_count": process_count,
         }
     except Exception:
         return {}
@@ -168,8 +167,10 @@ def _device_header_fields() -> dict[str, Any]:
 class EventSink:
     """The run's structured sink: JSONL + stdout (``log``, ``close``,
     ``event``, ``gauge``, ``histogram``, ``log_device_memory``); writes the
-    ``run_header`` record on open.  TensorBoard is not ported (the CLI
-    refuses ``--tensorboard``)."""
+    ``run_header`` record on open.  In a data-parallel world only process 0
+    (``process_index``) writes; the header records ``process_index`` of
+    ``process_count``.  TensorBoard is not ported (the CLI refuses
+    ``--tensorboard``)."""
 
     def __init__(
         self,
@@ -177,8 +178,11 @@ class EventSink:
         stdout: bool = True,
         run_config: Mapping[str, Any] | None = None,
         filename: str = "metrics.jsonl",
+        process_index: int = 0,
+        process_count: int = 1,
     ):
-        self._enabled = True
+        self._process = {"process_index": int(process_index), "process_count": int(process_count)}
+        self._enabled = process_index == 0
         self._stdout = stdout
         self._jsonl = None
         # Serializes JSONL appends: the loop thread logs metrics while the
@@ -203,8 +207,9 @@ class EventSink:
             "argv": sys.argv,
             "config_digest": config_digest(run_config),
             "git_rev": _git_rev(),
+            **self._process,
         }
-        rec.update(_device_header_fields())
+        rec.update(_device_header_fields(**self._process))
         return rec
 
     def _write(self, rec: dict) -> None:

@@ -22,8 +22,10 @@ Names are the JAX package's: parameters under their flax leaf paths
 under the path flax's ``capture_intermediates`` gives a module's output
 (``['backbone']['stage3_block0']['conv2']['__call__'][0]``; a module
 called once per pyramid level, like a head, counts its calls), so a dump
-reads the same from either package.  The JAX package's
-``replica_agreement`` probe waits for multi-GPU training.
+reads the same from either package.
+- **Replica agreement** (a data-parallel step, ``replica_agreement``): the
+  min/max ratio of the ranks' LOCAL gradient norms before the all-reduce;
+  ~1 when the replicas agree, collapsing when one has silently diverged.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ class NumericsConfig:
 GRAD_NORM = "grad_norm"
 UPDATE_RATIO = "update_ratio"
 NONFINITE = "nonfinite_grads"
+REPLICA_AGREEMENT = "replica_agreement"
 GROUP_PREFIX = "gnorm/"
 
 #: Scalars whose non-finiteness the provenance pass attributes first, in
@@ -76,7 +79,7 @@ _EPS = 1e-16
 
 def numerics_metric_keys(scalars: Mapping[str, Any]) -> list[str]:
     """The summary's keys present in a metrics mapping (loop record site)."""
-    fixed = {GRAD_NORM, UPDATE_RATIO, NONFINITE}
+    fixed = {GRAD_NORM, UPDATE_RATIO, NONFINITE, REPLICA_AGREEMENT}
     return sorted(
         k for k in scalars if k in fixed or k.startswith(GROUP_PREFIX)
     )
@@ -144,6 +147,15 @@ def update_ratio(
     healthy run sits around 1e-3; ~1 means the update is rewriting the
     model, ~0 under a finite loss means the optimizer has stalled)."""
     return update_norm(before, after) / torch.clamp_min(param_norm, _EPS)
+
+
+def replica_agreement(local_norm: torch.Tensor, world) -> torch.Tensor:
+    """min/max ratio of the ranks' local gradient norms over ``world``
+    (``launch/pod.py::World``; one all-reduce), 1 where every norm is 0:
+    the JAX package's ``pmin``/``pmax`` probe."""
+    both = world.all_reduce(torch.stack([local_norm, -local_norm]).float(), op="max")
+    mx, mn = both[0], -both[1]
+    return torch.where(mx > 0, mn / torch.clamp_min(mx, _EPS), torch.ones_like(mx))
 
 
 def step_summary(

@@ -25,8 +25,8 @@ all of that is testable without sleeping (the watchdog's pattern).
 
 The monitor is read-only (it never sheds, kills, or throttles) and its
 poll thread is watchdog-registered: a wedged SLO monitor is itself a
-diagnosed stall.  ``ef_residual_spike`` waits for multi-GPU training
-(``ROADMAP.md``).
+diagnosed stall.  ``ef_residual_spike`` waits for the gradient-compression
+slice (``comm/``, ``ROADMAP.md``).
 """
 
 from __future__ import annotations

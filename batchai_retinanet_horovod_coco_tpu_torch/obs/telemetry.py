@@ -35,7 +35,7 @@ plus ``_count``/``_sum`` over the window; counters and gauges are the
 plain families.  ``parse_exposition`` is the matching reader.
 
 Not ported yet (``ROADMAP.md``): ``record_comm`` (the gradient-compression
-gauges wait for multi-GPU training).
+gauges wait for the ``comm/`` slice).
 """
 
 from __future__ import annotations
@@ -769,6 +769,11 @@ def _train_handles() -> dict[str, Any]:
                 "train_update_ratio",
                 "update-norm / param-norm at the last log window",
             ),
+            "replica_agreement": r.gauge(
+                "train_replica_agreement",
+                "min/max ratio of per-replica local grad norms "
+                "(1 = replicas agree; collapsing = silent desync)",
+            ),
             "nonfinite": r.counter(
                 "train_nonfinite_total",
                 "non-finite gradient elements observed + tripped "
@@ -811,12 +816,12 @@ def record_numerics(
     grad_norm: float | None = None,
     update_ratio: float | None = None,
     nonfinite: float | None = None,
+    replica_agreement: float | None = None,
 ) -> None:
     """The train loop's numerics record site (per log window — the
     ``train_step`` gauge from ``record_train_window`` at the same call
     site carries the step).  One bool check while telemetry is off;
-    absent fields (summary disabled) are skipped.  The JAX package's
-    ``replica_agreement`` waits for multi-GPU training."""
+    absent fields (summary disabled, a single-process run) are skipped."""
     if not _enabled:
         return
     g = _train_handles()
@@ -824,6 +829,8 @@ def record_numerics(
         g["grad_norm"].set(float(grad_norm))
     if update_ratio is not None and math.isfinite(update_ratio):
         g["update_ratio"].set(float(update_ratio))
+    if replica_agreement is not None and math.isfinite(replica_agreement):
+        g["replica_agreement"].set(float(replica_agreement))
     if nonfinite is not None and (
         not math.isfinite(nonfinite) or nonfinite > 0
     ):

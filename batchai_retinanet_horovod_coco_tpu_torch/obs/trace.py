@@ -350,29 +350,24 @@ def maybe_configure_from_env(process_label: str) -> bool:
     return True
 
 
+def set_process_index(index: int) -> None:
+    """Label this process's trace with its rank in a data-parallel world
+    (``process_index=<rank>``, and ``p<rank>:`` before the process label);
+    published in the obs env contract, so children started later inherit
+    it."""
+    os.environ[OBS_PINDEX_ENV] = str(int(index))
+
+
 def _process_index() -> int | None:
-    """Best-effort process index, with NO side effects: the env value a
-    parent published (``OBS_PINDEX_ENV``, the run header sets it), else
-    the rank of an already initialized ``torch.distributed`` group (only
-    when torch is already imported: this module never imports it).  None =
-    unknown."""
+    """The process index, with NO side effects: the env value that
+    :func:`set_process_index` or a parent published (``OBS_PINDEX_ENV``;
+    the run header sets it too).  None = unknown."""
     v = os.environ.get(OBS_PINDEX_ENV)
     if v is not None:
         try:
             return int(v)
         except ValueError:
             pass
-    import sys
-
-    torch = sys.modules.get("torch")
-    if torch is None:
-        return None
-    try:
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized():
-            return int(dist.get_rank())
-    except Exception:
-        return None
     return None
 
 

@@ -586,6 +586,10 @@ VOCABULARY: dict[str, dict] = {
         "kinds": ("series",),
         "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/obs/slo.py",),
     },
+    "train_replica_agreement": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
     "train_step": {
         "kinds": ("series",),
         "consumers": (),

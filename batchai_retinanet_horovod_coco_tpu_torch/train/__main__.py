@@ -1,13 +1,14 @@
-"""RetinaNet training from the command line, on one card: the JAX package's
-``train.py`` for the port.
+"""RetinaNet training from the command line, on one card or data-parallel
+over several, one process a card: the JAX package's ``train.py`` for the
+port.
 
     python -m batchai_retinanet_horovod_coco_tpu_torch.train coco <root> [flags]
     python -m batchai_retinanet_horovod_coco_tpu_torch.train synthetic --device cpu ...
 
 A dataset subcommand (``coco``, ``csv``, ``pascal``, ``synthetic``) and
 the flags of ``train.py``, each with its name and default, so a JAX
-command line for one device carries over unchanged; ``--device {cuda,cpu}``
-(default ``cuda``, which raises without a card) is the port's own.  The
+command line carries over unchanged; ``--device {cuda,cpu}`` (default
+``cuda``, which raises without a card) is the port's own.  The
 run: datasets → bucketed pipelines of decoded image files
 (``data/pipeline.py``; with ``--data-worker-procs N`` decoded by N worker
 processes over shared memory, ``data/shm_pipeline.py``) → the model, the optimizer (sgd's LR is ``--lr`` ×
@@ -17,11 +18,26 @@ a COCO eval (``evaluate/detect.py::run_coco_eval``, plus VOC AP for csv
 and pascal) → the final step and the last eval's stats.  ``--eval-only``
 restores the snapshot and evaluates it (``evaluate/__main__.py``).
 
+Data-parallel training (``launch/pod.py``, ``parallel/mesh.py``): one
+process a card, a ``torch.distributed`` group (NCCL on cards, gloo with
+``--device cpu``).  ``--num-devices N`` (0 = every card) starts N processes
+of this command line on this host and waits for them; ``--distributed-auto``
+joins the world that ``torchrun`` started this process in, and
+``--coordinator-address``, ``--num-processes`` and ``--process-id`` join
+one explicitly (in a joined world ``--num-devices`` is 0 or its size).
+``--batch-size`` is the global batch: each rank reads its shard of the
+data (``records[rank::size]``), the step averages the gradients, and rank
+0 alone logs and writes checkpoints (``shard_count`` in the manifest); the
+eval is sharded the same way and its detections gathered.  Adam's LR
+scales with the ranks (the reference's ``hvd.size()``).  The ``dp8`` and
+``pod`` presets are the JAX package's.
+
 The obs flags are the JAX command line's (``utils/cli.py::add_obs_flags``):
 ``--obs-trace``/``--obs-dir`` trace the run into the obs directory
 (``trace.json``, watchdog stack dumps; ``--log-dir`` defaults to it),
 ``--obs-port`` serves the live telemetry (``/metrics``, ``/healthz``,
-``/statusz``), ``--slo-rule`` adds SLO rules to the built-in ones, and
+``/statusz``; rank r of a world serves on port + r), ``--slo-rule`` adds
+SLO rules to the built-in ones, and
 ``--numerics`` puts the numerics summary into each step.  A non-finite
 loss writes ``NUMERICS_DUMP.json`` into the obs directory or ``--log-dir``
 before the run raises, and ``--auto-resume`` excludes its batch's image ids
@@ -38,10 +54,9 @@ state dict into the backbone (``models/import_weights.py``; the
 reference's recipe adds ``--norm frozen_bn``).
 
 Refused with a message naming ``ROADMAP.md``, since what they need is not
-ported: more than one device, spatial sharding, the sharded weight update
-and the quantized allreduce, the distributed launch flags, TensorBoard and
-``--debug-nans``.  The gradient-communication flags and ``--platform`` are
-left out; the ``dp8`` and ``pod`` presets too.
+ported: spatial sharding, the sharded weight update and the quantized
+allreduce, TensorBoard and ``--debug-nans``.  The gradient-communication
+flags and ``--platform`` are left out.
 """
 
 from __future__ import annotations
@@ -57,9 +72,18 @@ import numpy as np
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import default_buckets
+from batchai_retinanet_horovod_coco_tpu_torch.launch import (
+    DistributedConfig,
+    initialize_distributed,
+    run_local_world,
+    shard_info,
+    shutdown_distributed,
+)
 from batchai_retinanet_horovod_coco_tpu_torch.models.resnet import STEMS
 from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import BACKBONES, DEFAULT_STEM
+from batchai_retinanet_horovod_coco_tpu_torch.obs import trace
 from batchai_retinanet_horovod_coco_tpu_torch.obs.events import EventSink, emit_event
+from batchai_retinanet_horovod_coco_tpu_torch.parallel.mesh import local_batch_size, world_devices
 from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import (
     add_anchor_flags,
     add_data_pipeline_flags,
@@ -81,6 +105,15 @@ PRESETS: dict[str, dict] = {
         "num_devices": 1,
         "eval_every": 0,
         "schedule": "constant",
+    },
+    # single-host 8-card data-parallel training
+    "dp8": {"batch_size": 16, "num_devices": 8},
+    # multi-host, full COCO2017 at 1333x800
+    "pod": {
+        "batch_size": 256,
+        "num_devices": 0,  # 0 = every card of the world
+        "distributed_auto": True,
+        "steps": 90000 // 16,  # ~12 epochs at global batch 256
     },
     # COCO eval
     "eval": {"eval_only": True},
@@ -204,16 +237,21 @@ def build_parser() -> argparse.ArgumentParser:
         g.add_argument("--weighted-average", action="store_true",
                        help="weight the VOC mAP by per-class annotation counts (csv/pascal)")
 
-        g = sp.add_argument_group("distributed (not ported: one device)")
+        g = sp.add_argument_group("distributed (one process a card)")
         g.add_argument("--num-devices", type=int, default=1,
-                       help="devices in the data mesh; 0 = all; only one is ported")
+                       help="cards in the data world, one process each; 0 = all")
         g.add_argument("--shard-weight-update", action="store_true", help="not ported")
         g.add_argument("--quantized-allreduce", action="store_true", help="not ported")
         g.add_argument("--spatial-shards", type=int, default=1, help="not ported: only 1")
-        g.add_argument("--distributed-auto", action="store_true", help="not ported")
-        g.add_argument("--coordinator-address", default=None, help="not ported")
-        g.add_argument("--num-processes", type=int, default=None, help="not ported")
-        g.add_argument("--process-id", type=int, default=None, help="not ported")
+        g.add_argument("--distributed-auto", action="store_true",
+                       help="join the world torchrun started (RANK, WORLD_SIZE, LOCAL_RANK, "
+                            "MASTER_ADDR, MASTER_PORT)")
+        g.add_argument("--coordinator-address", default=None,
+                       help="host:port of rank 0's store (or a tcp:// or file:// URL)")
+        g.add_argument("--num-processes", type=int, default=None)
+        g.add_argument("--process-id", type=int, default=None)
+        # Where a rank started by --num-devices writes its result (JSON).
+        g.add_argument("--world-result", default=argparse.SUPPRESS, help=argparse.SUPPRESS)
     return p
 
 
@@ -235,27 +273,41 @@ def parse_args(argv=None):
 def refuse_unported(args) -> None:
     """Raise ``SystemExit`` naming every flag whose setting needs what the
     port does not have yet."""
-    devices = args.num_devices
-    if devices == 0:
-        devices = torch.cuda.device_count() if args.device == "cuda" else 1
     unported = {
-        f"--num-devices {args.num_devices}": devices > 1,
         f"--spatial-shards {args.spatial_shards}": args.spatial_shards != 1,
         "--quantized-allreduce": args.quantized_allreduce,
         "--shard-weight-update": args.shard_weight_update,
-        "--distributed-auto": args.distributed_auto,
-        "--coordinator-address": args.coordinator_address is not None,
-        "--num-processes": args.num_processes is not None,
-        "--process-id": args.process_id is not None,
         "--tensorboard": args.tensorboard,
         "--debug-nans": args.debug_nans,
     }
     refused = [flag for flag, hit in unported.items() if hit]
     if refused:
         raise SystemExit(
-            f"{', '.join(refused)}: not ported to the PyTorch package yet (it trains on one "
-            "card); see ROADMAP.md"
+            f"{', '.join(refused)}: not ported to the PyTorch package yet (it trains "
+            "data-parallel, one process a card); see ROADMAP.md"
         )
+
+
+def distributed_config(args) -> DistributedConfig:
+    """The world the flags join (``launch/pod.py``): torchrun's with
+    ``--distributed-auto``, an explicit one with ``--coordinator-address``,
+    ``--num-processes`` and ``--process-id``, else none (one process, or
+    the ranks that ``--num-devices`` starts)."""
+    explicit = (args.coordinator_address, args.num_processes, args.process_id)
+    if args.distributed_auto and any(v is not None for v in explicit):
+        raise SystemExit("--distributed-auto joins torchrun's world: drop --coordinator-address, "
+                         "--num-processes and --process-id")
+    if not args.distributed_auto and any(v is not None for v in explicit) \
+            and any(v is None for v in explicit):
+        raise SystemExit("--coordinator-address, --num-processes and --process-id join a world "
+                         "together: pass all three")
+    return DistributedConfig(
+        auto=args.distributed_auto,
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes,
+        process_id=args.process_id,
+        device=args.device,
+    )
 
 
 def make_datasets(args):
@@ -316,7 +368,8 @@ class RunLog:
     """The loop's ``log(step, scalars)`` over an ``EventSink``: one JSON
     line a record on stdout, and in ``--log-dir``'s ``metrics.jsonl`` the
     sink's records (``train/<k>``, and ``eval/<k>`` for the eval's stats);
-    ``event`` is the sink's.  Keeps the last eval's stats."""
+    ``event`` is the sink's.  Keeps the last eval's stats.  In a world the
+    loop calls it on rank 0 only."""
 
     def __init__(self, sink: EventSink):
         self.sink = sink
@@ -339,9 +392,10 @@ class RunLog:
         self.sink.close()
 
 
-def _start_telemetry(args, sink: EventSink):
+def _start_telemetry(args, sink: EventSink, rank: int = 0):
     """The ``--obs-port`` status server over the process registry the loop
-    feeds, and the SLO monitor (the built-in rules, then ``--slo-rule``'s),
+    feeds (rank r of a world on ``--obs-port`` + r; 0 stays any free
+    port), and the SLO monitor (the built-in rules, then ``--slo-rule``'s),
     its violations into the run's ``metrics.jsonl``.  Returns ``(server,
     monitor)``, each None when neither flag is given; the caller closes
     both.  A port that cannot bind raises."""
@@ -353,7 +407,8 @@ def _start_telemetry(args, sink: EventSink):
     telemetry.enable()  # arm the loop's push record sites
     server = None
     if args.obs_port is not None:
-        server = telemetry.start_http_server(telemetry.default(), port=args.obs_port)
+        port = args.obs_port + rank if args.obs_port else args.obs_port
+        server = telemetry.start_http_server(telemetry.default(), port=port)
         print(f"obs: telemetry on http://{server.host}:{server.port} "
               "(/metrics /healthz /statusz)", flush=True)
     try:
@@ -395,7 +450,7 @@ def _read_poison_ids(exc: FloatingPointError) -> list[int]:
     return [int(i) for i in dump.get("batch_image_ids") or []]
 
 
-def _elastic_plan(args) -> dict:
+def _elastic_plan(args, is_main: bool = True) -> dict:
     """--resume-elastic: where the checkpointed run's stream stopped,
     ``{"skip", "data_seed", "exclude_ids", "stream_base_step"}``: one batch
     a step, so the position is ``step - stream_base_step``.  The batch size
@@ -428,7 +483,7 @@ def _elastic_plan(args) -> dict:
     plan["exclude_ids"] = tuple(int(i) for i in (meta.get("exclude_ids") or []))
     plan["stream_base_step"] = base
     plan["skip"] = max(0, int(manifest.get("step") or 0) - base)
-    if plan["skip"] or base:
+    if (plan["skip"] or base) and is_main:
         print(json.dumps({
             "event": "elastic_resume",
             "restored_step": int(manifest.get("step") or 0),
@@ -436,6 +491,7 @@ def _elastic_plan(args) -> dict:
             "stream_base_step": base,
             "data_seed": plan["data_seed"],
             "excluded": len(plan["exclude_ids"]),
+            "saved_world": meta.get("shard_count"),
         }), flush=True)
     return plan
 
@@ -471,18 +527,44 @@ class _NanInjector:
 def main(argv=None) -> dict[str, float]:
     """Run the command line ``argv``; returns the metrics: the eval's stats
     for ``--eval-only``, else ``final_step`` and the last eval's stats
-    under ``eval/`` names."""
+    under ``eval/`` names (rank 0's, for a world this call started)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     refuse_unported(args)
+    config = distributed_config(args)
+    if not config.joins:
+        ranks = 1 if args.num_devices == 1 else world_devices(args.num_devices, args.device)
+        local_batch_size(args.batch_size, ranks)
+        if ranks > 1:
+            # One process a card: this command line again as each rank.
+            return run_local_world("batchai_retinanet_horovod_coco_tpu_torch.train", argv, ranks)[0]
+    world = initialize_distributed(config)
+    try:
+        if world is not None and args.num_devices not in (0, world.size):
+            raise SystemExit(f"--num-devices {args.num_devices} in a world of {world.size} "
+                             f"processes (one a card): pass {world.size} or 0")
+        if world is not None:
+            trace.set_process_index(world.rank)
+        out = _observed(args, world)
+    finally:
+        shutdown_distributed(world)
+    result_path = getattr(args, "world_result", None)
+    if result_path:
+        with open(result_path, "w") as f:
+            json.dump(out, f)
+    return out
+
+
+def _observed(args, world) -> dict[str, float]:
     # The obs layer comes up before any thread starts; its finalize runs
     # even when the run dies (the partial trace is the post-mortem).
     obs_dir = configure_obs(args, process_label="train")
     if obs_dir is None:
-        return _run(args)
+        return _run(args, world)
     if not args.log_dir:
         args.log_dir = obs_dir  # the events land beside the trace
     try:
-        return _run(args)
+        return _run(args, world)
     finally:
         from batchai_retinanet_horovod_coco_tpu_torch import obs
 
@@ -494,7 +576,7 @@ def main(argv=None) -> dict[str, float]:
                   "chrome://tracing)", flush=True)
 
 
-def _run(args) -> dict[str, float]:
+def _run(args, world) -> dict[str, float]:
 
     from batchai_retinanet_horovod_coco_tpu_torch.data import (
         PipelineConfig,
@@ -516,7 +598,10 @@ def _run(args) -> dict[str, float]:
     )
     from batchai_retinanet_horovod_coco_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if world is None else world.device
+    shard_index, shard_count = shard_info(world)
+    is_main = shard_index == 0
+    local_batch = local_batch_size(args.batch_size, shard_count)
     train_ds, val_ds = make_datasets(args)
     num_classes = train_ds.num_classes
     # Gt padding sized to the data (silent truncation poisons targets); an
@@ -527,7 +612,7 @@ def _run(args) -> dict[str, float]:
 
     # Persisted on fresh training, so eval and resume never need the flags.
     anchor_config = resolve_anchor_config(args, args.snapshot_path, fresh=args.no_resume)
-    if args.snapshot_path and not args.eval_only:
+    if args.snapshot_path and not args.eval_only and is_main:
         save_anchor_config(args.snapshot_path, anchor_config)
     model_config = RetinaNetConfig(
         num_classes=num_classes,
@@ -542,6 +627,7 @@ def _run(args) -> dict[str, float]:
         optimizer=args.optimizer,
         base_lr=args.lr,
         global_batch_size=args.batch_size,
+        world_size=shard_count,
         warmup_steps=args.warmup_steps,
         total_steps=args.steps,
         schedule=args.schedule,
@@ -586,8 +672,9 @@ def _run(args) -> dict[str, float]:
     def eval_fn(model: torch.nn.Module) -> dict[str, float]:
         val_batches = build_pipeline(
             val_ds,
-            PipelineConfig(batch_size=args.batch_size, shuffle=False, hflip_prob=0.0,
-                           seed=args.seed, **pipe_common),
+            PipelineConfig(batch_size=local_batch, shuffle=False, hflip_prob=0.0,
+                           seed=args.seed, shard_index=shard_index, shard_count=shard_count,
+                           **pipe_common),
             train=False,
         )
         try:
@@ -596,24 +683,27 @@ def _run(args) -> dict[str, float]:
                 model, val_ds, val_batches, detect_config, device,
                 voc_metrics=args.dataset_type in ("csv", "pascal"),
                 voc_weighted_average=args.weighted_average,
+                world=world,
             )
         finally:
             val_batches.close()
 
-    log = RunLog(EventSink(args.log_dir, stdout=False, run_config=vars(args)))
+    log = RunLog(EventSink(args.log_dir, stdout=False, run_config=vars(args),
+                           process_index=shard_index, process_count=shard_count))
     if args.obs_trace or args.obs_dir:
         # Stall diagnoses land in metrics.jsonl beside the metrics they
         # interrupt.
         from batchai_retinanet_horovod_coco_tpu_torch.obs import watchdog
 
         watchdog.default().sink = log.sink
-    telem_server, slo_monitor = _start_telemetry(args, log.sink)
+    telem_server, slo_monitor = _start_telemetry(args, log.sink, shard_index)
     try:
         if args.eval_only:
             if args.snapshot_path:
-                CheckpointManager(args.snapshot_path).restore(state)
+                CheckpointManager(args.snapshot_path, world=world).restore(state)
             metrics = eval_fn(state.model)
-            log(state.step, {f"eval/{k}": float(v) for k, v in metrics.items()})
+            if is_main:
+                log(state.step, {f"eval/{k}": float(v) for k, v in metrics.items()})
             return metrics
 
         # The manifest records the stream's facts, so --resume-elastic can
@@ -621,13 +711,13 @@ def _run(args) -> dict[str, float]:
         ckpt_metadata = {
             "global_batch_size": args.batch_size,
             "data_seed": args.seed,
-            "shard_count": 1,
+            "shard_count": shard_count,
             "stream_base_step": 0,
             "exclude_ids": [],
         }
         skip_batches, data_seed, exclude_ids = 0, args.seed, ()
         if args.resume_elastic and args.snapshot_path and not args.no_resume:
-            plan = _elastic_plan(args)
+            plan = _elastic_plan(args, is_main)
             skip_batches, data_seed, exclude_ids = plan["skip"], plan["data_seed"], plan["exclude_ids"]
             ckpt_metadata.update(data_seed=data_seed, exclude_ids=list(exclude_ids),
                                  stream_base_step=plan["stream_base_step"])
@@ -655,9 +745,9 @@ def _run(args) -> dict[str, float]:
         while True:
             train_batches = build_pipeline(
                 train_ds,
-                PipelineConfig(batch_size=args.batch_size, shuffle=True, transform=transform,
+                PipelineConfig(batch_size=local_batch, shuffle=True, transform=transform,
                                seed=data_seed, skip_batches=skip_batches, exclude_ids=exclude_ids,
-                               **pipe_common),
+                               shard_index=shard_index, shard_count=shard_count, **pipe_common),
                 train=True,
             )
             batches = train_batches
@@ -666,12 +756,12 @@ def _run(args) -> dict[str, float]:
             try:
                 state = run_training(
                     state, batches, num_classes, loop_config, anchor_config=anchor_config,
-                    log=log, eval_fn=eval_fn if run_eval else None,
+                    log=log, eval_fn=eval_fn if run_eval else None, world=world,
                 )
                 break
             except FloatingPointError as exc:
                 attempt += 1
-                restored = latest_step(args.snapshot_path) if args.snapshot_path else None
+                restored = latest_step(args.snapshot_path, world) if args.snapshot_path else None
                 if (not args.auto_resume or attempt > args.max_auto_resumes or args.no_resume
                         or restored is None):
                     raise

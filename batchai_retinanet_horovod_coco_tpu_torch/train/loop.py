@@ -1,5 +1,5 @@
-"""The training loop, as the JAX package's ``train/loop.py::run_training``
-on one process.
+"""The training loop, as the JAX package's ``train/loop.py::run_training``,
+on one process or as one rank of a data-parallel world.
 
 In order: restore the latest valid checkpoint (``resume``); prefetch host
 batches to the device; run the step of each batch's shape bucket (one step
@@ -23,6 +23,17 @@ Observability, as the JAX loop: the spans ``data_wait``, ``step``,
 the log cadence only, the telemetry record sites (``record_train_window``,
 ``record_compile``, ``record_numerics``) and a ``numerics`` event with the
 summary of ``LoopConfig.numerics``.
+
+In a world (``world``, ``launch/pod.py::World``) each rank feeds its shard
+of every global batch to the world's step (``train/step.py``); the metrics
+it reads are the world's (the mean loss over the ranks), so a non-finite
+one stops every rank at the same step.  ``images_per_sec`` counts the
+global batch.  Rank 0 alone logs and writes checkpoints; every rank
+restores the same step.  The provenance dump names the image ids of the
+global batch, gathered from the ranks, and rank 0 writes it.  An
+``async_eval`` falls back to a synchronous one, with a warning: an eval
+thread's gather of detections could interleave with the steps'
+all-reduces.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import warnings
 from collections.abc import Callable, Iterable, Iterator
 from typing import Any
 
+import numpy as np
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch import losses as losses_lib
@@ -222,6 +234,16 @@ class _AsyncEvalRunner:
             warnings.warn(f"async eval failed during loop unwind: {exc!r}")
 
 
+class _Silent:
+    """The ``log`` of a rank other than 0: records nothing."""
+
+    def __call__(self, step: int, scalars: dict[str, float]) -> None:
+        pass
+
+    def event(self, kind: str, **fields) -> None:
+        pass
+
+
 class NonFiniteError(FloatingPointError):
     """A tripped finite-check: ``metric`` was non-finite at or before
     ``step``; ``dump_path`` is the ``NUMERICS_DUMP.json`` this trip wrote,
@@ -244,13 +266,20 @@ def _abort_nonfinite(
     metrics: dict[str, Any],
     config: LoopConfig,
     log: Log,
+    world=None,
 ) -> None:
     """Raise ``NonFiniteError`` for a tripped finite-check, after the
     provenance pass (on the poisoned model and batch, where they lie) has
     written ONE ``NUMERICS_DUMP.json``.  A failing pass never replaces the
     error: it is printed as a ``numerics_dump_error`` line and chained as
-    the error's cause."""
+    the error's cause.  In a world every rank trips at the same step: the
+    dump holds the global batch's image ids, rank 0 writes it, and every
+    rank's error names it once it has landed."""
     dump_path, first, dump_error = None, None, None
+    if world is not None:
+        image_ids = [int(i) for ids in world.all_gather(
+            torch.as_tensor(np.asarray(image_ids, dtype=np.int64))) for i in ids.tolist()]
+    writer = world is None or world.is_main
     try:
         dump = numerics_lib.provenance(
             step=step, metrics=metrics, model=model, images=images, image_ids=image_ids,
@@ -261,12 +290,16 @@ def _abort_nonfinite(
         # The file needs a configured home: a bare run gets the
         # localization in the message only.
         target_dir = config.numerics_dump_dir or trace.trace_dir()
-        if target_dir:
+        if target_dir and writer:
             dump_path = numerics_lib.write_dump(dump, target_dir)
+        elif target_dir:
+            dump_path = os.path.join(target_dir, numerics_lib.DUMP_NAME)
     except Exception as e:
         dump_error = e
         print(json.dumps({"event": "numerics_dump_error", "error": repr(e)[:500]}),
               file=sys.stderr, flush=True)
+    if world is not None:
+        world.barrier()
     # The trip lands on every read surface: the trace, the telemetry
     # counter (the nonfinite SLO rule), the run's event log.
     trace.instant("numerics_trip", metric=name, step=step, value=float(value))
@@ -302,6 +335,7 @@ def run_training(
     anchor_config: anchors_lib.AnchorConfig | None = None,
     log: Log = _print_log,
     eval_fn: EvalFn | None = None,
+    world=None,
 ) -> TrainState:
     """Run ``state`` on to step ``config.total_steps``; returns the state.
 
@@ -314,9 +348,14 @@ def run_training(
     ``numerics`` and ``numerics_trip`` events.  ``eval_fn(model) ->
     metrics`` is called every ``eval_every`` steps and at the end, with the
     live model or, for an asynchronous eval, a snapshot; its metrics are
-    logged under ``eval/`` names.
+    logged under ``eval/`` names.  ``world``: this process is one rank of
+    that data-parallel world (module docstring); ``batches`` are its
+    shard, and only rank 0 calls ``log``.
     """
     device = next(state.model.parameters()).device
+    is_main = world is None or world.is_main
+    if not is_main:
+        log = _Silent()
     ckpt = None
     if config.checkpoint_every and config.checkpoint_dir:
         ckpt = CheckpointManager(
@@ -324,18 +363,21 @@ def run_training(
             max_to_keep=config.max_to_keep,
             save_interval_steps=config.checkpoint_every,
             metadata=config.ckpt_metadata,
+            world=world,
         )
-        if config.resume and ckpt.latest_step() is not None:
+        resume_step = ckpt.latest_step() if config.resume else None
+        if resume_step is not None:
             try:
                 with trace.span("ckpt_restore"):
-                    ckpt.restore(state)
+                    ckpt.restore(state, resume_step)
             except Exception as e:
                 raise RuntimeError(
                     f"restoring {config.checkpoint_dir} failed (root cause chained): a shape "
                     "mismatch means another model or optimizer was checkpointed there; "
                     "otherwise every checkpoint in it is torn (ckpt_torn_skipped on stderr)"
                 ) from e
-            print(f"resumed from step {state.step}", flush=True)
+            if is_main:
+                print(f"resumed from step {state.step}", flush=True)
 
     step_fns: dict[tuple[int, int], Callable[..., dict[str, Any]]] = {}
     numerics_config = numerics_lib.NumericsConfig(enabled=config.numerics)
@@ -349,7 +391,14 @@ def run_training(
     )
     prof_end = min(config.total_steps, prof_start + config.profile_steps - 1)
     profiler = None
-    eval_runner = _AsyncEvalRunner(eval_fn, log, device) if config.async_eval and eval_fn else None
+    eval_runner = None
+    if config.async_eval and eval_fn is not None:
+        if world is not None:
+            warnings.warn("async_eval in a data-parallel world: the evals run synchronously "
+                          "(an eval thread's gather could interleave with the steps' all-reduces)")
+        else:
+            eval_runner = _AsyncEvalRunner(eval_fn, log, device)
+    images_per_batch = 1 if world is None else world.size
     window_t0, window_images, window_steps, window_wait = monotonic_s(), 0, 0, 0.0
     check_every = config.log_every or _FINITE_CHECK_EVERY
     cadence = f"every {check_every} steps and before each checkpoint save"
@@ -366,7 +415,7 @@ def run_training(
         if hit is not None:
             _abort_nonfinite(
                 hit[0], hit[1], step, cadence, model=state.model, images=images,
-                image_ids=image_ids, metrics=metrics, config=config, log=log,
+                image_ids=image_ids, metrics=metrics, config=config, log=log, world=world,
             )
 
     try:
@@ -386,7 +435,7 @@ def run_training(
                 t_build = monotonic_s()
                 step_fn = step_fns[hw] = make_train_step(
                     state.model, hw, num_classes, loss_config, matching_config,
-                    anchor_config, device, numerics=numerics_config,
+                    anchor_config, device, numerics=numerics_config, world=world,
                 )
                 telemetry.record_compile(f"{hw[0]}x{hw[1]}", monotonic_s() - t_build)
             if config.profile_dir and step == prof_start:
@@ -406,7 +455,7 @@ def run_training(
                     os.path.join(config.profile_dir, f"trace-steps-{prof_start}-{prof_end}.json")
                 )
                 profiler = None
-            window_images += shape[0]
+            window_images += shape[0] * images_per_batch  # the global batch
             window_steps += 1
 
             is_log = (config.log_every and step % config.log_every == 0) or step == config.total_steps
@@ -437,6 +486,7 @@ def run_training(
                     grad_norm=scalars.get(numerics_lib.GRAD_NORM),
                     update_ratio=scalars.get(numerics_lib.UPDATE_RATIO),
                     nonfinite=scalars.get(numerics_lib.NONFINITE),
+                    replica_agreement=scalars.get(numerics_lib.REPLICA_AGREEMENT),
                 )
                 if config.numerics and log_event is not None:
                     num_keys = numerics_lib.numerics_metric_keys(scalars)

@@ -1,6 +1,7 @@
-"""The single-device train step, as the JAX package's ``train/step.py``
-(``_forward_and_loss`` and the step body of ``make_train_step`` without a
-mesh).
+"""The train step, as the JAX package's ``train/step.py``
+(``_forward_and_loss`` and the step bodies of ``make_train_step``): on one
+device, or as one rank of a data-parallel world (the ``shard_map`` +
+``pmean`` step over the ``data`` axis).
 
 The path is the one the JAX package takes with its fused kernels on:
 the head outputs concatenated to (B, A, K), targets from
@@ -9,6 +10,17 @@ the head outputs concatenated to (B, A, K), targets from
 card).  The step records the pre-clip global gradient norm, which the clip
 reuses, and the post-update parameter norm; with ``numerics`` enabled, the
 numerics summary of ``obs/numerics.py`` too.
+
+In a world (``launch/pod.py::World``) each rank runs its share of the
+global batch through the model's replica (``parallel/mesh.py::replicate``),
+whose hook averages each gradient bucket over the ranks while the backward
+runs; the loss metrics are then averaged and ``num_pos`` summed, and each
+rank's BatchNorm statistics, updated from its own images, are averaged,
+all in one all-reduce.  ``grad_norm`` is the norm of the averaged
+gradients, the one the clip uses, and every rank applies the same update,
+so the parameters stay bit-identical.  With the numerics summary on,
+``replica_agreement`` compares the ranks' local gradient norms before the
+reduce.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.evaluate import detect as detect_l
 from batchai_retinanet_horovod_coco_tpu_torch.obs import numerics as numerics_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import anchors as anchors_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as matching_lib
+from batchai_retinanet_horovod_coco_tpu_torch.parallel import mesh
 from batchai_retinanet_horovod_coco_tpu_torch.train import optim
 from batchai_retinanet_horovod_coco_tpu_torch.train.state import TrainState
 from batchai_retinanet_horovod_coco_tpu_torch.utils.device import resolve_device
@@ -78,8 +91,10 @@ def make_train_step(
     anchor_config: anchors_lib.AnchorConfig | None = None,
     device: str | torch.device = "cuda",
     numerics: numerics_lib.NumericsConfig = numerics_lib.NumericsConfig(),
+    world=None,
 ) -> Callable[..., dict[str, torch.Tensor]]:
-    """The train step for one shape bucket, on one device.
+    """The train step for one shape bucket, on one device or (``world``)
+    as one rank of a data-parallel world (module docstring).
 
     The returned ``step(state, batch, mark=None)`` takes a batch dict of
     ``images`` (B, H, W, 3), ``gt_boxes`` (B, G, 4), ``gt_labels`` and
@@ -104,6 +119,8 @@ def make_train_step(
             f"the model has {model.config.num_classes} classes, the step {num_classes}"
         )
     anchors = detect_lib.anchors_on(image_hw, anchor_config or anchors_lib.AnchorConfig(), device)
+    replica = model if world is None else mesh.replicate(model, world)
+    stats = [] if world is None else mesh.batch_statistics(model)
     named = list(model.named_parameters())
     params = [p for _, p in named]
     before = flat = None
@@ -126,11 +143,19 @@ def make_train_step(
             )
         model.train()
         model.zero_grad(set_to_none=True)
+        if world is not None:
+            replica.grad_probe.reset()
         metrics = forward_and_loss(
-            model, batch["images"], batch["gt_boxes"], batch["gt_labels"],
+            replica, batch["images"], batch["gt_boxes"], batch["gt_labels"],
             batch["gt_mask"], anchors, loss_config, matching_config, mark,
         )
         metrics["loss"].backward()
+        if world is not None:
+            mesh.average_over_ranks(world, metrics, stats)
+            if numerics.enabled:
+                metrics[numerics_lib.REPLICA_AGREEMENT] = numerics_lib.replica_agreement(
+                    replica.grad_probe.local_norm(), world
+                )
         if mark is not None:
             mark("backward")
         grads = [p.grad for p in params if p.grad is not None]

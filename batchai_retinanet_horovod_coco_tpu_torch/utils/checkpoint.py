@@ -31,6 +31,14 @@ are the ``ckpt_snapshot`` and ``ckpt_write`` spans; the writer heartbeats
 as ``ckpt-writer`` and feeds ``obs/telemetry.py``'s checkpoint gauges
 (``record_ckpt_save``, ``record_ckpt_inflight``).
 
+**In a data-parallel world** (``world``, ``launch/pod.py::World``) rank 0
+alone writes (the others hold the same state) and the manifest's metadata
+records the world (``shard_count``, which the command line sets); every rank
+restores the step rank 0 chose, and ``wait()`` and ``close()`` end in a
+barrier, so no rank reads a step before rank 0's write of it has landed.
+The format does not depend on the world: a checkpoint of one world size
+restores in another, and in the JAX package.
+
 **Restoring a pod's checkpoint**: a manifest whose ``zero_world_size`` is
 set holds each optimizer leaf as a flat zero-padded ``(N * chunk,)`` array
 (the JAX package's ZeRO layout); ``restore`` re-lays it into this state's
@@ -176,10 +184,15 @@ def scan_checkpoints(directory: str) -> list[tuple[int, str]]:
     return [(s, p) for s, p, _ in _scan_validated(directory)]
 
 
-def latest_step(directory: str) -> int | None:
-    """The latest restorable step under ``directory``, or None."""
+def latest_step(directory: str, world=None) -> int | None:
+    """The latest restorable step under ``directory``, or None; in a
+    ``world``, rank 0's answer on every rank."""
     ckpts = scan_checkpoints(directory)
-    return ckpts[-1][0] if ckpts else None
+    step = ckpts[-1][0] if ckpts else None
+    if world is None:
+        return step
+    step = world.broadcast_int(-1 if step is None else step)
+    return None if step < 0 else step
 
 
 def read_manifest(directory: str, step: int | None = None) -> dict | None:
@@ -286,7 +299,8 @@ class CheckpointManager:
     docstring.
 
     ``metadata`` is recorded in every manifest.  ``save()`` then ``wait()``
-    is a synchronous save.  Restores check each leaf's crc32.
+    is a synchronous save.  Restores check each leaf's crc32.  ``world``:
+    rank 0 writes, all restore the same step (module docstring).
     """
 
     def __init__(
@@ -295,12 +309,16 @@ class CheckpointManager:
         max_to_keep: int = 3,
         save_interval_steps: int = 1,
         metadata: Mapping[str, Any] | None = None,
+        world=None,
     ):
         self._directory = directory
         self._max_to_keep = max_to_keep
         self._interval = max(1, int(save_interval_steps))
         self._metadata = dict(metadata or {})
-        os.makedirs(directory, exist_ok=True)
+        self._world = world
+        self._is_writer = world is None or world.is_main
+        if self._is_writer:
+            os.makedirs(directory, exist_ok=True)
         self._lock = threading.Lock()
         self._error: BaseException | None = None
         self._last_queued: int | None = latest_step(directory)
@@ -334,6 +352,9 @@ class CheckpointManager:
         step = state.step if step is None else int(step)
         if not force and not self.should_save(step):
             return False
+        if not self._is_writer:
+            self._last_queued = step
+            return True
         self._join_inflight()  # one behind; surfaces the writer's errors
         self._raise_pending_error()
         with trace.span("ckpt_snapshot", step=step):
@@ -413,9 +434,15 @@ class CheckpointManager:
             raise RuntimeError("checkpoint write failed (root cause chained)") from error
 
     def wait(self) -> None:
-        """Block until the write in flight lands; re-raise a failed write."""
+        """Block until the write in flight lands (in a world, on every
+        rank); re-raise a failed write."""
         self._join_inflight()
+        self._barrier()
         self._raise_pending_error()
+
+    def _barrier(self) -> None:
+        if self._world is not None:
+            self._world.barrier()
 
     def close(self) -> None:
         """Finish the write in flight, stop the writer thread, and re-raise
@@ -427,12 +454,14 @@ class CheckpointManager:
             self._work.put(None)
             self._thread.join(timeout=30)
         self._closed = True
+        self._barrier()
         self._raise_pending_error()
 
     # ---- restore ---------------------------------------------------------
 
     def latest_step(self) -> int | None:
-        return latest_step(self._directory)
+        """The latest restorable step (in a world, rank 0's answer)."""
+        return latest_step(self._directory, self._world)
 
     def _target(self, step: int | None) -> tuple[int, str, dict]:
         ckpts = _scan_validated(self._directory)
@@ -453,6 +482,10 @@ class CheckpointManager:
         at their exact shape and dtype; optimizer leaves are re-laid from a
         ZeRO layout.  A mismatch raises and leaves ``state`` as it was.
         """
+        if step is None and self._world is not None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint in {self._directory}")
         _, ckpt_dir, manifest = self._target(step)
         saved = _load_leaves(ckpt_dir, manifest)
         leaves = state_lib.saveable(state)

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in fifteen
+Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in sixteen
 phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
@@ -201,6 +201,26 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    card before the first step, the frozen statistics are still the file's
    after it, the training kernels launched once a step.  The phase must
    take at most 240 s.
+16. data-parallel training on one card (``launch/``, ``parallel/``; it
+   prints the torch version, whether NCCL and gloo are available and which
+   DDP flag turns the per-forward buffer sync off): (a) one f32 step (TF32
+   off) of the full-width ResNet-50 RetinaNet (GroupNorm) on phase 8's
+   first 4 images at (800, 1344) in this process, then a world of 2 ranks
+   over gloo on the one card (NCCL refuses two ranks a card), each a
+   process of its own with 2 of the images, through the package API
+   (``initialize_distributed``, ``make_train_step(world=...)``): the
+   world's first loss within rel 1e-4 and its ``num_pos`` equal to the one
+   process's, every parameter within 3e-2 of how far the step moved it;
+   each rank's step ms and ``replica_agreement`` for 3 steps, its matching
+   and focal kernels launched every step, the plain versions never, and
+   equal parameter digests on both ranks after the 3 steps; (b) ``train
+   coco`` on phase 11's fixture JPEGs joined to a world of 1 over NCCL
+   (``--coordinator-address 127.0.0.1:<free port> --num-processes 1
+   --process-id 0``) for 3 steps with ``--checkpoint-every 3``: the
+   checkpoint of step 3 written with ``shard_count`` 1, the final eval's
+   detections through ``allgather_process_detections`` with a world, the
+   training kernels launched once a step and NMS at least once, and no
+   process group left after.  The phase must take at most 240 s.
 
 Then it prints one JSON line with each kernel's launches, error, times and
 bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
@@ -281,7 +301,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.serve.replica import HttpReplica, 
 from batchai_retinanet_horovod_coco_tpu_torch.serve.stream import StreamManager
 from batchai_retinanet_horovod_coco_tpu_torch.serve.engine import DetectEngine
 from batchai_retinanet_horovod_coco_tpu_torch.serve.frontend import DetectionServer
-from batchai_retinanet_horovod_coco_tpu_torch.utils.checkpoint import CheckpointManager
+from batchai_retinanet_horovod_coco_tpu_torch.utils.checkpoint import CheckpointManager, read_manifest
 from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import (
     bucket_for_source,
     resize_for_bucket,
@@ -791,15 +811,18 @@ def main() -> int:
         fleet_launches = fleet_phase(root, served, device, kind, smi)
         phase(15, "the model family on one card")
         family_launches = model_family_phase(root, batches, device, kind, smi)
+        phase(16, "data-parallel training on one card")
+        dp_launches = data_parallel_phase(root, batches, device, kind, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
         row["launches"] = (launches_by_kernel[key] + run_launches[key] + file_launches[key]
-                           + obs_launches[key] + family_launches[key])
+                           + obs_launches[key] + family_launches[key] + dp_launches[key])
     nms_row["launches"] = (launches + run_launches["nms"] + file_launches["nms"] + served["launches"]
-                           + obs_launches["nms"] + fleet_launches + family_launches["nms"])
+                           + obs_launches["nms"] + fleet_launches + family_launches["nms"]
+                           + dp_launches["nms"])
     end_phases()
-    print(f"chip_smoke: all 15 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
+    print(f"chip_smoke: all 16 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
 
     print(smi)
     print(json.dumps({"kernels": [nms_row, match_row, fwd_row, bwd_row]}))
@@ -3271,6 +3294,250 @@ def model_family_phase(root: str, batches, device, kind: str, smi: str) -> dict[
     phase_s = time.perf_counter() - t_phase
     print(f"phase 15 in {phase_s:.1f} s (limit 240 s); launches {launches}")
     require(phase_s <= 240, f"phase 15 took {phase_s:.1f} s")
+    return launches
+
+
+DP_RANKS = 2  # phase 16 (a): gloo ranks on the one card
+DP_PER_RANK = 2  # images a rank: a global batch of 4
+DP_STEPS = 3
+DP_OPT = dict(base_lr=0.01, global_batch_size=256, warmup_steps=0, schedule="constant",
+              weight_decay=0.0, clip_global_norm=1e9)  # the golden run's sgd: every step moves
+DP_DEADLINE_S = 240
+DP_MOVED_RTOL = 3e-2  # of how far the step moved a tensor: tests/test_torch_train.py's rule
+
+
+def dp_rank(job_path: str, rank: int) -> None:
+    """Phase 16 (a), one rank: join the world over gloo, load the shared
+    initial weights, take DP_STEPS steps of this rank's rows of the global
+    batch (numerics on, for ``replica_agreement``) and write the results:
+    each step's metrics and ms, the kernels' launches, the parameters'
+    digest and, on rank 0, the largest gap of the first step's parameters
+    to the one-process step's."""
+    from batchai_retinanet_horovod_coco_tpu_torch.launch import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from batchai_retinanet_horovod_coco_tpu_torch.obs.numerics import NumericsConfig
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False  # f32 in full f32, as phases 5 and 9
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = initialize_distributed(DistributedConfig(
+        coordinator_address=f"file://{job['store']}", num_processes=job["ranks"], process_id=rank,
+        local_rank=0, backend="gloo", device=job["device"], timeout_s=job["timeout_s"],
+    ))
+    try:
+        device = world.device
+        model = build_retinanet(RetinaNetConfig(**job["model"], dtype=torch.float32), device=device,
+                                seed=0)
+        model.load_state_dict(torch.load(job["initial"]))
+        initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        state = state_lib.create_train_state(model, optim_lib.OptimizerConfig(**DP_OPT), device)
+        hw = tuple(job["hw"])
+        step = step_lib.make_train_step(model, hw, 80, device=device,
+                                        numerics=NumericsConfig(enabled=True), world=world)
+        batch = dict(np.load(job["batch"]))
+        n = batch["images"].shape[0] // world.size
+        mine = pipeline_lib.Batch(**{k: v[rank * n:(rank + 1) * n] for k, v in batch.items()})
+        arrays = loop_lib.device_batch(mine, device)
+        reset_all_counts()
+        history, gap = [], None
+        for i in range(DP_STEPS):
+            _sync(device)
+            t0 = time.perf_counter()
+            metrics = step(state, arrays)
+            _sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            history.append({"ms": ms, **{k: float(v) for k, v in metrics.items()}})
+            if i == 0 and rank == 0:
+                reference = torch.load(job["reference"])
+                gaps = []
+                for key, got in model.state_dict().items():
+                    want = reference[key].to(device)
+                    moved = float(torch.linalg.vector_norm(want - initial[key]))
+                    err = float(torch.linalg.vector_norm(got - want))
+                    gaps.append((err / moved if moved > 0 else err, key))
+                gap = max(gaps)
+        used = counts()
+        digest = hashlib.sha256()
+        for key, value in sorted(model.state_dict().items()):
+            digest.update(value.detach().cpu().contiguous().numpy().tobytes())
+        with open(os.path.join(os.path.dirname(job_path), f"rank{rank}.json"), "w") as f:
+            json.dump({"history": history, "launches": used, "digest": digest.hexdigest(),
+                       "gap": gap}, f)
+    finally:
+        shutdown_distributed(world)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_ranks(job_path: str, ranks: int, root: str) -> list[dict]:
+    """DP_RANKS processes of dp_rank, each in a session of its own, against
+    one deadline; past it, or on a failed rank, all are killed and the
+    phase fails with their output tails."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    logs = [os.path.join(root, f"dp_rank{r}.log") for r in range(ranks)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "wb") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_rank({job_path!r}, {r})"],
+                cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT, start_new_session=True))
+    deadline = time.monotonic() + DP_DEADLINE_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+        for p in procs:
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * ranks:
+        tails = "\n".join(f"--- rank {r} ---\n{Path(log).read_text(errors='replace')[-3000:]}"
+                          for r, log in enumerate(logs))
+        print(tails)
+        require(False, f"phase 16 (a) ranks exited with {codes}")
+    results = []
+    for r in range(ranks):
+        with open(os.path.join(os.path.dirname(job_path), f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def data_parallel_phase(root: str, batches, device, kind: str, smi: str,
+                        hw=TRAIN_HW, model: dict | None = None) -> dict[str, int]:
+    """Phase 16: (a) a world of two ranks over gloo on the one card against
+    one process on the same global batch; (b) ``train coco`` joined to a
+    world of 1 over NCCL, checkpointing and evaluating through the gather.
+    Returns the kernels' launches."""
+    import inspect
+
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    t_phase = time.perf_counter()
+    model = model or {}
+    launches = dict.fromkeys(("matching", "focal_fwd", "focal_bwd", "nms"), 0)
+    buffer_flag = ("forward_sync_buffers"
+                   if "forward_sync_buffers" in inspect.signature(DistributedDataParallel).parameters
+                   else "broadcast_buffers")
+    print(f"torch {torch.__version__}: NCCL available {dist.is_nccl_available()}, gloo available "
+          f"{dist.is_gloo_available()}; DDP takes {buffer_flag}=False")
+
+    # (a) The one-process reference step on the global batch, then the world.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = os.path.join(root, "dp")
+    os.makedirs(work, exist_ok=True)
+    global_batch = cut_batch(batches[0], DP_RANKS * DP_PER_RANK)
+    np.savez(os.path.join(work, "batch.npz"), **global_batch._asdict())
+    single = build_retinanet(RetinaNetConfig(**model, dtype=torch.float32), device=device, seed=0)
+    torch.save(single.state_dict(), os.path.join(work, "initial.pt"))
+    state = state_lib.create_train_state(single, optim_lib.OptimizerConfig(**DP_OPT), device)
+    step = step_lib.make_train_step(single, hw, 80, device=device)
+    arrays = loop_lib.device_batch(global_batch, device)
+    step(state, arrays)  # the first call builds what a step needs
+    single.load_state_dict(torch.load(os.path.join(work, "initial.pt")))
+    state = state_lib.create_train_state(single, optim_lib.OptimizerConfig(**DP_OPT), device)
+    step = step_lib.make_train_step(single, hw, 80, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    want = {k: float(v) for k, v in step(state, arrays).items()}
+    _sync(device)
+    single_ms = (time.perf_counter() - t0) * 1e3
+    torch.save(single.state_dict(), os.path.join(work, "reference.pt"))
+    del single, state, step, arrays
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    job = os.path.join(work, "job.json")
+    with open(job, "w") as f:
+        json.dump({"store": os.path.join(work, "store"), "ranks": DP_RANKS, "device": device.type,
+                   "timeout_s": DP_DEADLINE_S, "model": model, "hw": list(hw),
+                   "initial": os.path.join(work, "initial.pt"),
+                   "reference": os.path.join(work, "reference.pt"),
+                   "batch": os.path.join(work, "batch.npz")}, f)
+    t0 = time.perf_counter()
+    ranks = _run_ranks(job, DP_RANKS, work)
+    world_s = time.perf_counter() - t0
+    first = ranks[0]["history"][0]
+    rel = abs(first["loss"] - want["loss"]) / abs(want["loss"])
+    gap, gap_key = ranks[0]["gap"]
+    for r, res in enumerate(ranks):
+        print(f"rank {r}: step ms {[round(h['ms'], 1) for h in res['history']]}, replica_agreement "
+              f"{[round(h['replica_agreement'], 6) for h in res['history']]}, losses "
+              f"{[round(h['loss'], 6) for h in res['history']]}, num_pos "
+              f"{[h['num_pos'] for h in res['history']]}, launches {res['launches']}, digest "
+              f"{res['digest'][:16]}")
+    print(f"a world of {DP_RANKS} over gloo on one card, {DP_PER_RANK} images a rank at {hw} in f32 "
+          f"(TF32 off), {world_s:.1f} s with start-up; one process on the global batch: step "
+          f"{single_ms:.1f} ms, loss {want['loss']:.6f} against the world's {first['loss']:.6f} "
+          f"(rel {rel:.3e}, limit 1e-04), num_pos {want['num_pos']:.0f} against "
+          f"{first['num_pos']:.0f}; largest parameter gap after one step {gap:.3e} of how far the "
+          f"step moved it ({gap_key}; limit {DP_MOVED_RTOL}); {kind}, {smi}")
+    require(rel <= 1e-4 and first["num_pos"] == want["num_pos"],
+            "the world's first step differs from one process's")
+    require(gap <= DP_MOVED_RTOL, f"the world's parameters differ from one process's: {gap_key}")
+    require(len({r["digest"] for r in ranks}) == 1, "the ranks' parameters differ")
+    for res in ranks:
+        used = res["launches"]
+        require(used["plain"] == 0 and all(used[k] >= DP_STEPS for k in ("matching", "focal_fwd", "focal_bwd")),
+                f"a rank's launches {used}")
+        require(all(0 < h["replica_agreement"] <= 1 for h in res["history"]), "replica_agreement")
+        for k in launches:
+            launches[k] += used[k]
+
+    # (b) train coco, joined explicitly to a world of 1 over NCCL.
+    gathers = []
+    real_gather = detect_lib.allgather_process_detections
+
+    def gather(results, world):
+        gathers.append(world)
+        return real_gather(results, world)
+
+    train_json, val_json = fixture_coco(root, 16, 31), fixture_coco(root, 8, 32)
+    snap = os.path.join(root, "dp_snap")
+    flags = ["coco", root, "--train-annotations", os.path.basename(train_json), "--train-images",
+             str(JPEG_FIXTURES), "--val-annotations", os.path.basename(val_json), "--val-images",
+             str(JPEG_FIXTURES), "--snapshot-path", snap, "--steps", "3", "--checkpoint-every", "3",
+             "--log-every", "1", "--coordinator-address", f"127.0.0.1:{free_port()}",
+             "--num-processes", "1", "--process-id", "0", "--score-threshold", "0.001"]
+    detect_lib.allgather_process_detections = gather
+    reset_all_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train_cli.main(flags)
+    finally:
+        detect_lib.allgather_process_detections = real_gather
+    cli_s = time.perf_counter() - t0
+    used = counts()
+    manifest = read_manifest(snap)
+    print(f"train coco in a world of 1 over NCCL: 3 steps, a checkpoint and the final eval in "
+          f"{cli_s:.1f} s; ckpt step {manifest and manifest['step']}, shard_count "
+          f"{manifest and manifest['metadata'].get('shard_count')}; gathers through a world "
+          f"{sum(w is not None for w in gathers)}; AP50 {out.get('eval/AP50')}; launches {used}; "
+          f"process group left {dist.is_initialized()}")
+    require(out["final_step"] == 3.0 and manifest is not None and manifest["step"] == 3
+            and manifest["metadata"]["shard_count"] == 1, "the NCCL run did not checkpoint step 3")
+    require(any(w is not None for w in gathers) and "eval/AP" in out,
+            "the NCCL run's eval did not go through the gather")
+    require(not dist.is_initialized(), "the CLI left its process group")
+    require(used["plain"] == 0 and all(used[k] == 3 for k in ("matching", "focal_fwd", "focal_bwd"))
+            and used["nms"] >= 1, f"the NCCL run's launches {used}")
+    for k in launches:
+        launches[k] += used[k]
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 16 in {phase_s:.1f} s (limit {DP_DEADLINE_S} s); launches {launches}")
+    require(phase_s <= DP_DEADLINE_S, f"phase 16 took {phase_s:.1f} s")
     return launches
 
 

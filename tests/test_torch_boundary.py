@@ -64,7 +64,8 @@ def test_sources_import_nothing_forbidden():
             "serve/__main__.py", "obs/__init__.py", "obs/trace.py", "obs/watchdog.py",
             "obs/events.py", "obs/telemetry.py", "obs/slo.py", "obs/numerics.py",
             "obs/vocabulary.py", "utils/locks.py", "data/shm_pipeline.py",
-            "evaluate/_native.py"} <= scanned
+            "evaluate/_native.py", "launch/__init__.py", "launch/pod.py",
+            "parallel/__init__.py", "parallel/mesh.py"} <= scanned
 
 
 def test_serving_and_training_modules_load_without_jax():
@@ -89,6 +90,8 @@ def test_serving_and_training_modules_load_without_jax():
         "import batchai_retinanet_horovod_coco_tpu_torch.obs.vocabulary\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.convert_model\n"
         "import batchai_retinanet_horovod_coco_tpu_torch.serve.__main__\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.launch\n"
+        "import batchai_retinanet_horovod_coco_tpu_torch.parallel\n"
         f"roots = {FORBIDDEN!r}\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & set(roots)))\n"
     )

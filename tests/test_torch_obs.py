@@ -66,7 +66,7 @@ CLOCK_FAMILIES = {"process_uptime_seconds", "watchdog_beat_age_seconds",
                   "ckpt_last_success_age_s", "ckpt_age_over_interval"}
 # The JAX registry's train handles for planes the port does not have yet
 # (multi-GPU training, gradient compression: ROADMAP.md).
-JAX_ONLY_FAMILIES = {"train_replica_agreement", "train_ef_residual", "train_ef_saturation",
+JAX_ONLY_FAMILIES = {"train_ef_residual", "train_ef_saturation",
                      "train_comm_compressed_bytes_total", "train_comm_ici_bytes_total",
                      "train_comm_dcn_bytes_total", "train_ef_residual_dcn"}
 
@@ -101,7 +101,7 @@ def record_all(telemetry) -> None:
     telemetry.record_train_window(step=10, images_per_s=72.46, step_time_ms=220.821,
                                   data_wait_ms=0.352)
     telemetry.record_compile("800x1344", 1.2345678)
-    telemetry.record_numerics(grad_norm=3.5, update_ratio=1e-3, nonfinite=0.0)
+    telemetry.record_numerics(grad_norm=3.5, update_ratio=1e-3, nonfinite=0.0, replica_agreement=0.97)
     telemetry.record_numerics(grad_norm=float("nan"), update_ratio=0.25, nonfinite=float("nan"))
     telemetry.record_nonfinite_trip("loss")
     telemetry.record_ckpt_save(3, 1.0123, 303886547)
