@@ -123,6 +123,9 @@ class World:
     # The model replica of the train step (parallel/mesh.py::replicate),
     # one at a time.
     replica_slot: list = dataclasses.field(default_factory=list, compare=False, repr=False)
+    # The two-level tree's process groups as axes, by topology
+    # (parallel/mesh.py::hop_axes): made once a world.
+    hop_groups: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def is_main(self) -> bool:
@@ -156,6 +159,13 @@ class World:
         t = torch.tensor([int(value)], dtype=torch.int64, device=self.comm_device)
         dist.broadcast(t, src=0)
         return int(t.item())
+
+    def broadcast(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``tensor`` (the same shape on each rank), through
+        :attr:`comm_device`, on ``tensor``'s device."""
+        staged = tensor.detach().to(self.comm_device).contiguous().clone()
+        dist.broadcast(staged, src=0)
+        return staged.to(tensor.device)
 
     def all_gather(self, tensor: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's ``tensor`` (the same shape on each), in rank order,
@@ -197,6 +207,7 @@ def shutdown_distributed(world: World | None) -> None:
     """Destroy the world's process group (nothing for None)."""
     if world is not None and dist.is_initialized():
         world.replica_slot.clear()
+        world.hop_groups.clear()
         dist.destroy_process_group()
 
 

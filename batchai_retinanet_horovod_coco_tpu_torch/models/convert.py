@@ -21,6 +21,10 @@ raises.
 :func:`flax_from_state_dict` is the exact inverse (a torch ``weight`` of
 four dimensions is a conv ``kernel``, of one a norm ``scale``), which the
 checkpoint format shared with the JAX package is written through.
+:func:`flax_params` lists a model's parameters under their flax key paths
+in the flax flatten order, and :func:`to_flax` / :func:`from_flax` turn a
+tensor between the two layouts: the gradient-communication paths bucket,
+shard and quantize the flax-layout flats, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -68,6 +72,28 @@ def flax_path(name: str, ndim: int) -> tuple[str, tuple[str, ...]]:
             continue
         return collection, (*scope, flax_leaf)
     raise ValueError(f"no flax counterpart for {name} ({ndim} dimensions)")
+
+
+def keystr(keys: tuple[str, ...]) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys."""
+    return "".join(f"[{k!r}]" for k in keys)
+
+
+def to_flax(t: torch.Tensor) -> torch.Tensor:
+    """A tensor in the flax layout (a view): conv kernels OIHW → HWIO."""
+    return t.permute(2, 3, 1, 0) if t.dim() == 4 else t
+
+
+def from_flax(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_flax` (a view): HWIO → OIHW."""
+    return t.permute(3, 2, 0, 1) if t.dim() == 4 else t
+
+
+def flax_params(model: nn.Module) -> list[tuple[str, str, nn.Parameter]]:
+    """``(torch name, flax key path, parameter)`` of every parameter, in
+    the flatten order of the flax ``params`` tree."""
+    named = [(name, flax_path(name, p.dim())[1], p) for name, p in model.named_parameters()]
+    return [(name, keystr(path), p) for name, path, p in sorted(named, key=lambda t: t[1])]
 
 
 def _convert_leaf(path: tuple[str, ...], value) -> np.ndarray:

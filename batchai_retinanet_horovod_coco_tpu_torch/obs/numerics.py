@@ -60,6 +60,14 @@ GRAD_NORM = "grad_norm"
 UPDATE_RATIO = "update_ratio"
 NONFINITE = "nonfinite_grads"
 REPLICA_AGREEMENT = "replica_agreement"
+# The gradient-communication health (comm/compress.py::comm_metrics).
+EF_RESIDUAL = "ef_residual_norm"
+EF_SATURATION = "ef_saturation"
+COMM_BYTES = "comm_compressed_bytes"
+# Per hop of the hierarchical tree.
+EF_RESIDUAL_DCN = "ef_residual_norm_dcn"
+COMM_ICI_BYTES = "comm_ici_bytes"
+COMM_DCN_BYTES = "comm_dcn_bytes"
 GROUP_PREFIX = "gnorm/"
 
 #: Scalars whose non-finiteness the provenance pass attributes first, in

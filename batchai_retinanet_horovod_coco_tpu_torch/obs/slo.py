@@ -25,8 +25,7 @@ all of that is testable without sleeping (the watchdog's pattern).
 
 The monitor is read-only (it never sheds, kills, or throttles) and its
 poll thread is watchdog-registered: a wedged SLO monitor is itself a
-diagnosed stall.  ``ef_residual_spike`` waits for the gradient-compression
-slice (``comm/``, ``ROADMAP.md``).
+diagnosed stall.
 """
 
 from __future__ import annotations
@@ -452,6 +451,42 @@ def grad_norm_spike(
         description=(
             f"pre-clip grad norm above {factor}x its rolling-median "
             "baseline"
+        ),
+    )
+
+
+def ef_residual_spike(
+    factor: float = 10.0,
+    window: int = 32,
+    metric: str = "train_ef_residual",
+    for_s: float = 0.0,
+    hop: str | None = None,
+) -> SloRule:
+    """Gradient-compression health tripwire: the error-feedback residual
+    norm against ``factor ×`` the rolling median of its own healthy
+    history.  A spike means the per-block int8 scales stopped fitting the
+    gradients (saturation): the quantizer now drops signal the optimizer
+    needed.  Regression mode, as ``grad_norm_spike``; silent on runs
+    without compression (the ``train_ef_residual`` gauge never exists), so
+    the command line always arms it.
+
+    ``hop="dcn"`` watches the cross-slice hop of the hierarchical tree
+    (``train_ef_residual_dcn``, the only hop that quantizes) under the name
+    ``ef_residual_spike_dcn``, silent without its gauge too."""
+    if hop is not None:
+        metric = f"train_ef_residual_{hop}"
+    return SloRule(
+        name="ef_residual_spike" if hop is None else f"ef_residual_spike_{hop}",
+        metric=metric,
+        op=">",
+        baseline_window=window,
+        factor=factor,
+        for_s=for_s,
+        description=(
+            f"gradient-compression EF residual above {factor}x its "
+            "rolling-median baseline (per-block scales saturating; "
+            "compressed gradients dropping signal)"
+            + (f" [{hop} hop of the hierarchical tree]" if hop else "")
         ),
     )
 

@@ -33,9 +33,6 @@ Windowed histograms are encoded as *summary* families (quantile series
 from ``obs.events.latency_percentiles`` — one quantile implementation)
 plus ``_count``/``_sum`` over the window; counters and gauges are the
 plain families.  ``parse_exposition`` is the matching reader.
-
-Not ported yet (``ROADMAP.md``): ``record_comm`` (the gradient-compression
-gauges wait for the ``comm/`` slice).
 """
 
 from __future__ import annotations
@@ -779,6 +776,45 @@ def _train_handles() -> dict[str, Any]:
                 "non-finite gradient elements observed + tripped "
                 "finite-checks (any increase is an incident)",
             ),
+            # Gradient-compression health (comm/compress.py): the
+            # always-armed ef_residual_spike SLO rule evaluates
+            # train_ef_residual, its hop="dcn" form train_ef_residual_dcn.
+            "ef_residual": r.gauge(
+                "train_ef_residual",
+                "global L2 norm of the gradient-compression error-"
+                "feedback residual at the last log window",
+            ),
+            "ef_saturation": r.gauge(
+                "train_ef_saturation",
+                "fraction of quantized elements at the int8 clip "
+                "boundary (per-block scale saturation)",
+            ),
+            "comm_bytes": r.counter(
+                "train_comm_compressed_bytes_total",
+                "cumulative compressed gradient bytes-on-wire "
+                "(per-device ring estimate, comm/compress plan)",
+            ),
+            # Per hop of the hierarchical tree: within a slice (ICI, exact
+            # f32) and across slices (DCN, the compressed exchange); the
+            # help texts are the JAX package's, byte for byte.
+            "comm_ici_bytes": r.counter(
+                "train_comm_ici_bytes_total",
+                "cumulative gradient bytes-on-wire over the fast "
+                "intra-slice (ICI) hops of the hierarchical tree "
+                "(exact f32 by construction)",
+            ),
+            "comm_dcn_bytes": r.counter(
+                "train_comm_dcn_bytes_total",
+                "cumulative gradient bytes-on-wire over the slow "
+                "cross-slice (DCN) hop of the hierarchical tree "
+                "(the compressed exchange)",
+            ),
+            "ef_residual_dcn": r.gauge(
+                "train_ef_residual_dcn",
+                "global L2 norm of the DCN-hop error-feedback "
+                "residual (hierarchical tree; the only hop that "
+                "quantizes)",
+            ),
         }
     return _train_gauges
 
@@ -810,6 +846,38 @@ def record_compile(bucket: str, build_s: float) -> None:
     g = _train_handles()
     g["compiles"].inc(bucket=bucket)
     g["last_compile_s"].set(round(build_s, 3))
+
+
+def record_comm(
+    ef_residual: float | None = None,
+    ef_saturation: float | None = None,
+    compressed_bytes: float | None = None,
+    ici_bytes: float | None = None,
+    dcn_bytes: float | None = None,
+    ef_residual_dcn: float | None = None,
+    steps: int = 1,
+) -> None:
+    """The train loop's gradient-compression record site (per log window).
+    One bool check while telemetry is off; absent fields (compression off,
+    EF off, the flat tree) are skipped.  The byte figures are the plan's
+    static per-step numbers: the counters add them once per step of the
+    window's ``steps``.  ``ici_bytes``, ``dcn_bytes`` and
+    ``ef_residual_dcn`` exist on the hierarchical tree only."""
+    if not _enabled:
+        return
+    g = _train_handles()
+    if ef_residual is not None and math.isfinite(ef_residual):
+        g["ef_residual"].set(float(ef_residual))
+    if ef_saturation is not None and math.isfinite(ef_saturation):
+        g["ef_saturation"].set(float(ef_saturation))
+    if compressed_bytes is not None and math.isfinite(compressed_bytes):
+        g["comm_bytes"].inc(float(compressed_bytes) * max(1, int(steps)))
+    if ici_bytes is not None and math.isfinite(ici_bytes):
+        g["comm_ici_bytes"].inc(float(ici_bytes) * max(1, int(steps)))
+    if dcn_bytes is not None and math.isfinite(dcn_bytes):
+        g["comm_dcn_bytes"].inc(float(dcn_bytes) * max(1, int(steps)))
+    if ef_residual_dcn is not None and math.isfinite(ef_residual_dcn):
+        g["ef_residual_dcn"].set(float(ef_residual_dcn))
 
 
 def record_numerics(

@@ -558,6 +558,18 @@ VOCABULARY: dict[str, dict] = {
         "kinds": ("instant",),
         "consumers": (),
     },
+    "train_comm_compressed_bytes_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "train_comm_dcn_bytes_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "train_comm_ici_bytes_total": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
     "train_compiles_total": {
         "kinds": ("series",),
         "consumers": (),
@@ -567,6 +579,18 @@ VOCABULARY: dict[str, dict] = {
         "consumers": (),
     },
     "train_data_wait_ms": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "train_ef_residual": {
+        "kinds": ("series",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/obs/slo.py",),
+    },
+    "train_ef_residual_dcn": {
+        "kinds": ("series",),
+        "consumers": (),
+    },
+    "train_ef_saturation": {
         "kinds": ("series",),
         "consumers": (),
     },

@@ -20,14 +20,34 @@ one replica and the axis is the process group (``launch/pod.py::World``).
   batch statistics;
 - :func:`average_over_ranks`: one all-reduce for the step's loss metrics
   (the mean over ranks; ``num_pos``, a count, summed) and the BatchNorm
-  running statistics (the mean).
+  running statistics (the mean);
+- :class:`DataAxis`: the ``data`` axis of a world or of one of its
+  subgroups, and the collectives of the gradient-communication paths
+  (``comm/``, ``parallel/zero.py``) over it: ``psum``, ``pmean``,
+  ``psum_scatter`` (tiled) and ``all_gather``, as the JAX package's named-
+  axis collectives.  They go through the world's communication device:
+  with gloo a card's tensor is copied to the host around the collective
+  and back (gloo's reduce-scatter and all-gather take host tensors), with
+  NCCL it stays on the card;
+- :class:`CommTopology`, :func:`derive_topology` and :func:`hop_axes`: the
+  two-level grouping of the hierarchical tree.  A slice is a host (the
+  JAX package's TPU slice): torchrun numbers ranks host-major, ``rank =
+  node * L + local``, and ``LOCAL_WORLD_SIZE`` gives L; ``--comm-slices``
+  and ``RETINANET_COMM_SLICES`` override it, so one host can stand for
+  several.  The mesh position of a rank is ``local * S + node`` (the JAX
+  package's interleaved convention: position ``d`` in slice ``d % S``),
+  the chunk of every flat it owns.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
+import os
+from collections.abc import Mapping
 
 import torch
+import torch.distributed as dist
 from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
 from torch.nn.parallel import DistributedDataParallel
 
@@ -120,6 +140,14 @@ def replicate(model: torch.nn.Module, world) -> DistributedDataParallel:
     return replica
 
 
+def copy_from_rank0(model: torch.nn.Module, world) -> None:
+    """Give every rank rank 0's parameters and buffers (what DDP does at
+    construction)."""
+    with torch.no_grad():
+        for tensor in list(model.parameters()) + list(model.buffers()):
+            tensor.copy_(world.broadcast(tensor))
+
+
 def batch_statistics(model: torch.nn.Module) -> list[torch.Tensor]:
     """The BatchNorm running statistics (the JAX state's ``batch_stats``)."""
     return [b for name, b in model.named_buffers() if name.rsplit(".", 1)[-1] in _STAT_NAMES]
@@ -141,3 +169,165 @@ def average_over_ranks(world, metrics: dict[str, torch.Tensor], stats: list[torc
         for s in stats:
             s.copy_((flat[offset : offset + s.numel()] / world.size).view_as(s))
             offset += s.numel()
+
+
+class DataAxis:
+    """The ``data`` axis of ``world`` (``group`` None) or of one of its
+    subgroups: ``size`` ranks, this rank at ``index`` along it.  The
+    collectives return new tensors on the device of their input."""
+
+    def __init__(self, world, group=None, size: int | None = None, index: int | None = None):
+        self.world = world
+        self.group = group
+        self.size = world.size if size is None else size
+        self.index = world.rank if index is None else index
+
+    def _staged(self, tensor: torch.Tensor) -> torch.Tensor:
+        staged = tensor.to(self.world.comm_device).contiguous()
+        return staged.clone() if staged is tensor else staged
+
+    def psum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The sum over the axis (``lax.psum``)."""
+        staged = self._staged(tensor)
+        dist.all_reduce(staged, group=self.group)
+        return staged.to(tensor.device)
+
+    def pmean(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The mean over the axis (``lax.pmean``: the sum, then / size)."""
+        return self.psum(tensor) / self.size
+
+    def psum_scatter(self, flat: torch.Tensor) -> torch.Tensor:
+        """This index's chunk of the sum of a ``(size * chunk,)`` flat
+        (``lax.psum_scatter(..., tiled=True)``)."""
+        staged = self._staged(flat)
+        chunk = staged.numel() // self.size
+        if chunk * self.size != staged.numel():
+            raise ValueError(f"a flat of {staged.numel()} does not tile over {self.size} ranks")
+        out = torch.empty(chunk, dtype=staged.dtype, device=staged.device)
+        dist.reduce_scatter(out, list(staged.split(chunk)), group=self.group)
+        return out.to(flat.device)
+
+    def all_gather(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Every index's ``tensor``, stacked in index order:
+        ``(size, *tensor.shape)`` (``lax.all_gather``)."""
+        staged = self._staged(tensor)
+        out = [torch.empty_like(staged) for _ in range(self.size)]
+        dist.all_gather(out, staged, group=self.group)
+        return torch.stack(out).to(tensor.device)
+
+
+#: Overrides the slice count, as ``--comm-slices`` does: one host can stand
+#: for several slices (e.g. a world of 4 as 2 slices x 2).
+COMM_SLICES_ENV = "RETINANET_COMM_SLICES"
+
+
+@dataclasses.dataclass(frozen=True)
+class CommTopology:
+    """Two-level grouping for the hierarchical collectives, as the JAX
+    package's: ``num_slices`` (S) slices of ``slice_size`` (L) ranks.
+
+    Mesh positions are interleaved: position ``d`` belongs to slice
+    ``d % S`` at intra-slice rank ``d // S``.  After the tree's two
+    reduce-scatters (within the slice by intra-slice rank, then across
+    slices by slice) position ``d`` owns chunk ``d`` of each bucket, so the
+    per-hop residuals, laid out in position order, stay in global bucket
+    order with zero padding, which ``parallel/zero.py::reshard_flat_leaf``
+    needs to move a checkpoint between world sizes.
+    """
+
+    num_slices: int
+    slice_size: int
+
+    def __post_init__(self):
+        if self.num_slices < 1 or self.slice_size < 1:
+            raise ValueError(
+                f"CommTopology needs num_slices >= 1 and slice_size >= 1, "
+                f"got {self.num_slices} x {self.slice_size}"
+            )
+
+    @property
+    def num_devices(self) -> int:
+        return self.num_slices * self.slice_size
+
+    def ici_groups(self) -> list:
+        """Mesh positions grouped by slice, in intra-slice rank order."""
+        S, L = self.num_slices, self.slice_size
+        return [[r * S + s for r in range(L)] for s in range(S)]
+
+    def dcn_groups(self) -> list:
+        """Mesh positions grouped by intra-slice rank, in slice order."""
+        S, L = self.num_slices, self.slice_size
+        return [[r * S + s for s in range(S)] for r in range(L)]
+
+    def position(self, rank: int) -> int:
+        """The mesh position of the rank ``rank = node * L + local``:
+        ``local * S + node``."""
+        node, local = divmod(rank, self.slice_size)
+        return local * self.num_slices + node
+
+    def rank_at(self, position: int) -> int:
+        """The rank at mesh ``position`` (the inverse of :meth:`position`)."""
+        local, node = divmod(position, self.num_slices)
+        return node * self.slice_size + local
+
+
+def derive_topology(
+    num_devices: int, num_slices: int | None = None,
+    environ: Mapping[str, str] | None = None,
+) -> CommTopology | None:
+    """The CommTopology of a world of ``num_devices`` ranks, or None (flat).
+
+    The slice count, first found first: ``num_slices`` (``--comm-slices``),
+    ``RETINANET_COMM_SLICES``, then the hosts: torchrun's
+    ``LOCAL_WORLD_SIZE`` ranks a host, where the world spans more than one
+    host.  A world started without torchrun (``--num-devices N`` on one
+    host) is flat unless overridden."""
+    env = os.environ if environ is None else environ
+    if num_slices is None:
+        raw = env.get(COMM_SLICES_ENV, "").strip()
+        if raw:
+            try:
+                num_slices = int(raw)
+            except ValueError:
+                raise ValueError(
+                    f"{COMM_SLICES_ENV} must be an integer slice count, got {raw!r}"
+                ) from None
+    if num_slices is None:
+        local = int(env.get("LOCAL_WORLD_SIZE", "0") or 0)
+        if local <= 0 or local >= num_devices:
+            return None
+        num_slices = num_devices // local
+        if num_slices * local != num_devices:
+            return None
+    if num_slices < 1:
+        raise ValueError(f"comm slices must be >= 1, got {num_slices}")
+    if num_devices % num_slices:
+        raise ValueError(
+            f"{num_devices} devices do not divide into {num_slices} "
+            f"equal slices — pick a slice count dividing the data-axis "
+            "width"
+        )
+    return CommTopology(num_slices=num_slices, slice_size=num_devices // num_slices)
+
+
+def hop_axes(world, topology: CommTopology) -> tuple[DataAxis, DataAxis]:
+    """``(ici, dcn)``: this rank's slice (the ranks of its host, by local
+    rank) and its cross-slice group (the same local rank on every host, by
+    host), as axes.  Every rank makes every group of the topology, in the
+    same order, once per world (``torch.distributed.new_group`` is
+    collective); the groups are kept in ``world.hop_groups``."""
+    if topology.num_devices != world.size:
+        raise ValueError(
+            f"topology is {topology.num_slices}x{topology.slice_size} = "
+            f"{topology.num_devices} devices but the world has {world.size}"
+        )
+    if topology not in world.hop_groups:
+        S, L = topology.num_slices, topology.slice_size
+        # new_group orders a group's ranks ascending: by local rank within
+        # a slice, by host across slices, the orders the tiles follow.
+        ici = [dist.new_group([s * L + r for r in range(L)]) for s in range(S)]
+        dcn = [dist.new_group([s * L + r for s in range(S)]) for r in range(L)]
+        node, local = divmod(world.rank, L)
+        world.hop_groups[topology] = (DataAxis(world, ici[node], L, local),
+                                      DataAxis(world, dcn[local], S, node))
+    return world.hop_groups[topology]

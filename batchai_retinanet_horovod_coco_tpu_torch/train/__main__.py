@@ -53,15 +53,28 @@ checks), and ``--pretrained-backbone`` imports a torchvision ResNet-50
 state dict into the backbone (``models/import_weights.py``; the
 reference's recipe adds ``--norm frozen_bn``).
 
+The gradient-communication flags are the JAX command line's
+(``utils/cli.py::add_comm_flags``): ``--shard-weight-update`` (ZeRO,
+``parallel/zero.py``), ``--comm-compress {none,int8,bf16}`` with error
+feedback unless ``--comm-no-error-feedback``, ``--comm-overlap``,
+``--comm-bucket-mb``, and the two-level tree's ``--comm-slices``,
+``--comm-ici-mode``, ``--comm-dcn-mode`` and ``--comm-dcn-bucket-mb``
+(``comm/``, ``train/step.py``); ``--quantized-allreduce`` is the deprecated
+alias of ``--comm-compress int8`` (one ``deprecated_flag`` line on
+stderr).  Each needs a world (``--num-devices`` > 1, or a joined world);
+``--comm-overlap`` with ``--shard-weight-update`` is dropped with one
+``comm_overlap_ignored`` line.  The slices are the hosts of a torchrun
+world, or ``--comm-slices``.
+
 Refused with a message naming ``ROADMAP.md``, since what they need is not
-ported: spatial sharding, the sharded weight update and the quantized
-allreduce, TensorBoard and ``--debug-nans``.  The gradient-communication
-flags and ``--platform`` are left out.
+ported: spatial sharding, TensorBoard and ``--debug-nans``.
+``--platform`` is left out.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -86,10 +99,12 @@ from batchai_retinanet_horovod_coco_tpu_torch.obs.events import EventSink, emit_
 from batchai_retinanet_horovod_coco_tpu_torch.parallel.mesh import local_batch_size, world_devices
 from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import (
     add_anchor_flags,
+    add_comm_flags,
     add_data_pipeline_flags,
     add_durability_flags,
     add_obs_flags,
     configure_obs,
+    make_comm_config,
     make_pipeline_worker_kwargs,
     resolve_anchor_config,
     save_anchor_config,
@@ -240,8 +255,13 @@ def build_parser() -> argparse.ArgumentParser:
         g = sp.add_argument_group("distributed (one process a card)")
         g.add_argument("--num-devices", type=int, default=1,
                        help="cards in the data world, one process each; 0 = all")
-        g.add_argument("--shard-weight-update", action="store_true", help="not ported")
-        g.add_argument("--quantized-allreduce", action="store_true", help="not ported")
+        g.add_argument("--shard-weight-update", action="store_true",
+                       help="ZeRO-style weight-update sharding: reduce-scatter grads, 1/N "
+                            "optimizer state per rank, all-gather params (parallel/zero.py)")
+        g.add_argument("--quantized-allreduce", action="store_true",
+                       help="DEPRECATED alias for --comm-compress int8; emits one structured "
+                            "deprecation warning")
+        add_comm_flags(g)
         g.add_argument("--spatial-shards", type=int, default=1, help="not ported: only 1")
         g.add_argument("--distributed-auto", action="store_true",
                        help="join the world torchrun started (RANK, WORLD_SIZE, LOCAL_RANK, "
@@ -270,13 +290,36 @@ def parse_args(argv=None):
     return args
 
 
+def refuse_exclusive(args) -> None:
+    """The JAX command line's exclusivity of spatial sharding with the
+    gradient-communication flavors."""
+    if args.spatial_shards > 1 and (
+        args.shard_weight_update or args.quantized_allreduce
+        or args.comm_compress != "none" or args.comm_overlap
+    ):
+        raise SystemExit(
+            "--spatial-shards is exclusive with --shard-weight-update "
+            "and --comm-compress/--comm-overlap/--quantized-allreduce"
+        )
+
+
+def refuse_without_world(args) -> None:
+    """The JAX command line's refusals of a gradient-communication flavor
+    in one process: ZeRO and compression ride the world's collectives."""
+    if args.shard_weight_update:
+        raise SystemExit("--shard-weight-update needs --num-devices > 1")
+    if make_comm_config(args, announce=False) is not None:
+        raise SystemExit(
+            "--comm-compress/--comm-overlap need --num-devices > 1 "
+            "(compression rides the mesh collectives)"
+        )
+
+
 def refuse_unported(args) -> None:
     """Raise ``SystemExit`` naming every flag whose setting needs what the
     port does not have yet."""
     unported = {
         f"--spatial-shards {args.spatial_shards}": args.spatial_shards != 1,
-        "--quantized-allreduce": args.quantized_allreduce,
-        "--shard-weight-update": args.shard_weight_update,
         "--tensorboard": args.tensorboard,
         "--debug-nans": args.debug_nans,
     }
@@ -284,7 +327,8 @@ def refuse_unported(args) -> None:
     if refused:
         raise SystemExit(
             f"{', '.join(refused)}: not ported to the PyTorch package yet (it trains "
-            "data-parallel, one process a card); see ROADMAP.md"
+            "data-parallel, one process a card, with the gradient-communication flavors); "
+            "see ROADMAP.md"
         )
 
 
@@ -414,12 +458,12 @@ def _start_telemetry(args, sink: EventSink, rank: int = 0):
     try:
         # Built-ins first: the watchdog stall, any non-finite value (the
         # loop's trips and the numerics summary feed it), a grad-norm
-        # spike and checkpoint staleness (each silent until its series
-        # exists).
+        # spike, checkpoint staleness and the EF residual spikes (each silent
+        # until its series exists).
         monitor = slo.SloMonitor(
             telemetry.default(),
             [slo.stall_rule(), slo.nonfinite_rule(), slo.grad_norm_spike(),
-             slo.ckpt_staleness_rule()]
+             slo.ckpt_staleness_rule(), slo.ef_residual_spike(), slo.ef_residual_spike(hop="dcn")]
             + [slo.parse_rule(spec) for spec in rule_specs],
             sink=sink,
             poll_interval=args.slo_poll_s,
@@ -530,10 +574,13 @@ def main(argv=None) -> dict[str, float]:
     under ``eval/`` names (rank 0's, for a world this call started)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
+    refuse_exclusive(args)
     refuse_unported(args)
     config = distributed_config(args)
     if not config.joins:
         ranks = 1 if args.num_devices == 1 else world_devices(args.num_devices, args.device)
+        if ranks == 1:
+            refuse_without_world(args)
         local_batch_size(args.batch_size, ranks)
         if ranks > 1:
             # One process a card: this command line again as each rank.
@@ -589,6 +636,7 @@ def _run(args, world) -> dict[str, float]:
         RetinaNetConfig,
         build_retinanet,
     )
+    from batchai_retinanet_horovod_coco_tpu_torch.parallel.mesh import derive_topology
     from batchai_retinanet_horovod_coco_tpu_torch.train.loop import LoopConfig, run_training
     from batchai_retinanet_horovod_coco_tpu_torch.train.optim import OptimizerConfig
     from batchai_retinanet_horovod_coco_tpu_torch.train.state import create_train_state
@@ -602,6 +650,23 @@ def _run(args, world) -> dict[str, float]:
     shard_index, shard_count = shard_info(world)
     is_main = shard_index == 0
     local_batch = local_batch_size(args.batch_size, shard_count)
+    shard_update = bool(args.shard_weight_update)
+    # The gradient-communication policy: the flags and the deprecated
+    # --quantized-allreduce resolve to one CommConfig (rank 0 announces the
+    # alias); it composes with ZeRO, which compresses its update gather.
+    comm_cfg = make_comm_config(args, announce=is_main)
+    if comm_cfg is not None and comm_cfg.overlap and shard_update:
+        if is_main:
+            print(json.dumps({
+                "event": "comm_overlap_ignored",
+                "reason": ("--comm-overlap is a DP-path mechanism; --shard-weight-update "
+                           "compresses the post-update gather instead"),
+            }), file=sys.stderr, flush=True)
+        comm_cfg = dataclasses.replace(comm_cfg, overlap=False)
+    # The two-level tree: the hosts of a torchrun world, or --comm-slices.
+    comm_topology = None
+    if world is not None and comm_cfg is not None:
+        comm_topology = derive_topology(world.size, args.comm_slices)
     train_ds, val_ds = make_datasets(args)
     num_classes = train_ds.num_classes
     # Gt padding sized to the data (silent truncation poisons targets); an
@@ -650,7 +715,8 @@ def _run(args, world) -> dict[str, float]:
 
             import_pretrained_backbone(model, args.pretrained_backbone)
             print(f"imported backbone weights from {args.pretrained_backbone}")
-        return create_train_state(model, opt_config, device)
+        return create_train_state(model, opt_config, device, world=world, comm=comm_cfg,
+                                  shard_weight_update=shard_update, topology=comm_topology)
 
     state = build_state()
     pipe_common = dict(
@@ -735,6 +801,9 @@ def _run(args, world) -> dict[str, float]:
             numerics=args.numerics,
             numerics_dump_dir=args.obs_dir or args.log_dir,
             rng_seed=args.seed,
+            comm=comm_cfg,
+            shard_weight_update=shard_update,
+            topology=comm_topology,
         )
         run_eval = args.eval_every or args.dataset_type in ("coco", "pascal") or (
             args.dataset_type == "csv" and val_ds is not None

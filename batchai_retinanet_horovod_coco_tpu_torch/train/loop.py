@@ -34,6 +34,18 @@ global batch, gathered from the ranks, and rank 0 writes it.  An
 ``async_eval`` falls back to a synchronous one, with a warning: an eval
 thread's gather of detections could interleave with the steps'
 all-reduces.
+
+``LoopConfig.comm``, ``shard_weight_update`` and ``topology`` select the
+gradient-communication flavors of the world's step (``train/step.py``);
+the state comes from ``create_train_state`` with the same flags, so its
+``comm_state`` (the EF residuals) and its optimizer's layout go into the
+step and out of it, and through the checkpoints.  Each flavor needs a
+world.  The EF health (``ef_residual_norm``, ``ef_saturation``,
+``comm_compressed_bytes``, and per hop ``comm_ici_bytes``,
+``comm_dcn_bytes``, ``ef_residual_norm_dcn``) reaches
+``telemetry.record_comm`` at the log cadence, with the window's step count.
+An eval reads the model alone: neither the optimizer's state nor the
+residuals are copied into its snapshot.
 """
 
 from __future__ import annotations
@@ -107,6 +119,11 @@ class LoopConfig:
     numerics: bool = False
     numerics_dump_dir: str | None = None
     rng_seed: int | None = None  # recorded in the dump
+    # The gradient-communication policy (comm/config.py::CommConfig), the
+    # ZeRO weight update, and the two-level topology (parallel/mesh.py).
+    comm: Any = None
+    shard_weight_update: bool = False
+    topology: Any = None
 
 
 def device_batch(batch: Batch, device: torch.device) -> dict[str, torch.Tensor]:
@@ -353,6 +370,12 @@ def run_training(
     shard, and only rank 0 calls ``log``.
     """
     device = next(state.model.parameters()).device
+    comm_on = config.comm is not None and config.comm.enabled
+    if world is None and (config.shard_weight_update or comm_on):
+        raise ValueError(
+            "--shard-weight-update and --comm-compress/--comm-overlap/--quantized-allreduce "
+            "need a data-parallel world"
+        )
     is_main = world is None or world.is_main
     if not is_main:
         log = _Silent()
@@ -436,6 +459,8 @@ def run_training(
                 step_fn = step_fns[hw] = make_train_step(
                     state.model, hw, num_classes, loss_config, matching_config,
                     anchor_config, device, numerics=numerics_config, world=world,
+                    comm=config.comm, shard_weight_update=config.shard_weight_update,
+                    topology=config.topology,
                 )
                 telemetry.record_compile(f"{hw[0]}x{hw[1]}", monotonic_s() - t_build)
             if config.profile_dir and step == prof_start:
@@ -487,6 +512,17 @@ def run_training(
                     update_ratio=scalars.get(numerics_lib.UPDATE_RATIO),
                     nonfinite=scalars.get(numerics_lib.NONFINITE),
                     replica_agreement=scalars.get(numerics_lib.REPLICA_AGREEMENT),
+                )
+                # The EF health: the gauges the always-armed
+                # ef_residual_spike rules watch, and the bytes on the wire.
+                telemetry.record_comm(
+                    ef_residual=scalars.get(numerics_lib.EF_RESIDUAL),
+                    ef_saturation=scalars.get(numerics_lib.EF_SATURATION),
+                    compressed_bytes=scalars.get(numerics_lib.COMM_BYTES),
+                    ici_bytes=scalars.get(numerics_lib.COMM_ICI_BYTES),
+                    dcn_bytes=scalars.get(numerics_lib.COMM_DCN_BYTES),
+                    ef_residual_dcn=scalars.get(numerics_lib.EF_RESIDUAL_DCN),
+                    steps=window_steps,
                 )
                 if config.numerics and log_event is not None:
                     num_keys = numerics_lib.numerics_metric_keys(scalars)

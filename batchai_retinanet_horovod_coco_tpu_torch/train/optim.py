@@ -220,6 +220,9 @@ class Optimizer:
         ]
         self.names = [name for name, _ in named]
         self.params = [p for _, p in named]
+        # The norm the frozen chain clips by; over a world for ZeRO's shards
+        # (parallel/zero.py::init_sharded_opt_state).
+        self.norm_of = global_norm
         device = self.params[0].device if self.params else torch.device("cpu")
         self.plateau = Plateau(config, device) if config.schedule == "plateau" else None
         lr = self.schedule(0)
@@ -239,17 +242,39 @@ class Optimizer:
             raise ValueError(f"unknown optimizer: {config.optimizer!r}")
         self.count = 0
 
-    def step(self, grad_norm: torch.Tensor, loss: torch.Tensor | None = None) -> None:
+    def step(self, grad_norm: torch.Tensor, loss: torch.Tensor | None = None,
+             as_update: bool = False) -> None:
+        """One update (see the class docstring).  ``as_update`` leaves the
+        chain's update itself in the parameters instead of adding it to
+        them: the decay term is folded into the clipped gradients (the
+        chain's order) and the parameters zeroed before the step, so no
+        update below half an ulp of its parameter is lost (the ZeRO update
+        gather, ``parallel/zero.py``)."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         # The frozen chain clips the trained parameters by their own norm:
         # the step's norm also counts the frozen backbone's gradients.
-        norm = global_norm(grads) if self.config.freeze_backbone else grad_norm
+        norm = self.norm_of(grads) if self.config.freeze_backbone else grad_norm
         clip_by_global_norm_precomputed(grads, self.config.clip_global_norm, norm)
         for group in self.inner.param_groups:
             group["lr"] = self.schedule(self.count)
+        decay = [group.get("weight_decay", 0.0) for group in self.inner.param_groups]
+        if as_update:
+            with torch.no_grad():
+                if self.config.optimizer == "sgd" and self.config.weight_decay:
+                    torch._foreach_add_(grads, self.params, alpha=self.config.weight_decay)
+                torch._foreach_zero_(self.params)
+            for group in self.inner.param_groups:
+                group["weight_decay"] = 0.0
+        try:
+            self._apply(grads, loss)
+        finally:
+            for group, wd in zip(self.inner.param_groups, decay):
+                group["weight_decay"] = wd
+
+    def _apply(self, grads: list[torch.Tensor], loss: torch.Tensor | None) -> None:
         if self.trace is not None:
             with torch.no_grad():
                 self.trace = torch._foreach_add(grads, self.params, alpha=self.config.weight_decay)

@@ -39,12 +39,19 @@ barrier, so no rank reads a step before rank 0's write of it has landed.
 The format does not depend on the world: a checkpoint of one world size
 restores in another, and in the JAX package.
 
-**Restoring a pod's checkpoint**: a manifest whose ``zero_world_size`` is
-set holds each optimizer leaf as a flat zero-padded ``(N * chunk,)`` array
-(the JAX package's ZeRO layout); ``restore`` re-lays it into this state's
-shape with :func:`reshard_flat_leaf`.  The gradient-compression residuals
-of a JAX run (``comm_state``) have no counterpart here and are dropped with
-one ``ef_reset`` line, as the JAX package drops them on a layout change.
+**World-sharded leaves**: with the ZeRO weight update (``parallel/zero.py``)
+each rank holds a slice of every optimizer slot, and with error feedback a
+slice of every residual (``comm_state``, ``comm/compress.py``).  Every rank
+joins the gathers of a save (the collective leaves of
+``train/state.py::saveable``) and rank 0 writes the whole ``(N * chunk,)``
+flats, the JAX package's layout; a ZeRO state sets the manifest's
+``zero_world_size``.  ``restore`` re-lays each optimizer leaf and residual
+into this state's layout with ``parallel/zero.py::reshard_flat_leaf``, so a
+checkpoint moves between world sizes, between ZeRO and a replicated
+optimizer, and between the packages.  The residuals are advisory, as in
+the JAX package: ones this run's plan lacks are dropped, ones the
+checkpoint lacks or whose bucket changed size are zeroed, and one
+``ef_reset`` line says how many of each (``zeroed``, ``dropped``).
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ import numpy as np
 
 from batchai_retinanet_horovod_coco_tpu_torch.obs import telemetry, trace, watchdog
 from batchai_retinanet_horovod_coco_tpu_torch.obs.trace import monotonic_s
+from batchai_retinanet_horovod_coco_tpu_torch.parallel.zero import reshard_flat_leaf
 from batchai_retinanet_horovod_coco_tpu_torch.train import state as state_lib
 from batchai_retinanet_horovod_coco_tpu_torch.utils.atomicio import atomic_write_json, fsync_dir
 
@@ -74,42 +82,6 @@ _STEP_DIR_RE = re.compile(r"^ckpt-(\d+)$")
 _TMP_PREFIX = ".tmp-"
 _OPT_PREFIX = "['opt_state']"
 _COMM_PREFIX = "['comm_state']"
-
-
-def reshard_flat_leaf(saved: np.ndarray, shape, dtype, path: str = "") -> np.ndarray:
-    """Re-lay one optimizer leaf saved in one ZeRO or replicated layout into
-    another (the JAX package's ``parallel/zero.py::reshard_flat_leaf``).
-
-    A leaf is either its parameter's shape (replicated) or a flat
-    zero-padded ``(N * chunk,)`` array (world N), whose prefix is the
-    content.  So any conversion is: flatten, cut or zero-pad to the target
-    size, reshape; it refuses to cut anything that is not zero.
-    """
-    saved = np.asarray(saved)
-    shape = tuple(int(d) for d in shape)
-    where = path or "<leaf>"
-    if saved.dtype != np.dtype(dtype):
-        raise ValueError(f"checkpoint leaf {where}: dtype {saved.dtype} != expected {np.dtype(dtype)}")
-    if saved.shape == shape:
-        return saved
-    if saved.ndim != 1 and len(shape) != 1:
-        raise ValueError(
-            f"checkpoint leaf {where}: shape {saved.shape} != expected {shape} and "
-            "neither is a flat ZeRO layout"
-        )
-    flat = saved.reshape(-1)
-    target = int(np.prod(shape, dtype=np.int64))
-    if flat.size > target:
-        if np.count_nonzero(flat[target:]):
-            raise ValueError(
-                f"checkpoint leaf {where}: truncating {flat.size} -> {target} elements "
-                "would drop non-zero state (not ZeRO padding): the checkpoint does not "
-                "match this model/optimizer"
-            )
-        flat = flat[:target]
-    elif flat.size < target:
-        flat = np.pad(flat, (0, target - flat.size))
-    return np.ascontiguousarray(flat.reshape(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +325,8 @@ class CheckpointManager:
         if not force and not self.should_save(step):
             return False
         if not self._is_writer:
+            # Only the gathers of the world-sharded leaves; rank 0 writes.
+            state_lib.snapshot(state, writer=False)
             self._last_queued = step
             return True
         self._join_inflight()  # one behind; surfaces the writer's errors
@@ -363,14 +337,15 @@ class CheckpointManager:
         self._ensure_thread()
         self._inflight.set()
         telemetry.record_ckpt_inflight(1)
-        self._work.put((step, leaves))
+        self._work.put((step, leaves, state_lib.zero_world_size(state)))
         return True
 
-    def _write_one(self, step: int, leaves: list[tuple[str, np.ndarray]]) -> None:
+    def _write_one(self, step: int, leaves: list[tuple[str, np.ndarray]],
+                   zero_world: int | None) -> None:
         t0 = monotonic_s()
         try:
             with trace.span("ckpt_write", step=step):
-                _write_step_dir(self._directory, step, leaves, None, self._metadata)
+                _write_step_dir(self._directory, step, leaves, zero_world, self._metadata)
                 _gc(self._directory, self._max_to_keep)
         except BaseException as e:
             with self._lock:
@@ -479,8 +454,11 @@ class CheckpointManager:
 
         Every leaf is checked before any is written: the checkpoint must
         hold exactly this state's leaves, parameters, statistics and step
-        at their exact shape and dtype; optimizer leaves are re-laid from a
-        ZeRO layout.  A mismatch raises and leaves ``state`` as it was.
+        at their exact shape and dtype; optimizer leaves are re-laid into
+        this state's layout (ZeRO or replicated, any world size).  A
+        mismatch raises and leaves ``state`` as it was.  The residuals
+        (``comm_state``) re-lay the same way, but never refuse: see the
+        module docstring.
         """
         if step is None and self._world is not None:
             step = self.latest_step()
@@ -490,8 +468,9 @@ class CheckpointManager:
         saved = _load_leaves(ckpt_dir, manifest)
         leaves = state_lib.saveable(state)
         paths = {leaf.path for leaf in leaves}
-        dropped = [p for p in saved if p.startswith(_COMM_PREFIX)]
-        missing = [leaf.path for leaf in leaves if leaf.path not in saved]
+        dropped = [p for p in saved if p.startswith(_COMM_PREFIX) and p not in paths]
+        missing = [leaf.path for leaf in leaves
+                   if leaf.path not in saved and not leaf.path.startswith(_COMM_PREFIX)]
         extra = [p for p in saved if p not in paths and not p.startswith(_COMM_PREFIX)]
         if missing or extra:
             raise ValueError(
@@ -499,8 +478,20 @@ class CheckpointManager:
                 f"leaves {missing[:5]}{'...' if len(missing) > 5 else ''}, unexpected "
                 f"leaves {extra[:5]}{'...' if len(extra) > 5 else ''}"
             )
-        arrays = []
+        arrays, zeroed = [], []
         for leaf in leaves:
+            if leaf.path.startswith(_COMM_PREFIX):
+                arr = np.zeros(leaf.shape, leaf.dtype)
+                if leaf.path not in saved:
+                    zeroed.append(leaf.path)
+                else:
+                    try:
+                        arr = reshard_flat_leaf(saved[leaf.path], leaf.shape, leaf.dtype,
+                                                leaf.path)
+                    except ValueError:  # its bucket changed size
+                        zeroed.append(leaf.path)
+                arrays.append(arr)
+                continue
             arr = saved[leaf.path]
             if leaf.path.startswith(_OPT_PREFIX):
                 arr = reshard_flat_leaf(arr, leaf.shape, leaf.dtype, leaf.path)
@@ -512,11 +503,12 @@ class CheckpointManager:
             arrays.append(arr)
         for leaf, arr in zip(leaves, arrays):
             leaf.write(arr)
-        if dropped:
+        if (zeroed or dropped) and self._is_writer:  # one line a world
             _announce(
-                "ef_reset", dir=ckpt_dir, zeroed=0, dropped=len(dropped),
-                reason="the checkpoint's comm_state (gradient-compression residuals) has "
-                       "no counterpart in this package and was dropped",
+                "ef_reset", dir=ckpt_dir, zeroed=len(zeroed), dropped=len(dropped),
+                reason="checkpoint comm_state does not match this run's comm policy/layout; "
+                       "error-feedback residuals reset to zero (EF re-converges within a few "
+                       "steps)",
             )
         return state
 

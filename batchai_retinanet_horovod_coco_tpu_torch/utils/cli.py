@@ -1,7 +1,8 @@
 """Command-line glue shared by the port's tools, as the JAX package's
-``utils/cli.py``: the anchor, data-pipeline, durability, serve and obs
-flag surfaces, the obs bring-up, and the anchor configuration persisted
-beside a checkpoint.
+``utils/cli.py``: the anchor, data-pipeline, durability, serve, obs and
+gradient-communication flag surfaces, the obs bring-up, the
+communication policy the flags make, and the anchor configuration
+persisted beside a checkpoint.
 
 The anchor file keeps the JAX package's name and format
 (``anchor_config.json``, ``dataclasses.asdict`` of the config), so a
@@ -17,6 +18,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 
 from batchai_retinanet_horovod_coco_tpu_torch.ops.anchors import AnchorConfig
 from batchai_retinanet_horovod_coco_tpu_torch.utils.atomicio import atomic_write_text
@@ -129,6 +131,119 @@ def add_serve_flags(parser) -> None:
                              "default host-pid.  The fleet command line pins "
                              "it across respawns so a breaker-open replica "
                              "is readmitted as itself")
+
+
+def add_comm_flags(parser) -> None:
+    """The gradient-communication flag surface, the JAX package's
+    (``comm/``).  ``--quantized-allreduce`` stays a deprecated alias of
+    ``--comm-compress int8`` (:func:`make_comm_config`)."""
+    parser.add_argument("--comm-compress", default="none",
+                        choices=["none", "int8", "bf16"],
+                        help="gradient-compression wire format "
+                             "(comm/compress.py): int8 = bucketed "
+                             "per-block symmetric int8 with error "
+                             "feedback (~5/8 the exact bytes-on-wire), "
+                             "bf16 = round-to-nearest bf16 (~3/4); the "
+                             "reduce phase stays exact f32 either way.  "
+                             "Composes with --shard-weight-update (the "
+                             "compression moves to the ZeRO update "
+                             "gather).  none = the plain all-reduce")
+    parser.add_argument("--comm-overlap", action="store_true",
+                        help="issue each schedule stage's (backbone/fpn/"
+                             "heads) compressed collective from INSIDE "
+                             "the backward pass (comm/overlap.py) "
+                             "instead of one fused pass after it; "
+                             "identical values, earlier wire time.  DP "
+                             "path only: with --shard-weight-update the "
+                             "compression is the post-update gather and "
+                             "this flag is ignored with a structured "
+                             "warning")
+    parser.add_argument("--comm-bucket-mb", type=float, default=4.0,
+                        help="bucket capacity in MB: leaves pack per "
+                             "stage into flat buckets of this size so "
+                             "small leaves share one quantized "
+                             "collective; a bucket under "
+                             "min_bucket_bytes stays exact")
+    parser.add_argument("--comm-no-error-feedback", action="store_true",
+                        help="disable the error-feedback residual "
+                             "(comm state): quantization error is then "
+                             "dropped each step instead of carried — "
+                             "debugging/ablation only")
+    parser.add_argument("--comm-slices", type=int, default=None,
+                        metavar="N",
+                        help="slice count of the two-level grouping "
+                             "(parallel/mesh.py CommTopology): with N > 1 "
+                             "and distinct per-hop modes the gradient "
+                             "collective becomes hierarchical — exact "
+                             "f32 within each slice, compressed exchange "
+                             "only across slices.  Default: the hosts of "
+                             "a torchrun world (LOCAL_WORLD_SIZE ranks a "
+                             "host) or the RETINANET_COMM_SLICES env; on "
+                             "one host pass e.g. 2 to emulate 2 slices")
+    parser.add_argument("--comm-ici-mode", default=None,
+                        choices=["none", "int8", "bf16"],
+                        help="wire format of the intra-slice hops once a "
+                             "topology engages; default none = the fast "
+                             "wire stays exact f32.  A compressed ici "
+                             "mode must equal the dcn mode (which is just "
+                             "the flat tree)")
+    parser.add_argument("--comm-dcn-mode", default=None,
+                        choices=["none", "int8", "bf16"],
+                        help="wire format of the cross-slice hop once a "
+                             "topology engages; default: inherit "
+                             "--comm-compress — so '--comm-compress int8 "
+                             "--comm-slices 2' alone gives exact within "
+                             "a slice, int8 across slices")
+    parser.add_argument("--comm-dcn-bucket-mb", type=float, default=None,
+                        metavar="MB",
+                        help="bucket capacity for the hierarchical plan, "
+                             "sized for the cross-slice hop (the wire "
+                             "that actually hurts); default: inherit "
+                             "--comm-bucket-mb")
+
+
+def make_comm_config(args, announce: bool = True):
+    """The ``comm/config.py::CommConfig`` of the flags above (None when
+    they ask for no compression), as the JAX package's.  The deprecated
+    ``--quantized-allreduce`` maps onto ``--comm-compress int8`` with one
+    structured ``deprecated_flag`` line on stderr (``announce``: a world's
+    rank 0 alone prints it)."""
+    from batchai_retinanet_horovod_coco_tpu_torch.comm import CommConfig
+
+    compress = getattr(args, "comm_compress", "none") or "none"
+    if getattr(args, "quantized_allreduce", False):
+        if compress == "none":
+            compress = "int8"
+    if getattr(args, "quantized_allreduce", False) and announce:
+        print(
+            json.dumps({
+                "event": "deprecated_flag",
+                "flag": "--quantized-allreduce",
+                "mapped_to": f"--comm-compress {compress}",
+                "note": (
+                    "the per-leaf quantized allreduce was subsumed by "
+                    "the comm/ subsystem (bucketed, error-feedback) — "
+                    "switch to --comm-compress"
+                ),
+            }),
+            file=sys.stderr, flush=True,
+        )
+    overlap = bool(getattr(args, "comm_overlap", False))
+    ici_mode = getattr(args, "comm_ici_mode", None)
+    dcn_mode = getattr(args, "comm_dcn_mode", None)
+    dcn_bucket_mb = getattr(args, "comm_dcn_bucket_mb", None)
+    if (compress == "none" and not overlap and (dcn_mode or "none") == "none"
+            and (ici_mode or "none") == "none"):
+        return None
+    return CommConfig(
+        compress=compress,
+        overlap=overlap,
+        bucket_mb=float(getattr(args, "comm_bucket_mb", 4.0)),
+        error_feedback=not getattr(args, "comm_no_error_feedback", False),
+        ici_mode=ici_mode,
+        dcn_mode=dcn_mode,
+        dcn_bucket_mb=None if dcn_bucket_mb is None else float(dcn_bucket_mb),
+    )
 
 
 def add_obs_flags(parser) -> None:

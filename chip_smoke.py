@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in sixteen
-phases, and fails (non-zero exit, no result line) if any of them fails:
+Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in
+seventeen phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
 2. build: compiles every CUDA kernel (NMS, matching, focal) from the
@@ -221,6 +221,28 @@ phases, and fails (non-zero exit, no result line) if any of them fails:
    detections through ``allgather_process_detections`` with a world, the
    training kernels launched once a step and NMS at least once, and no
    process group left after.  The phase must take at most 240 s.
+17. gradient communication on one card (``comm/``, ``parallel/zero.py``):
+   (a) a world of 2 gloo ranks on the card, f32 with TF32 off and
+   deterministic kernels, ResNet-50 RetinaNet (GroupNorm) at full width, 2
+   of phase 8's images a rank at (800, 1344), 3 steps each of exact DP,
+   ``--comm-compress int8`` with error feedback, the same with
+   ``--comm-overlap``, ``--shard-weight-update`` and ZeRO with int8, from
+   the same weights: each rank's step ms, ``ef_residual_norm``,
+   ``ef_saturation`` and ``comm_compressed_bytes`` beside the exact
+   schedule's bytes, the gap to the exact world's parameters, peak memory,
+   optimizer-state bytes and launches; the ranks' digests equal, overlap's
+   equal to fused int8's, ZeRO's optimizer state about half the exact
+   world's, and the EF identity (summed applied means plus the residual
+   equal the summed exact means) within 1e-6 on the card; (b) a world of 4
+   as 2 slices x 2 (``--comm-dcn-mode int8``), one (512, 512) image a rank,
+   2 steps, against the flat int8 world: ``comm_ici_bytes``, ``comm_dcn_bytes``,
+   ``ef_residual_norm_dcn``, the interleaved mesh positions, equal digests;
+   (c) ``train coco --shard-weight-update --comm-compress int8`` in a world
+   of 1 over NCCL (bf16, batch 16): 3 steps, a checkpoint with
+   ``zero_world_size`` 1, and its residuals restored through the package
+   equal to the saved ones.  Every rank's matching and focal kernels
+   launched every step, the plain versions never.  The phase must take at
+   most 240 s.
 
 Then it prints one JSON line with each kernel's launches, error, times and
 bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
@@ -813,16 +835,19 @@ def main() -> int:
         family_launches = model_family_phase(root, batches, device, kind, smi)
         phase(16, "data-parallel training on one card")
         dp_launches = data_parallel_phase(root, batches, device, kind, smi)
+        phase(17, "gradient communication on one card")
+        comm_launches = comm_phase(root, batches, device, kind, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
         row["launches"] = (launches_by_kernel[key] + run_launches[key] + file_launches[key]
-                           + obs_launches[key] + family_launches[key] + dp_launches[key])
+                           + obs_launches[key] + family_launches[key] + dp_launches[key]
+                           + comm_launches[key])
     nms_row["launches"] = (launches + run_launches["nms"] + file_launches["nms"] + served["launches"]
                            + obs_launches["nms"] + fleet_launches + family_launches["nms"]
-                           + dp_launches["nms"])
+                           + dp_launches["nms"] + comm_launches["nms"])
     end_phases()
-    print(f"chip_smoke: all 16 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
+    print(f"chip_smoke: all 17 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
 
     print(smi)
     print(json.dumps({"kernels": [nms_row, match_row, fwd_row, bwd_row]}))
@@ -3376,10 +3401,12 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _run_ranks(job_path: str, ranks: int, root: str) -> list[dict]:
-    """DP_RANKS processes of dp_rank, each in a session of its own, against
-    one deadline; past it, or on a failed rank, all are killed and the
-    phase fails with their output tails."""
+def _run_ranks(job_path: str, ranks: int, root: str, target: str = "dp_rank",
+               deadline_s: float = DP_DEADLINE_S) -> list[dict]:
+    """``ranks`` processes of ``target`` (``dp_rank`` or ``comm_rank``),
+    each in a session of its own, against one deadline; past it, or on a
+    failed rank, all are killed and the phase fails with their output
+    tails."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p))
     logs = [os.path.join(root, f"dp_rank{r}.log") for r in range(ranks)]
@@ -3387,9 +3414,9 @@ def _run_ranks(job_path: str, ranks: int, root: str) -> list[dict]:
     for r, log in enumerate(logs):
         with open(log, "wb") as out:
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_rank({job_path!r}, {r})"],
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.{target}({job_path!r}, {r})"],
                 cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT, start_new_session=True))
-    deadline = time.monotonic() + DP_DEADLINE_S
+    deadline = time.monotonic() + deadline_s
     try:
         for p in procs:
             p.wait(timeout=max(0.0, deadline - time.monotonic()))
@@ -3406,7 +3433,7 @@ def _run_ranks(job_path: str, ranks: int, root: str) -> list[dict]:
         tails = "\n".join(f"--- rank {r} ---\n{Path(log).read_text(errors='replace')[-3000:]}"
                           for r, log in enumerate(logs))
         print(tails)
-        require(False, f"phase 16 (a) ranks exited with {codes}")
+        require(False, f"the {target} ranks exited with {codes}")
     results = []
     for r in range(ranks):
         with open(os.path.join(os.path.dirname(job_path), f"rank{r}.json")) as f:
@@ -3538,6 +3565,376 @@ def data_parallel_phase(root: str, batches, device, kind: str, smi: str,
     phase_s = time.perf_counter() - t_phase
     print(f"phase 16 in {phase_s:.1f} s (limit {DP_DEADLINE_S} s); launches {launches}")
     require(phase_s <= DP_DEADLINE_S, f"phase 16 took {phase_s:.1f} s")
+    return launches
+
+
+# ---- phase 17: gradient communication on one card ---------------------------
+
+COMM_STEPS = 3
+COMM_DEADLINE_S = 240
+# (a), in this order: the exact world first, the others measured against it.
+# (name, CommConfig fields or None, ZeRO, EF identity checked after it)
+COMM_FLAVORS = (
+    ("exact", None, False, False),
+    ("int8", dict(compress="int8"), False, True),
+    ("int8 overlap", dict(compress="int8", overlap=True), False, False),
+    ("zero", None, True, False),
+    ("zero int8", dict(compress="int8"), True, False),
+)
+HIER_RANKS = 4  # (b): 2 slices x 2 gloo ranks, one image a rank, 2 steps
+HIER_STEPS = 2
+# (b)'s images: four full-width models time-slice the one card, so smaller
+# than TRAIN_HW to keep the phase near 90 s.
+HIER_HW = (512, 512)
+HIER_FLAVORS = (
+    ("flat int8", dict(compress="int8"), None),
+    ("2x2, int8 across slices", dict(dcn_mode="int8"), 2),
+)
+EF_RTOL = 1e-6  # of the largest summed exact mean: f32 rounding of 3 steps
+
+
+def small_batch(batch_size: int, seed: int, hw: tuple[int, int]) -> pipeline_lib.Batch:
+    """A seeded synthetic batch at ``hw``: uint8 images of that size, 1-40
+    boxes an image."""
+    rng = np.random.default_rng(2000 + seed)
+    boxes, labels, mask = gt_scene(batch_size, 40, seed, hw=hw)
+    examples = [(rng.integers(0, 256, (*hw, 3), dtype=np.uint8), boxes[b, :int(mask[b].sum())],
+                 labels[b, :int(mask[b].sum())], 1.0) for b in range(batch_size)]
+    return pipeline_lib.assemble(examples, list(range(batch_size)), hw, max_gt=MAX_GT)
+
+
+def _telescope(world, model, config, device, steps: int = 3) -> float:
+    """Error feedback on the card over ``steps`` reduces of seeded random
+    gradients shaped as ``model``'s leaves (its full-width plan): the
+    largest |sum of applied means + final residual - sum of exact means|
+    over the largest |sum of exact means| (f32 rounding: about 1e-7)."""
+    from batchai_retinanet_horovod_coco_tpu_torch.comm import compress as compress_lib
+    from batchai_retinanet_horovod_coco_tpu_torch.models.convert import flax_params, to_flax
+    from batchai_retinanet_horovod_coco_tpu_torch.parallel.mesh import DataAxis
+    from batchai_retinanet_horovod_coco_tpu_torch.parallel.zero import Sharding
+
+    leaves = {path: to_flax(p.detach()) for _, path, p in flax_params(model)}
+    plan = compress_lib.plan_buckets(leaves, config)
+    sharding, axis = Sharding.of(world), DataAxis(world)
+    res = {k: sharding.local(torch.from_numpy(v)).to(device)
+           for k, v in compress_lib.init_comm_state(leaves, config, world.size).items()}
+    gen = torch.Generator(device=device).manual_seed(17 + world.rank)
+    applied = {p: torch.zeros(t.shape, dtype=torch.float64, device=device) for p, t in leaves.items()}
+    exact = {p: torch.zeros(t.shape, dtype=torch.float64, device=device) for p, t in leaves.items()}
+    for _ in range(steps):
+        grads = {p: torch.randn(t.shape, generator=gen, device=device) * 1e-3
+                 for p, t in leaves.items()}
+        out, res, _ = compress_lib.reduce_tree(grads, res, plan, config, axis)
+        mean = axis.pmean(torch.cat([g.reshape(-1) for g in grads.values()]))
+        for (p, g), m in zip(grads.items(), mean.split([g.numel() for g in grads.values()])):
+            applied[p] += out[p].double()
+            exact[p] += m.view_as(g).double()
+    worst, scale = 0.0, 0.0
+    for bucket in plan.buckets:
+        a = torch.cat([applied[leaf.path].reshape(-1) for leaf in bucket.leaves])
+        e = torch.cat([exact[leaf.path].reshape(-1) for leaf in bucket.leaves])
+        if bucket.mode != "exact":
+            a = a + sharding.gather(res[bucket.key]).to(device).double()[: bucket.size]
+        worst = max(worst, float((a - e).abs().max()))
+        scale = max(scale, float(e.abs().max()))
+    return worst / scale
+
+
+def _comm_flavor(spec: dict, world, job: dict, batch: dict, initial: dict,
+                 reference) -> tuple[dict, dict]:
+    """One flavor in this rank: ``spec["steps"]`` steps from ``initial``;
+    its numbers, and its final parameters (for the flavors after it)."""
+    from batchai_retinanet_horovod_coco_tpu_torch.comm import compress as compress_lib
+    from batchai_retinanet_horovod_coco_tpu_torch.comm.config import CommConfig
+    from batchai_retinanet_horovod_coco_tpu_torch.models.convert import flax_params, to_flax
+    from batchai_retinanet_horovod_coco_tpu_torch.obs.numerics import NumericsConfig
+    from batchai_retinanet_horovod_coco_tpu_torch.parallel.mesh import CommTopology
+
+    device = world.device
+    comm = CommConfig(**spec["comm"]) if spec["comm"] else None
+    topology = CommTopology(spec["slices"], world.size // spec["slices"]) if spec["slices"] else None
+    model = build_retinanet(RetinaNetConfig(**job["model"], dtype=torch.float32), device=device,
+                            seed=0)
+    model.load_state_dict(initial)
+    state = state_lib.create_train_state(model, optim_lib.OptimizerConfig(**DP_OPT), device,
+                                         world=world, comm=comm, shard_weight_update=spec["zero"],
+                                         topology=topology)
+    hw = tuple(job["hw"])
+    step = step_lib.make_train_step(model, hw, 80, device=device,
+                                    numerics=NumericsConfig(enabled=True), world=world, comm=comm,
+                                    shard_weight_update=spec["zero"], topology=topology)
+    hier = topology if comm is not None and comm.hierarchical_with(topology) else None
+    pos = hier.position(world.rank) if hier is not None else world.rank
+    n = batch["images"].shape[0] // world.size
+    arrays = loop_lib.device_batch(
+        pipeline_lib.Batch(**{k: v[pos * n:(pos + 1) * n] for k, v in batch.items()}), device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_all_counts()
+    history = []
+    for _ in range(spec["steps"]):
+        _sync(device)
+        t0 = time.perf_counter()
+        metrics = step(state, arrays)
+        _sync(device)
+        history.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        **{k: float(v) for k, v in metrics.items()}})
+    used = counts()
+    slots = [t for st in state.optimizer.inner.state.values() for t in st.values()
+             if torch.is_tensor(t) and t.dim()]
+    out = {"name": spec["name"], "position": pos, "history": history, "launches": used,
+           "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                        if device.type == "cuda" else 0.0),
+           "opt_bytes": sum(t.numel() * t.element_size() for t in slots)}
+    if comm is not None:
+        leaves = {path: to_flax(p.detach()) for _, path, p in flax_params(model)}
+        plan = compress_lib.plan_buckets(leaves, comm, hier)
+        out["exact_bytes"] = plan.exact_bytes(world.size)
+        if hier is not None:  # the exact tree routed through the two hops
+            out["hop_bytes_exact"] = plan.hop_bytes_exact(hier)
+            out["exact_bytes"] = sum(out["hop_bytes_exact"].values())
+    digest = hashlib.sha256()
+    for key, value in sorted(model.state_dict().items()):
+        digest.update(value.detach().cpu().contiguous().numpy().tobytes())
+    out["digest"] = digest.hexdigest()
+    final = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    if reference is not None:
+        # Per tensor, and over all of them: a conv bias that feeds a
+        # GroupNorm gets only rounding noise as its gradient, so its own
+        # share measures the noise.
+        gaps, err_sq, moved_sq = [], 0.0, 0.0
+        for key, want in reference.items():
+            moved = float(torch.linalg.vector_norm(want - initial[key]))
+            err = float(torch.linalg.vector_norm(final[key] - want))
+            gaps.append((err / max(moved + 1e-6 * float(torch.linalg.vector_norm(want)), 1e-30), key))
+            err_sq, moved_sq = err_sq + err**2, moved_sq + moved**2
+        out["gap"] = (*max(gaps), (err_sq / max(moved_sq, 1e-60)) ** 0.5)
+    if spec["telescope"]:
+        out["ef_identity"] = _telescope(world, model, comm, device)
+    del model, state, step
+    world.replica_slot.clear()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, final
+
+
+def comm_rank(job_path: str, rank: int) -> None:
+    """Phase 17, one rank: join the world over gloo and run the job's
+    flavors in order, each from the shared initial weights on this rank's
+    rows of the global batch (by mesh position); the first flavor's final
+    parameters are the others' reference."""
+    from batchai_retinanet_horovod_coco_tpu_torch.launch import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # Deterministic kernels (cuDNN's convolutions, the FPN upsample's
+    # index_add backward), so that two flavors that compute the same values
+    # give the same bits: the overlap against the fused reduce.  cuBLAS reads
+    # its workspace setting when it starts, after this.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    world = initialize_distributed(DistributedConfig(
+        coordinator_address=f"file://{job['store']}", num_processes=job["ranks"], process_id=rank,
+        local_rank=0, backend="gloo", device=job["device"], timeout_s=job["timeout_s"],
+    ))
+    try:
+        batch = dict(np.load(job["batch"]))
+        initial = {k: v.to(world.device) for k, v in torch.load(job["initial"]).items()}
+        results, reference = [], None
+        for spec in job["flavors"]:
+            result, final = _comm_flavor(spec, world, job, batch, initial, reference)
+            results.append(result)
+            if reference is None:
+                reference = final
+        with open(os.path.join(os.path.dirname(job_path), f"rank{rank}.json"), "w") as f:
+            json.dump(results, f)
+    finally:
+        shutdown_distributed(world)
+
+
+def _comm_world(work: str, device, model: dict, batch, flavors: list[dict], ranks: int,
+                hw) -> list[list[dict]]:
+    """Run ``flavors`` in a world of ``ranks`` gloo ranks on the card;
+    returns each flavor's results, by rank."""
+    os.makedirs(work, exist_ok=True)
+    np.savez(os.path.join(work, "batch.npz"), **batch._asdict())
+    initial = build_retinanet(RetinaNetConfig(**model, dtype=torch.float32), device=device, seed=0)
+    torch.save(initial.state_dict(), os.path.join(work, "initial.pt"))
+    del initial
+    job = os.path.join(work, "job.json")
+    with open(job, "w") as f:
+        json.dump({"store": os.path.join(work, "store"), "ranks": ranks, "device": device.type,
+                   "timeout_s": COMM_DEADLINE_S, "model": model, "hw": list(hw),
+                   "initial": os.path.join(work, "initial.pt"),
+                   "batch": os.path.join(work, "batch.npz"), "flavors": flavors}, f)
+    by_rank = _run_ranks(job, ranks, work, target="comm_rank", deadline_s=COMM_DEADLINE_S)
+    return [[by_rank[r][i] for r in range(ranks)] for i in range(len(flavors))]
+
+
+def _print_flavor(ranks: list[dict], kind: str, smi: str) -> None:
+    first = ranks[0]
+    last = first["history"][-1]
+    line = (f"{first['name']}: step ms by rank {[[round(h['ms'], 1) for h in r['history']] for r in ranks]}; "
+            f"loss {last['loss']:.6f}")
+    if "comm_compressed_bytes" in last:
+        line += (f"; ef_residual_norm {[round(h['ef_residual_norm'], 9) for h in first['history']]}, "
+                 f"ef_saturation {[round(h['ef_saturation'], 6) for h in first['history']]}, "
+                 f"comm_compressed_bytes {last['comm_compressed_bytes']:.0f} against exact_bytes "
+                 f"{first['exact_bytes']} ({last['comm_compressed_bytes'] / first['exact_bytes']:.4f})")
+    for key in ("comm_ici_bytes", "comm_dcn_bytes", "ef_residual_norm_dcn"):
+        if key in last:
+            line += f"; {key} {last[key]}"
+    if "hop_bytes_exact" in first:
+        line += f"; exact tree by hop {first['hop_bytes_exact']}"
+    if "gap" in first:
+        line += (f"; gap to the first world {first['gap'][2]:.3e} of the move over all parameters, "
+                 f"{first['gap'][0]:.3e} at most a tensor ({first['gap'][1]})")
+    if "ef_identity" in first:
+        line += f"; EF identity {[r['ef_identity'] for r in ranks]} of the largest sum (limit {EF_RTOL})"
+    line += (f"; peak GiB {[round(r['peak_gib'], 2) for r in ranks]}, optimizer-state bytes "
+             f"{[r['opt_bytes'] for r in ranks]}; launches {[r['launches'] for r in ranks]}; "
+             f"digests {[r['digest'][:16] for r in ranks]}; {kind}, {smi}")
+    print(line, flush=True)
+
+
+def comm_phase(root: str, batches, device, kind: str, smi: str, hw=TRAIN_HW, hier_hw=HIER_HW,
+               model: dict | None = None) -> dict[str, int]:
+    """Phase 17: (a) a world of 2 gloo ranks on the one card through the
+    flavors of COMM_FLAVORS; (b) a world of 4 as 2 slices x 2; (c) ``train
+    coco --shard-weight-update --comm-compress int8`` in a world of 1 over
+    NCCL, its checkpoint restored through the package.  Returns the
+    kernels' launches.  ``hw``, ``hier_hw`` and ``model`` shrink (a) and (b)
+    for a rehearsal on the CPU."""
+    import torch.distributed as dist
+
+    from batchai_retinanet_horovod_coco_tpu_torch.comm.config import CommConfig
+    from batchai_retinanet_horovod_coco_tpu_torch.launch import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    t_phase = time.perf_counter()
+    model = model or {}
+    launches = dict.fromkeys(("matching", "focal_fwd", "focal_bwd", "nms"), 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def check_world(flavors: list[list[dict]], steps: int) -> None:
+        for ranks in flavors:
+            name = ranks[0]["name"]
+            require(len({r["digest"] for r in ranks}) == 1, f"{name}: the ranks' parameters differ")
+            for r in ranks:
+                used = r["launches"]
+                require(used["plain"] == 0 and all(used[k] >= steps
+                                                   for k in ("matching", "focal_fwd", "focal_bwd")),
+                        f"{name}: a rank's launches {used}")
+                require(all(np.isfinite(h["loss"]) and np.isfinite(h["param_norm"])
+                            for h in r["history"]), f"{name}: non-finite metrics")
+                for k in launches:
+                    launches[k] += used[k]
+
+    # (a) Five flavors in one world of 2.
+    specs = [dict(name=n, comm=c, zero=z, slices=None, telescope=t, steps=COMM_STEPS)
+             for n, c, z, t in COMM_FLAVORS]
+    t0 = time.perf_counter()
+    flavors = _comm_world(os.path.join(root, "comm2"), device, model,
+                          cut_batch(batches[0], DP_RANKS * DP_PER_RANK), specs, DP_RANKS, hw)
+    print(f"(a) a world of {DP_RANKS} over gloo on one card, {DP_PER_RANK} images a rank at {hw} "
+          f"in f32 (TF32 off), {COMM_STEPS} steps a flavor: {time.perf_counter() - t0:.1f} s with "
+          "start-up")
+    for ranks in flavors:
+        _print_flavor(ranks, kind, smi)
+    check_world(flavors, COMM_STEPS)
+    by_name = {ranks[0]["name"]: ranks for ranks in flavors}
+    require([r["digest"] for r in by_name["int8 overlap"]] == [r["digest"] for r in by_name["int8"]],
+            "overlap's parameters differ from the fused int8 run's")
+    # Two ranks: the reduce-scatter's and the all-reduce's sums are exact.
+    require([r["digest"] for r in by_name["zero"]] == [r["digest"] for r in by_name["exact"]],
+            "ZeRO's parameters differ from the exact world's")
+    require(all(r["ef_identity"] <= EF_RTOL for r in by_name["int8"]),
+            "the EF identity does not hold on the card")
+    share = by_name["zero"][0]["opt_bytes"] / by_name["exact"][0]["opt_bytes"]
+    print(f"ZeRO's optimizer-state bytes a rank: {share:.4f} of the exact world's", flush=True)
+    require(0.45 <= share <= 0.55, f"ZeRO keeps {share:.4f} of the exact world's optimizer state")
+
+    # (b) 2 slices x 2 ranks, one image a rank.
+    specs = [dict(name=n, comm=c, zero=False, slices=s, telescope=False, steps=HIER_STEPS)
+             for n, c, s in HIER_FLAVORS]
+    t0 = time.perf_counter()
+    flavors = _comm_world(os.path.join(root, "comm4"), device, model,
+                          small_batch(HIER_RANKS, 5, hier_hw), specs, HIER_RANKS, hier_hw)
+    print(f"(b) a world of {HIER_RANKS} over gloo on one card as 2 slices x 2, one image a rank at "
+          f"{hier_hw} (smaller than {TRAIN_HW}: four full-width models share the card), f32, "
+          f"{HIER_STEPS} steps a flavor: "
+          f"{time.perf_counter() - t0:.1f} s with start-up")
+    for ranks in flavors:
+        _print_flavor(ranks, kind, smi)
+    check_world(flavors, HIER_STEPS)
+    hier = flavors[1]
+    require(all(k in hier[0]["history"][-1] for k in ("comm_ici_bytes", "comm_dcn_bytes",
+                                                       "ef_residual_norm_dcn")),
+            "the 2x2 world did not run the hierarchical tree")
+    require([r["position"] for r in hier] == [0, 2, 1, 3], f"mesh positions {[r['position'] for r in hier]}")
+
+    # (c) train coco, ZeRO + int8, a world of 1 over NCCL: 3 steps, a
+    # checkpoint, and a restore of it through the package.
+    train_json, val_json = fixture_coco(root, 16, 41), fixture_coco(root, 8, 42)
+    snap = os.path.join(root, "comm_snap")
+    flags = ["coco", root, "--train-annotations", os.path.basename(train_json), "--train-images",
+             str(JPEG_FIXTURES), "--val-annotations", os.path.basename(val_json), "--val-images",
+             str(JPEG_FIXTURES), "--snapshot-path", snap, "--steps", "3", "--checkpoint-every", "3",
+             "--log-every", "1", "--coordinator-address", f"127.0.0.1:{free_port()}",
+             "--num-processes", "1", "--process-id", "0", "--score-threshold", "0.001",
+             "--shard-weight-update", "--comm-compress", "int8"]
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = train_cli.main(flags)
+    cli_s = time.perf_counter() - t0
+    used = counts()
+    manifest = read_manifest(snap)
+    saved = dict(saved_leaves(os.path.join(snap, f"ckpt-{manifest['step']}")))
+    residuals = {k: v for k, v in saved.items() if k.startswith("['comm_state']")}
+    world = initialize_distributed(DistributedConfig(
+        coordinator_address=f"127.0.0.1:{free_port()}", num_processes=1, process_id=0,
+        device=device.type))
+    try:
+        dataset = CocoDataset(train_json, str(JPEG_FIXTURES))
+        restored_model = build_retinanet(RetinaNetConfig(num_classes=dataset.num_classes),
+                                         device=device, seed=1)
+        state = state_lib.create_train_state(
+            restored_model, optim_lib.OptimizerConfig(global_batch_size=16), device, world=world,
+            comm=CommConfig(compress="int8"), shard_weight_update=True)
+        CheckpointManager(snap, world=world).restore(state)
+        restored = {path: arr for path, arr in state_lib.snapshot(state)
+                    if path.startswith("['comm_state']")}
+    finally:
+        shutdown_distributed(world)
+    equal = set(restored) == set(residuals) and all(np.array_equal(restored[k], residuals[k])
+                                                    for k in residuals)
+    norm = float(np.sqrt(sum(np.square(v.astype(np.float64)).sum() for v in residuals.values())))
+    print(f"(c) train coco --shard-weight-update --comm-compress int8 in a world of 1 over NCCL, "
+          f"batch 16, bf16: 3 steps, a checkpoint and the final eval in {cli_s:.1f} s; ckpt step "
+          f"{manifest['step']}, zero_world_size {manifest['zero_world_size']}, {len(residuals)} "
+          f"residuals (norm {norm:.6e}); restored through the package equal: {equal}; launches "
+          f"{used}; process group left {dist.is_initialized()}", flush=True)
+    require(out["final_step"] == 3.0 and manifest["step"] == 3 and manifest["zero_world_size"] == 1,
+            "the ZeRO + int8 run did not checkpoint step 3")
+    require(residuals and norm > 0 and equal, "the restored comm_state differs from the saved one")
+    require(not dist.is_initialized(), "a process group was left")
+    require(used["plain"] == 0 and all(used[k] == 3 for k in ("matching", "focal_fwd", "focal_bwd"))
+            and used["nms"] >= 1, f"the ZeRO + int8 run's launches {used}")
+    for k in launches:
+        launches[k] += used[k]
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 17 in {phase_s:.1f} s (limit {COMM_DEADLINE_S} s); launches {launches}")
+    require(phase_s <= COMM_DEADLINE_S, f"phase 17 took {phase_s:.1f} s")
     return launches
 
 

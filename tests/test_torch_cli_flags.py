@@ -118,7 +118,11 @@ def test_unported_flags_are_refused(flags, tmp_path, monkeypatch, capsys):
     ``--norm frozen_bn``, whose statistics the snapshot then holds.  The
     launch flags, refused before, are accepted: each maps to the world it
     asks for (``DistributedConfig``), checked here without a run (a world
-    of 2 runs in tests/test_torch_data_parallel.py)."""
+    of 2 runs in tests/test_torch_data_parallel.py).  So are the
+    gradient-communication flags ``--shard-weight-update`` and
+    ``--quantized-allreduce``, which need a world: one process refuses them
+    with the JAX command line's message (their world runs are in
+    tests/test_torch_comm_cli.py)."""
     if flags[0] in LAUNCH_FLAGS:
         args = t_train.parse_args(["synthetic", "--device", "cpu", *flags, *LAUNCH_FLAGS[flags[0]]])
         t_train.refuse_unported(args)
@@ -163,6 +167,11 @@ def test_unported_flags_are_refused(flags, tmp_path, monkeypatch, capsys):
             "num_worker_procs" if flags[0] == "--data-worker-procs" else "worker_timeout"] == float(flags[1])
         assert len(built) == (flags[0] == "--data-worker-procs")
         assert all(p.exitcode is not None for pipe in built for p in pipe.processes)
+        return
+    if flags[0] in ("--shard-weight-update", "--quantized-allreduce"):
+        t_train.refuse_unported(t_train.parse_args(["synthetic", "--device", "cpu", *flags]))
+        with pytest.raises(SystemExit, match=r"needs? --num-devices > 1"):
+            t_train.main(["synthetic", "--device", "cpu", *flags])
         return
     with pytest.raises(SystemExit, match="ROADMAP.md") as info:
         t_train.main(["synthetic", "--device", "cpu", *flags])

@@ -64,11 +64,6 @@ import train as j_train  # noqa: E402
 # any two scrapes.
 CLOCK_FAMILIES = {"process_uptime_seconds", "watchdog_beat_age_seconds",
                   "ckpt_last_success_age_s", "ckpt_age_over_interval"}
-# The JAX registry's train handles for planes the port does not have yet
-# (multi-GPU training, gradient compression: ROADMAP.md).
-JAX_ONLY_FAMILIES = {"train_ef_residual", "train_ef_saturation",
-                     "train_comm_compressed_bytes_total", "train_comm_ici_bytes_total",
-                     "train_comm_dcn_bytes_total", "train_ef_residual_dcn"}
 
 
 @pytest.fixture(autouse=True)
@@ -107,6 +102,8 @@ def record_all(telemetry) -> None:
     telemetry.record_ckpt_save(3, 1.0123, 303886547)
     telemetry.record_ckpt_save(6, 1.25, 303886547)
     telemetry.record_ckpt_inflight(1)
+    telemetry.record_comm(ef_residual=0.25, ef_saturation=0.01, compressed_bytes=1000.0,
+                          ici_bytes=300.0, dcn_bytes=700.0, ef_residual_dcn=0.5, steps=20)
     telemetry.record_serve_batch(0.75, 2, (1.5, 2.25, 0.1))
     telemetry.record_serve_batch(1.0, 0, ())
 
@@ -135,7 +132,7 @@ def test_exposition_is_byte_equal_to_jax():
     record_all(j_telemetry)
     drop = CLOCK_FAMILIES | {"watchdog_components", "watchdog_stalled", "device_memory_bytes"}
     got = exposition(t_telemetry.default(), drop)
-    want = exposition(j_telemetry.default(), drop | JAX_ONLY_FAMILIES)
+    want = exposition(j_telemetry.default(), drop)
     assert "train_step_time_ms 220.821" in got and "ckpt_staleness" in got
     assert got == want
     registries = []
