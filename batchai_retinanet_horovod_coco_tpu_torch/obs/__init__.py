@@ -64,9 +64,8 @@ def finalize() -> str | None:
     """Run-scoped teardown: export this process's trace, stop the
     watchdog, merge every per-process trace file of this run into
     ``trace.json``.  Returns the merged path (None when tracing was never
-    enabled).  The JAX package's ``finalize`` callers then write a perf
-    report (``obs/analyze``); that analyzer waits for the tooling item
-    of ``ROADMAP.md`` queue 1."""
+    enabled); the train command line then writes the perf report next to
+    it (``obs/analyze``'s ``auto_emit``)."""
     watchdog.stop()
     if not trace.enabled():
         return None

@@ -109,6 +109,10 @@ VOCABULARY: dict[str, dict] = {
         "kinds": ("span",),
         "consumers": (),
     },
+    "cost_analysis": {
+        "kinds": ("instant",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/obs/analyze/report.py",),
+    },
     "data_wait": {
         "kinds": ("span",),
         "consumers": (),
@@ -336,6 +340,13 @@ VOCABULARY: dict[str, dict] = {
         "kinds": ("instant",),
         "consumers": (),
     },
+    "perf_report_error": {
+        "kinds": ("event",),
+        "consumers": (
+            "batchai_retinanet_horovod_coco_tpu_torch/obs/analyze/report.py",
+            "batchai_retinanet_horovod_coco_tpu_torch/train/__main__.py",
+        ),
+    },
     "pipe_assemble": {
         "kinds": ("span",),
         "consumers": (),
@@ -355,6 +366,10 @@ VOCABULARY: dict[str, dict] = {
     "respawn_budget_exhausted": {
         "kinds": ("event",),
         "consumers": (),
+    },
+    "run_meta": {
+        "kinds": ("instant",),
+        "consumers": ("batchai_retinanet_horovod_coco_tpu_torch/obs/analyze/report.py",),
     },
     "serve.admission_qsize": {
         "kinds": ("series",),

@@ -617,10 +617,26 @@ def _observed(args, world) -> dict[str, float]:
 
         merged = obs.finalize()
         if merged:
-            # The JAX CLI then writes PERF_REPORT.json (obs/analyze),
-            # which waits for the tooling item of ROADMAP.md queue 1.
             print(f"obs: merged Chrome trace at {merged} (load in Perfetto / "
                   "chrome://tracing)", flush=True)
+            _emit_perf_report(obs_dir)
+
+
+def _emit_perf_report(obs_dir: str) -> None:
+    """PERF_REPORT.json next to the merged trace.  The analysis never
+    fails the run: ``auto_emit`` turns its own failure into one
+    ``perf_report_error`` line, and the import is guarded the same way."""
+    try:
+        from batchai_retinanet_horovod_coco_tpu_torch.obs.analyze import auto_emit
+
+        report = auto_emit(obs_dir)
+    except Exception as e:  # never mask the run's own outcome
+        print(json.dumps({"event": "perf_report_error", "error": repr(e)[:500]}),
+              file=sys.stderr, flush=True)
+        report = None
+    if report:
+        print(f"obs: perf report at {report} (reproduce offline: python -m "
+              f"batchai_retinanet_horovod_coco_tpu_torch.obs.analyze {obs_dir})", flush=True)
 
 
 def _run(args, world) -> dict[str, float]:

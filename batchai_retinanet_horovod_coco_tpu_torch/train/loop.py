@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch import losses as losses_lib
-from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import Batch
+from batchai_retinanet_horovod_coco_tpu_torch.data.pipeline import Batch, normalize_images
 from batchai_retinanet_horovod_coco_tpu_torch.data.prefetch import prefetch_map
 from batchai_retinanet_horovod_coco_tpu_torch.obs import numerics as numerics_lib
 from batchai_retinanet_horovod_coco_tpu_torch.obs import telemetry, trace, watchdog
@@ -342,6 +342,42 @@ def _abort_nonfinite(
     ) from dump_error
 
 
+# What the ``cost_analysis`` instants count: torch's FlopCounterMode over
+# the model's forward and backward (convolutions and matrix products, two
+# operations a multiply-add); not XLA's cost analysis of the JAX step.
+FLOPS_SOURCE = "torch_flop_counter"
+
+
+def step_flops(model: torch.nn.Module, images_shape: tuple[int, ...]) -> float | None:
+    """The FLOPs of a train step's forward and backward of ``model`` on
+    uint8 images of ``images_shape``, counted by ``FlopCounterMode`` on
+    meta tensors: nothing is computed, and the model's parameters, buffers
+    and gradients are not touched (the counter's dispatch over the real
+    step changed a bf16 convolution's weight gradient on the CPU).  None
+    when the model cannot run on meta tensors: the report then carries no
+    MFU rather than a guess."""
+    from torch.func import functional_call
+    from torch.utils.flop_counter import FlopCounterMode
+
+    try:
+        params = {n: torch.empty_like(p, device="meta").requires_grad_(p.requires_grad)
+                  for n, p in model.named_parameters()}
+        buffers = {n: torch.empty_like(b, device="meta") for n, b in model.named_buffers()}
+        images = torch.empty(images_shape, dtype=torch.uint8, device="meta")
+        counter = FlopCounterMode(display=False)
+        with counter:
+            outputs = functional_call(model, {**params, **buffers}, (normalize_images(images),))
+            loss = sum(v.float().sum() for v in outputs.values())
+            trainable = [p for p in params.values() if p.requires_grad]
+            if trainable:
+                torch.autograd.grad(loss, trainable)
+    except Exception as e:  # the count must never stop a run
+        warnings.warn(f"the step's FLOPs were not counted on meta tensors ({e!r}): no MFU")
+        return None
+    flops = float(counter.get_total_flops())
+    return flops if flops > 0 else None
+
+
 def run_training(
     state: TrainState,
     batches: Iterable[Batch],
@@ -402,6 +438,15 @@ def run_training(
             if is_main:
                 print(f"resumed from step {state.step}", flush=True)
 
+    if trace.enabled():
+        # Run metadata into the trace: the perf doctor (obs/analyze) finds
+        # the card's peak TFLOP/s and the topology in the artifacts alone.
+        trace.instant(
+            "run_meta",
+            device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+            local_device_count=torch.cuda.device_count() if device.type == "cuda" else 1,
+            process_count=1 if world is None else world.size,
+        )
     step_fns: dict[tuple[int, int], Callable[..., dict[str, Any]]] = {}
     numerics_config = numerics_lib.NumericsConfig(enabled=config.numerics)
     log_event = getattr(log, "event", None)
@@ -463,6 +508,12 @@ def run_training(
                     topology=config.topology,
                 )
                 telemetry.record_compile(f"{hw[0]}x{hw[1]}", monotonic_s() - t_build)
+                # A traced run records the step's FLOPs, the perf doctor's
+                # MFU numerator (obs/analyze).
+                flops = step_flops(state.model, tuple(shape)) if trace.enabled() else None
+                if flops is not None:
+                    trace.instant("cost_analysis", target="train_step", bucket=f"{hw[0]}x{hw[1]}",
+                                  flops=flops, batch=int(shape[0]), source=FLOPS_SOURCE)
             if config.profile_dir and step == prof_start:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":

@@ -88,11 +88,14 @@ seventeen phases, and fails (non-zero exit, no result line) if any of them fails
    stats, and it prints each one's host ms;
 11. from image files through the command line: (a) builds the image codec
    (``native/imagecodec.cpp``) with g++, decodes every fixture of
-   ``tests/fixtures/jpeg`` and ``tests/fixtures/formats`` (progressive,
-   block-smoothed cut progressive, CMYK, YCCK and RGB-coded JPEG,
-   interlaced and 16-bit PNG, BMP with RLE8 and RLE4) to the
-   sha256 of PIL's pixels that their ``digests.json`` hold, times a 640 x
-   480 baseline and a progressive decode on the host, and sweeps
+   ``tests/fixtures/jpeg``, ``tests/fixtures/formats`` and
+   ``tests/fixtures/formats_more`` (progressive, block-smoothed cut
+   progressive, CMYK, YCCK and RGB-coded JPEG, interlaced and 16-bit PNG,
+   BMP with RLE8 and RLE4; GIF; TIFF uncompressed, PackBits, LZW, Deflate
+   and JPEG in strips, tiles and planes; WebP lossy, lossless, with alpha
+   and animated) to the sha256 of PIL's pixels that their ``digests.json``
+   hold, times a 640 x 480 baseline and a progressive JPEG decode, and a
+   640 x 480 GIF, LZW TIFF, lossy and lossless WebP decode, on the host, and sweeps
    ``build_pipeline``'s images/s at 1, 2, 4 and 8 decode threads and at
    1, 2 and 4 worker processes over shared memory (batch 16, buckets
    (800, 1344) and (1344, 800)) over a COCO JSON that names the four
@@ -125,14 +128,16 @@ seventeen phases, and fails (non-zero exit, no result line) if any of them fails
    exported batch size, then the same load through in-process
    ``submit``: images/s and p50/p99 latency of both.  The counters are
    zeroed before each load and read after it: NMS launched at least once
-   a served batch, the plain version never.  A GIF, which the codec
-   refuses, is answered 400, an unknown path 404, and the trace header is
-   echoed;
+   a served batch, the plain version never.  A GIF that ends after its
+   screen descriptor, which the codec refuses as PIL does, is answered
+   400, an unknown path 404, and the trace header is echoed; a 640 x 480
+   GIF, LZW TIFF and lossy WebP are each answered as the live engine
+   answers their decoded pixels at an exported slot, NMS launched;
    each fixture posted 8 times at once to a server that seals only full
    batches is answered at every row of a batch of 8 as the live engine
    answers there; ``python -m ...serve --images`` writes records equal
    to the live answers and each to an HTTP answer for the same file (and
-   an ``error`` record for the GIF), and
+   an ``error`` record for the truncated GIF), and
    ``--http 0`` drains and exits 0 on SIGTERM;
 13. observability at full width: (a) phase 8's model and batches, 6 steps
    of ``train/loop.py`` without and 6 with the numerics summary: every
@@ -156,6 +161,14 @@ seventeen phases, and fails (non-zero exit, no result line) if any of them fails
    request, NMS launched once a served batch; it prints the median ms of
    each serve span and the mean images/s with tracing off and on; (e) a watchdog component
    with a 1 s budget that never beats turns ``/healthz`` 503, naming it;
+   (f) ``train coco`` at the defaults on phase 11's fixture JSONs, 6 steps
+   and a final eval, with ``--obs-trace --obs-dir``: the PERF_REPORT.json
+   the command line writes at finalize passes ``validate_report``, its
+   step-time decomposition sums to 1 within 0.02, its step FLOPs (torch's
+   FLOP counter) are 2.5-3.5 times the same model's forward alone on a
+   batch of 16, its MFU against the card's peak row lies in (0, 1], the
+   offline ``obs.analyze`` writes the same bytes, and the training kernels
+   launched once a step; it prints the report's summary;
 14. the serve fleet on one card, over phase 12's exported programs: (a) a
    ``FleetRouter`` over two ``LocalReplica``s (``DetectionServer`` over
    ``DetectEngine.from_export`` on the card) answers the fixtures from 8
@@ -294,7 +307,9 @@ from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import (
     build_retinanet,
 )
 from batchai_retinanet_horovod_coco_tpu_torch.native import build as native_build
+from batchai_retinanet_horovod_coco_tpu_torch.obs import analyze as analyze_lib
 from batchai_retinanet_horovod_coco_tpu_torch.obs import telemetry as obs_telemetry
+from batchai_retinanet_horovod_coco_tpu_torch.obs.analyze import __main__ as analyze_cli
 from batchai_retinanet_horovod_coco_tpu_torch.obs import trace as obs_trace
 from batchai_retinanet_horovod_coco_tpu_torch.obs import watchdog as obs_watchdog
 from batchai_retinanet_horovod_coco_tpu_torch.obs.events import metric_records, split_runs
@@ -347,6 +362,9 @@ FOCAL_FWD_OPS = 14
 FOCAL_BWD_OPS = 19
 JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "jpeg"
 FORMAT_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "formats"
+# GIF, TIFF and WebP; the 640 x 480 ones are timed and served.
+MORE_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "formats_more"
+NEW_FORMAT_FILES = ("gif_640x480.gif", "tiff_640x480_lzw.tif", "webp_640x480.webp")
 TRAIN_HW = (800, 1344)  # the landscape bucket of the (800, 1333) resize rule
 MAX_GT = 100
 GOLDEN_HW = (64, 64)
@@ -1644,7 +1662,7 @@ def codec_and_pipeline(root: str, kind: str, smi: str) -> None:
     native_build.compile_library("imagecodec")
     print(f"built native/imagecodec.cpp with g++ in {time.perf_counter() - t0:.1f} s")
     checked = 0
-    for folder in (JPEG_FIXTURES, FORMAT_FIXTURES):
+    for folder in (JPEG_FIXTURES, FORMAT_FIXTURES, MORE_FIXTURES):
         digests = json.loads((folder / "digests.json").read_text())
         for name, want in digests.items():
             path = folder / name
@@ -1655,15 +1673,21 @@ def codec_and_pipeline(root: str, kind: str, smi: str) -> None:
             if "size" in want:
                 require(list(image_io.read_size(path)) == want["size"], f"{name}: read_size differs from PIL's")
             checked += 1
-    print(f"{checked} fixtures of tests/fixtures/jpeg and tests/fixtures/formats (progressive, cut and "
+    print(f"{checked} fixtures of tests/fixtures/jpeg, formats and formats_more (progressive, cut and "
           f"block-smoothed progressive, CMYK, YCCK, Adobe RGB JPEG; interlaced and 16-bit PNG; BMP, RLE8 "
-          f"and RLE4) decode to their PIL digests bit for bit")
+          f"and RLE4; GIF; TIFF uncompressed, PackBits, LZW, Deflate and JPEG, in strips, tiles and planes; "
+          f"WebP lossy, lossless, with alpha and animated) decode to their PIL digests bit for bit")
     baseline = (JPEG_FIXTURES / "coco_0.jpg").read_bytes()
     progressive = (FORMAT_FIXTURES / "progressive_640x480.jpg").read_bytes()
     (b_med, b_min), (p_med, p_min) = decode_ms(baseline), decode_ms(progressive)
     print(f"decode of a 640 x 480 4:2:0 JPEG on the host ({os.cpu_count()} cores), median (min) over 30: "
           f"baseline ({len(baseline)} bytes) {b_med:.3f} ({b_min:.3f}) ms, progressive ({len(progressive)} "
           f"bytes) {p_med:.3f} ({p_min:.3f}) ms, {p_med / b_med:.2f}x; {kind}, {smi}")
+    for name in (*NEW_FORMAT_FILES, "webp_640x480_lossless.webp"):
+        data = (MORE_FIXTURES / name).read_bytes()
+        med, low = decode_ms(data)
+        print(f"decode of {name} (640 x 480, {len(data)} bytes) on the host, median (min) over 30: "
+              f"{med:.3f} ({low:.3f}) ms, {med / b_med:.2f}x the baseline JPEG; {kind}, {smi}")
 
     dataset = CocoDataset(fixture_coco(root, 64, 0), str(JPEG_FIXTURES))
     reference: list = []
@@ -1878,10 +1902,10 @@ def served_files() -> list[tuple[str, bytes]]:
     return [(n, (JPEG_FIXTURES / n).read_bytes()) for n in names]
 
 
-def refused_gif() -> bytes:
-    """A 1 x 1 GIF, which the codec refuses (it decodes JPEG, PNG and BMP)."""
-    return (b"GIF89a\x01\x00\x01\x00\x80\x00\x00\x00\x00\x00\xff\xff\xff!\xf9\x04\x01\x00\x00"
-            b"\x00\x00,\x00\x00\x00\x00\x01\x00\x01\x00\x00\x02\x02D\x01\x00;")
+def truncated_gif() -> bytes:
+    """A GIF that ends after its screen descriptor: there is no image in
+    it, and the codec refuses it as PIL does."""
+    return b"GIF89a" + bytes(32)
 
 
 def live_answer(engine: DetectEngine, image: np.ndarray, batch: int, row: int = 0) -> list[dict]:
@@ -2083,6 +2107,11 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
           f"logits in row 7 of 8 against row 0: largest gap {float((row0 - row7).abs().max()):.4e} "
           f"(a gap is cuDNN rounding the last row of a batch otherwise); {kind}, {smi}")
     require(all(want[k] for k in want), "a fixture has no detections: the comparison would be vacuous")
+    # GIF, TIFF and WebP reach the same exported bucket (640 x 480 each).
+    more = {n: (MORE_FIXTURES / n).read_bytes() for n in NEW_FORMAT_FILES}
+    more_want = {(n, *k): live_answer(live, image_io.decode(data), *k) for n, data in more.items()
+                 for k in slots}
+    require(all(more_want.values()), "a GIF, TIFF or WebP fixture has no detections")
     require(max(gaps) == 0, f"an exported program's answer differs from the live engine's by {max(gaps)}")
 
     def check(name: str, answer: list[dict]) -> float:
@@ -2135,16 +2164,26 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
 
         # The error answers and the trace header, then one answer a file.
         nms_cuda.reset_counts()
-        code, body, trace, _ = post(f"{url}/detect", refused_gif(), trace="chip-smoke-trace")
+        code, body, trace, _ = post(f"{url}/detect", truncated_gif(), trace="chip-smoke-trace")
         require(code == 400 and body.get("reason") == "decode_error" and trace == "chip-smoke-trace"
-                and body.get("trace_id") == trace, f"GIF: {code} {body} {trace}")
+                and body.get("trace_id") == trace, f"truncated GIF: {code} {body} {trace}")
         code, body, trace, _ = post(f"{url}/detect", files[0][1])
         require(code == 200 and trace and len(trace) == 16 and body["trace_id"] == trace,
                 f"minted trace id {trace!r}")
         code, body, _, _ = post(f"{url}/nowhere", files[0][1])
         require(code == 404, f"unknown path answered {code}")
-        print(f"GIF answered 400 decode_error, unknown path 404, trace header echoed "
+        print(f"truncated GIF answered 400 decode_error, unknown path 404, trace header echoed "
               f"(given and minted)")
+        # A GIF, an LZW TIFF and a lossy WebP: each answered as the live
+        # engine answers its decoded pixels at an exported slot.
+        for n in NEW_FORMAT_FILES:
+            before = nms_cuda.kernel_launches
+            code, body, _, _ = post(f"{url}/detect", more[n])
+            gap = min(answer_gap(body.get("detections", []), more_want[(n, *k)]) for k in slots)
+            print(f"{n} over HTTP: {code}, {len(body.get('detections', []))} detections, gap to the live "
+                  f"engine at its slot {gap}, NMS launches {nms_cuda.kernel_launches - before}")
+            require(code == 200 and gap == 0 and nms_cuda.kernel_launches > before,
+                    f"{n}: answered {code}, gap {gap}")
         for n, data in files:  # one at a time: each alone in a batch of 1
             code, body, _, _ = post(f"{url}/detect", data)
             require(code == 200 and check(n, body["detections"]) == 0, f"{n} answered alone")
@@ -2182,15 +2221,15 @@ def deployable_phase(snapshot: str, root: str, device, kind: str, smi: str,
     os.makedirs(images_dir, exist_ok=True)
     for n, data in files:
         Path(images_dir, n).write_bytes(data)
-    # A GIF under a suffix the command line lists: its bytes are what the codec refuses.
-    Path(images_dir, "refused_gif.jpg").write_bytes(refused_gif())
+    # A GIF without an image under a suffix the command line lists.
+    Path(images_dir, "truncated_gif.jpg").write_bytes(truncated_gif())
     t0 = time.perf_counter()
     proc = subprocess.run(cli + ["--images", images_dir, "--output", out_jsonl],
                           cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
     require(proc.returncode == 0, f"serve --images failed:\n{proc.stderr[-3000:]}")
     records = {r["file"]: r for r in map(json.loads, Path(out_jsonl).read_text().splitlines())}
-    require(sorted(records) == sorted([n for n, _ in files] + ["refused_gif.jpg"]), f"records {sorted(records)}")
-    require("decode_error" in records["refused_gif.jpg"].get("error", ""), "the GIF was not refused")
+    require(sorted(records) == sorted([n for n, _ in files] + ["truncated_gif.jpg"]), f"records {sorted(records)}")
+    require("decode_error" in records["truncated_gif.jpg"].get("error", ""), "the truncated GIF was not refused")
     worst = max(check(n, records[n]["detections"]) for n, _ in files)
     # The HTTP answers above cover every exported slot, so this holds
     # whichever slot the CLI's batching put a file in.
@@ -2260,6 +2299,9 @@ def obs_phase(root: str, batches, device, kind: str, smi: str) -> dict[str, int]
         for k in launches:
             launches[k] += part.get(k, 0)
     stall_check()
+    for k, v in perf_report(root, device, kind, smi).items():
+        if k in launches:
+            launches[k] += v
     return launches
 
 
@@ -2515,6 +2557,74 @@ def stall_check() -> None:
         hb.close()
         server.close()
         obs_telemetry.disable()
+
+
+def perf_report(root: str, device, kind: str, smi: str, steps: int = 6,
+                config: RetinaNetConfig = RetinaNetConfig(), batch: int = 16, hw=TRAIN_HW) -> dict[str, int]:
+    """(f) ``train coco`` at the defaults on phase 11's fixture JSONs with
+    ``--obs-trace --obs-dir``: the PERF_REPORT.json that the command line
+    writes at finalize passes ``validate_report``, its decomposition sums
+    to 1 within 0.02, the step FLOPs are counted and the MFU against the
+    card's peak row lies in (0, 1], and the offline command line writes
+    the same bytes; the training kernels launched once a step."""
+    obs_dir = os.path.join(root, "perf_obs")
+    flags = ["coco", root, "--train-annotations", "instances_0.json", "--train-images",
+             str(JPEG_FIXTURES), "--val-annotations", "instances_1.json", "--val-images",
+             str(JPEG_FIXTURES), "--snapshot-path", os.path.join(root, "perf_snap"), "--steps",
+             str(steps), "--log-every", "1", "--obs-trace", "--obs-dir", obs_dir]
+    reset_all_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train_cli.main(flags)
+    finally:
+        obs_trace.reset()
+        obs_telemetry.disable()
+    wall = time.perf_counter() - t0
+    used = counts()
+    inline = Path(obs_dir, "PERF_REPORT.json").read_bytes()
+    report = json.loads(inline)
+    problems = analyze_lib.validate_report(report)
+    steps_sec, mfu = report.get("steps") or {}, report.get("mfu") or {}
+    decomposition = steps_sec.get("decomposition") or {}
+    peak, peak_source = analyze_lib.device_peak_tflops(kind)
+    offline = os.path.join(root, "PERF_REPORT.offline.json")
+    rc = analyze_cli.main([obs_dir, "--out", offline])
+    # The count covers the backward: the same model's forward alone on a
+    # batch of 16 at the bucket counts about a third of it.
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = build_retinanet(config, device=device, seed=0)
+    images = torch.zeros((batch, *hw, 3), dtype=torch.uint8, device=device)
+    forward = FlopCounterMode(display=False)
+    with forward, torch.no_grad():
+        model(normalize_images(images))
+    forward_flops = float(forward.get_total_flops())
+    del model, images
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    summary = {"perf_report": "PERF_REPORT.json", "device_kind": report["source"]["device_kind"],
+               "steps": steps_sec.get("count"), "decomposition": decomposition,
+               "flops_per_step": mfu.get("flops_per_step"), "flops_source": mfu.get("flops_source"),
+               "achieved_tflops": mfu.get("achieved_tflops"), "peak_tflops": mfu.get("peak_tflops"),
+               "mfu": mfu.get("mfu"), "forward_flops": forward_flops,
+               "top_bottlenecks": [b["name"] for b in report["bottlenecks"]]}
+    print(f"train coco --obs-trace, {steps} steps and a final eval in {wall:.1f} s; launches {used}; "
+          f"{kind}, {smi}")
+    print(json.dumps(summary, sort_keys=True))
+    require(out["final_step"] == float(steps), f"final step {out['final_step']}")
+    require(problems == [], f"PERF_REPORT.json fails its schema: {problems}")
+    require(abs(sum(decomposition.values()) - 1.0) <= 0.02, f"decomposition {decomposition}")
+    require(report["source"]["device_kind"] == kind and peak is not None
+            and peak_source == ("spec" if device.type == "cuda" else "nominal-cpu"), f"no peak row for {kind!r}")
+    require((mfu.get("flops_per_step") or 0) > 0 and mfu.get("flops_source") == loop_lib.FLOPS_SOURCE,
+            f"step FLOPs {mfu}")
+    require(mfu.get("peak_tflops") == peak and 0 < (mfu.get("mfu") or 0) <= 1, f"mfu {mfu}")
+    ratio = mfu["flops_per_step"] / forward_flops
+    require(2.5 < ratio < 3.5, f"the step's FLOPs are {ratio:.3f}x the forward's: the backward is not counted")
+    require(rc == 0 and Path(offline).read_bytes() == inline, "the offline report differs from the inline one")
+    require(used["plain"] == 0 and all(used[k] == steps for k in ("matching", "focal_fwd", "focal_bwd"))
+            and used["nms"] >= 1, f"launches {used} in {steps} steps and an eval")
+    return used
 
 
 # ---- phase 14: the serve fleet on one card ----------------------------------

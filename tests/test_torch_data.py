@@ -173,8 +173,10 @@ def png_bytes(depth: int, interlace: int) -> bytes:
 NOW_DECODED = ("16-bit PNG",)
 # The interlaced case's image data is one row of 4 pixels as a sequential
 # file lays it out, too short for Adam7's passes: PIL refuses it as
-# truncated, and so does the codec, which reads interlacing now.
-NOW_TRUNCATED = {"interlaced": "truncated PNG image data"}
+# truncated, and so does the codec, which reads interlacing now.  The GIF
+# case, refused as a format before the codec read GIF, ends after its
+# screen descriptor: PIL finds no image in it, and neither does the codec.
+NOW_TRUNCATED = {"interlaced": "truncated PNG image data", "not a JPEG or PNG": "GIF has no image"}
 
 
 @pytest.mark.parametrize("data,message", [
@@ -185,10 +187,10 @@ NOW_TRUNCATED = {"interlaced": "truncated PNG image data"}
     (b"\xff\xd8\xff\xc9\x00\x0b\x08\x00\x10\x00\x10\x01\x01\x11\x00", r"SOF9"),
 ])
 def test_unsupported_files_raise(data, message, tmp_path):
-    """GIF, truncated PNGs and an arithmetic-coded JPEG raise, naming the
-    file; the 16-bit PNG, refused before the codec read it, now decodes to
-    PIL's pixels.  Interlaced PNGs that PIL decodes are in
-    ``tests/test_torch_formats.py``."""
+    """A GIF without an image, truncated PNGs and an arithmetic-coded JPEG
+    raise, naming the file; the 16-bit PNG, refused before the codec read
+    it, now decodes to PIL's pixels.  Interlaced PNGs that PIL decodes are
+    in ``tests/test_torch_formats.py``, GIFs in ``test_torch_formats_more.py``."""
     path = tmp_path / "bad.img"
     path.write_bytes(data)
     if message in NOW_DECODED:
@@ -196,7 +198,7 @@ def test_unsupported_files_raise(data, message, tmp_path):
         assert image_io.read_size(path) == Image.open(path).size
         return
     if message in NOW_TRUNCATED:
-        with pytest.raises(OSError, match="truncated"):
+        with pytest.raises((OSError, SyntaxError), match="truncated|cannot identify"):
             pil_rgb(data)
         message = NOW_TRUNCATED[message]
     with pytest.raises(ValueError, match=message) as info:

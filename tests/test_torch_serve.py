@@ -28,6 +28,7 @@ import torch
 from batchai_retinanet_horovod_coco_tpu.data import pipeline as j_pipeline
 from batchai_retinanet_horovod_coco_tpu.serve import frontend as j_frontend
 from batchai_retinanet_horovod_coco_tpu.serve.common import ServeConfig as JaxServeConfig
+from batchai_retinanet_horovod_coco_tpu.serve.router import decode_payload as j_decode_payload
 from batchai_retinanet_horovod_coco_tpu.serve.stub import StubDetectEngine
 from batchai_retinanet_horovod_coco_tpu_torch.data import image_io
 from batchai_retinanet_horovod_coco_tpu_torch.data import pipeline as t_pipeline
@@ -201,8 +202,9 @@ def bmp_bytes(image: np.ndarray) -> bytes:
 
 def test_encoded_payloads_are_decoded_by_the_codec(model):
     """PNG, progressive JPEG and BMP bytes serve as their decoded pixels
-    (the progressive file's are PIL's, its digest); bytes of a format the
-    codec refuses are that request's ``decode_error``."""
+    (the progressive file's are PIL's, its digest); a GIF that ends after
+    its screen descriptor, which PIL refuses too, is that request's
+    ``decode_error``."""
     engine = make_engine(model)
     image = make_images(seed=5)[0]
     fixtures = REPO_ROOT / "tests" / "fixtures" / "jpeg"
@@ -214,9 +216,12 @@ def test_encoded_payloads_are_decoded_by_the_codec(model):
         assert server.detect(image_io.encode_png(image), timeout_s=60) == expected(model, engine, image)
         assert server.detect(progressive, timeout_s=60) == expected(model, engine, pixels)
         assert server.detect(bmp_bytes(image), timeout_s=60) == expected(model, engine, image)
+        truncated = b"GIF89a" + bytes(32)
         with pytest.raises(RequestRejected) as info:
-            server.detect(b"GIF89a" + bytes(32), timeout_s=60)
-        assert info.value.reason == "decode_error" and "not a JPEG" in str(info.value)
+            server.detect(truncated, timeout_s=60)
+        assert info.value.reason == "decode_error" and "GIF has no image" in str(info.value)
+    with pytest.raises((OSError, SyntaxError)):
+        j_decode_payload(truncated)  # the JAX server's PIL refuses it too
 
 
 class BlockingPortEngine(DetectEngine):
