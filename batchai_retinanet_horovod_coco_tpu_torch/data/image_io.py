@@ -19,12 +19,18 @@ its LZW data expanded in the library, on the logical screen (grown to hold
 the frame, as PIL grows it) whose other pixels hold the frame's
 transparency index, else index 0; a palette that is the identity grey ramp
 is no palette (PIL's mode "L").  TIFF: the first IFD, either byte order,
-strips or tiles, chunky or planar, uncompressed, PackBits and LZW (in the
-library), Deflate (zlib here) and JPEG (the library's JPEG decoder over the
-JPEGTables tag, YCbCr or RGB as the photometric tag says), predictor 2, and
-the modes of PIL's ``OPEN_INFO`` that convert to RGB without a colour
-profile (bilevel, 2-, 4-, 8- and 16-bit grey, grey with alpha, palette,
-RGB, RGBA with associated or unassociated alpha, 8- and 16-bit, and CMYK).
+strips or tiles, chunky or planar, uncompressed, PackBits, LZW, CCITT RLE,
+Group 3 and Group 4 fax and Zstandard (in the library), Deflate (zlib here),
+LZMA (the standard library's liblzma, libtiff's own decoder) and JPEG (the
+library's JPEG decoder over the JPEGTables tag, YCbCr or RGB as the
+photometric tag says), predictors 2 and 3, and the modes of PIL's
+``OPEN_INFO`` that convert to RGB without a colour profile (bilevel, 2-, 4-,
+8- and 16-bit grey, 16- and 32-bit signed, 32-bit unsigned and 32-bit float
+grey, grey with alpha, palette, RGB, RGBA with associated or unassociated
+alpha, 8- and 16-bit, CMYK, and YCbCr, JPEG-compressed or not: PIL reads an
+uncompressed one with its raw decoder as "RGBX", a compressed one through
+libtiff's RGBA interface), turned by the orientation tag as PIL's
+``exif_transpose`` turns them.
 WebP: lossy (VP8) and lossless (VP8L) bitstreams decoded in the library as
 libwebp decodes them, a VP8X file's image (its ALPH chunk dropped, as
 ``convert("RGB")`` drops alpha), and an animation's first frame on a canvas
@@ -32,9 +38,10 @@ of zeros, as libwebp's ``WebPAnimDecoder``, which PIL decodes with, lays
 it out.
 
 A file the codec does not decode (arithmetic-coded, 12-bit, lossless or
-hierarchical JPEG; CCITT, old-style JPEG or other compressions of TIFF;
-any other format) raises ``ValueError`` naming the file; nothing falls back
-to another decoder.
+hierarchical JPEG; old-style JPEG, WebP (which PIL's libtiff refuses too) or
+other compressions of TIFF, a Zstandard strip that needs a dictionary, an
+xz filter chain libtiff does not write; any other format) raises
+``ValueError`` naming the file; nothing falls back to another decoder.
 """
 
 from __future__ import annotations
@@ -89,6 +96,10 @@ def _library() -> ctypes.CDLL:
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
     ]
+    lib.codec_tiff_fax.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+    ]
     lib.codec_tiff_unpack.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t,
         ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_int,
@@ -100,7 +111,8 @@ def _library() -> ctypes.CDLL:
         ]
     for fn in (lib.codec_jpeg_header, lib.codec_jpeg_decode, lib.codec_png_decode,
                lib.codec_resize_bilinear, lib.codec_jpeg_decode_as, lib.codec_gif_lzw,
-               lib.codec_tiff_unpack, lib.codec_vp8_decode, lib.codec_vp8l_decode):
+               lib.codec_tiff_unpack, lib.codec_tiff_fax, lib.codec_vp8_decode,
+               lib.codec_vp8l_decode):
         fn.restype = ctypes.c_int
     return lib
 
@@ -461,9 +473,28 @@ _TIFF_MODES = {
     (5, (16,) * 4, ()): "CMYK",
     (6, (8,) * 3, ()): "YCbCr",
 }
-_TIFF_REFUSED = {2: "CCITT RLE", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax",
-                 6: "old-style JPEG"}
-_TIFF_COMPRESSIONS = (1, 5, 7, 8, 32773, 32946)
+# Grey samples PIL opens as mode "I" or "F": (byte order, photometric,
+# sample format, bits) -> PIL's raw mode, whose "B" reads big-endian.
+_TIFF_NUMERIC = {
+    ("<", 1, 2, 16): "I;16S", (">", 1, 2, 16): "I;16BS",
+    ("<", 1, 1, 32): "I;32N", ("<", 1, 2, 32): "I;32S", (">", 1, 2, 32): "I;32BS",
+    ("<", 0, 3, 32): "F;32F", (">", 0, 3, 32): "F;32BF",
+    ("<", 1, 3, 32): "F;32F", (">", 1, 3, 32): "F;32BF",
+}
+_TIFF_REFUSED = {6: "old-style JPEG",
+                 50001: "WebP (a libtiff built without WebP, as PIL's, refuses it too)"}
+_TIFF_FAX = (2, 3, 4)  # CCITT RLE, Group 3 and Group 4, in the library
+_TIFF_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000)
+# libtiff's predictor belongs to these codecs; PackBits, CCITT and
+# uncompressed data ignore the tag.
+_TIFF_PREDICTED = (5, 8, 32946, 34925, 50000)
+# Orientation -> PIL's exif_transpose of the decoded image.
+_TIFF_ORIENT = {
+    2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+    5: lambda a: a.transpose(1, 0, 2), 6: lambda a: np.rot90(a, -1),
+    7: lambda a: a[::-1, ::-1].transpose(1, 0, 2), 8: lambda a: np.rot90(a),
+}
+_YCBCR_SUBSAMPLING = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
 
 
 def _tiff_tags(data: bytes, name: str) -> tuple[str, dict]:
@@ -523,10 +554,6 @@ def _tiff_layout(order: str, tags: dict, name: str) -> dict:
     if compression not in _TIFF_COMPRESSIONS:
         raise ValueError(f"{name}: TIFF compression {compression} is not supported")
     photometric = _tiff_int(tags, 262, 0)
-    orientation = _tiff_int(tags, 274, 1)
-    if orientation in (5, 6, 7, 8):
-        raise ValueError(f"{name}: TIFF orientation {orientation} (rows and columns swapped) "
-                         "is not supported")
     spp = _tiff_int(tags, 277, 1)
     bps = _tiff_tuple(tags, 258, (1,))
     if spp < len(bps):
@@ -541,25 +568,42 @@ def _tiff_layout(order: str, tags: dict, name: str) -> dict:
     extra = _tiff_tuple(tags, 338, ())
     mode = _TIFF_MODES.get((photometric, bps, extra))
     signed_grey = sample_format == (2,) and bps == (8,) and photometric == 1
-    if mode is None or (sample_format != (1,) and not signed_grey) or (
+    numeric = None
+    if len(sample_format) == 1 and not extra and spp == 1:
+        numeric = _TIFF_NUMERIC.get((order, photometric, sample_format[0], bps[0]))
+    if numeric:
+        mode = numeric[0]  # "I" or "F"
+    elif mode is None or (sample_format != (1,) and not signed_grey) or (
             mode == "I;16" and (photometric == 0 and order == ">")):
         raise ValueError(f"{name}: TIFF of photometric {photometric}, {bps} bits per sample, extra "
                          f"samples {extra} and sample format {sample_format} is not supported")
     planar = _tiff_int(tags, 284, 1)
     if mode == "RGBA" and not extra and planar == 2 and compression != 1:
         mode = "RGBa"  # PIL reads these planes through libtiff as associated alpha
-    # libtiff's predictor belongs to its LZW and Deflate codecs; PackBits and
-    # uncompressed data ignore the tag.
-    predictor = _tiff_int(tags, 317, 1) if compression in (5, 8, 32946) else 1
-    if predictor not in (1, 2) or (predictor == 2 and bps[0] not in (8, 16)):
+    predictor = _tiff_int(tags, 317, 1) if compression in _TIFF_PREDICTED else 1
+    if not (predictor == 1 or (predictor == 2 and bps[0] in (8, 16, 32))
+            or (predictor == 3 and mode == "F")):
         raise ValueError(f"{name}: TIFF predictor {predictor} over {bps[0]}-bit samples "
                          "is not supported")
-    if mode == "YCbCr" and (compression != 7 or planar != 1):
-        raise ValueError(f"{name}: YCbCr TIFF that is not JPEG-compressed in one plane "
-                         "is not supported")
+    subsampling = _tiff_tuple(tags, 530, (2, 2))[:2]
+    if mode == "YCbCr" and compression != 7:
+        # PIL reads an uncompressed one with its own decoder, as raw "RGBX";
+        # libtiff's RGBA interface reads the others.
+        if planar != 1:
+            raise ValueError(f"{name}: YCbCr TIFF in planar configuration {planar} is not supported")
+        if compression != 1 and subsampling not in _YCBCR_SUBSAMPLING:
+            raise ValueError(f"{name}: YCbCr subsampling {subsampling} is not supported")
+        if compression != 1 and predictor != 1 and subsampling != (1, 1):
+            raise ValueError(f"{name}: predictor {predictor} over subsampled YCbCr is not supported")
+        mode = "YCbCr raw" if compression == 1 else "YCbCr RGBA"
+    if mode == "YCbCr" and planar != 1:
+        raise ValueError(f"{name}: YCbCr TIFF that is JPEG-compressed in planes is not supported")
     if compression == 7 and (planar != 1 or bps[0] != 8 or spp not in (1, 3)):
         raise ValueError(f"{name}: JPEG-compressed TIFF of {spp} samples of {bps[0]} bits "
                          f"in planar configuration {planar} is not supported")
+    if compression in _TIFF_FAX and bps != (1,):
+        raise ValueError(f"{name}: CCITT-compressed TIFF of {bps} bits per sample is not supported "
+                         "(libtiff reads 1)")
     if len(set(bps)) != 1:
         raise ValueError(f"{name}: TIFF with bits per sample {bps} is not supported")
     if width * height > _MAX_PIXELS:
@@ -575,9 +619,58 @@ def _tiff_layout(order: str, tags: dict, name: str) -> dict:
     pil_bands = (3 if photometric in (2, 6, 8) else 4 if photometric == 5 else 1) + len(extra)
     return dict(width=width, height=height, compression=compression, photometric=photometric,
                 mode=mode, bits=bps[0], spp=spp, planar=planar, predictor=predictor,
-                pil_bands=pil_bands,
+                pil_bands=pil_bands, numeric=numeric, subsampling=subsampling,
+                t4options=_tiff_int(tags, 292, 0), orientation=_tiff_int(tags, 274, 1),
+                pil_th=th if 322 in tags else _tiff_int(tags, 278, height),
                 fill_order=_tiff_int(tags, 266, 1), tiled=322 in tags, tw=tw, th=th,
                 offsets=offsets, counts=counts, order=order)
+
+
+_XZ_MAGIC = b"\xfd7zXZ\x00"
+# The filter chains libtiff's LZMA codec writes: Delta (0x03), then LZMA2
+# (0x21); and LZMA2 alone.
+_XZ_CHAINS = ([0x03, 0x21], [0x21])
+
+
+def _xz_varint(raw: bytes, pos: int, name: str) -> tuple[int, int]:
+    value = shift = 0
+    while True:
+        if pos >= len(raw) or shift > 63:
+            raise ValueError(f"{name}: corrupt xz block header in the TIFF")
+        byte = raw[pos]
+        value |= (byte & 0x7F) << shift
+        pos, shift = pos + 1, shift + 7
+        if byte < 0x80:
+            return value, pos
+
+
+def _tiff_xz(raw: bytes, size: int, name: str) -> bytes:
+    """An LZMA (34925) strip or tile: the xz stream libtiff's codec writes.
+    Its first block's filter chain must be one libtiff writes; the stream's check
+    (none, CRC32, CRC64 or SHA-256) is verified by the standard library's
+    liblzma, libtiff's own decoder."""
+    import lzma  # optional in a Python build: only an LZMA TIFF needs it
+
+    if not raw.startswith(_XZ_MAGIC) or len(raw) < 14:
+        raise ValueError(f"{name}: LZMA-compressed TIFF strip is not an xz stream")
+    if raw[12]:  # a block header (0 starts the index of an empty stream)
+        header = raw[12:12 + 4 * (raw[12] + 1)]
+        flags, pos, chain = header[1] if len(header) > 1 else 0, 2, []
+        for present in (flags & 0x40, flags & 0x80):  # compressed and uncompressed sizes
+            if present:
+                _, pos = _xz_varint(header, pos, name)
+        for _ in range((flags & 3) + 1):
+            filter_id, pos = _xz_varint(header, pos, name)
+            props, pos = _xz_varint(header, pos, name)
+            chain.append(filter_id)
+            pos += props
+        if chain not in _XZ_CHAINS:
+            raise ValueError(f"{name}: xz filter chain {[hex(f) for f in chain]} in the TIFF is not "
+                             "supported (libtiff writes Delta then LZMA2, 0x3 and 0x21)")
+    try:
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(raw, size)
+    except lzma.LZMAError as e:
+        raise ValueError(f"{name}: corrupt LZMA data in the TIFF ({e})") from None
 
 
 def _tiff_unpack(raw: bytes, compression: int, size: int, name: str) -> bytes:
@@ -589,6 +682,8 @@ def _tiff_unpack(raw: bytes, compression: int, size: int, name: str) -> bytes:
             out = zlib.decompressobj().decompress(raw, size)
         except zlib.error as e:
             raise ValueError(f"{name}: corrupt Deflate data in the TIFF ({e})") from None
+    elif compression == 34925:
+        out = _tiff_xz(raw, size, name)
     else:
         buf = np.empty(size, np.uint8)
         got = ctypes.c_size_t()
@@ -604,10 +699,30 @@ def _tiff_unpack(raw: bytes, compression: int, size: int, name: str) -> bytes:
 _REVERSED_BITS = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
+def _tiff_fax(raw: bytes, lay: dict, rows: int, cols: int, name: str) -> np.ndarray:
+    """A CCITT strip or tile as (rows, stride) packed bits; a Group 4 strip
+    that ends early keeps zero rows after the rows it holds."""
+    out = np.zeros((rows, (cols + 7) // 8), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    _check(_library().codec_tiff_fax(raw, len(raw), lay["compression"], lay["t4options"], cols, rows,
+                                     out.ctypes.data, err, _ERR_LEN), err, name)
+    return out
+
+
+def _unpredict_float(buf: np.ndarray, cols: int, spp: int) -> np.ndarray:
+    """libtiff's floating-point predictor (3) undone over (rows, bytes) of
+    32-bit samples: bytes summed along the row a sample apart, then the
+    row's four byte planes, most significant first, put back together."""
+    summed = np.cumsum(buf.reshape(buf.shape[0], -1, spp), axis=1, dtype=np.uint8)
+    planes = summed.reshape(buf.shape[0], 4, cols * spp)
+    return np.ascontiguousarray(planes.transpose(0, 2, 1)).view(">u4").reshape(-1, cols, spp)
+
+
 def _tiff_block(data: bytes, lay: dict, index: int, rows: int, cols: int, spp: int,
                 tables: bytes | None, name: str) -> np.ndarray:
     """Strip or tile ``index`` as (rows, cols, spp) samples: uint8, uint16
-    (native order) or, under 8 bits, one value per sample."""
+    or uint32 (native order, as the file's byte order reads them) or, under
+    8 bits, one value per sample."""
     offset, count = lay["offsets"][index], lay["counts"][index]
     raw = data[offset:offset + count]
     if lay["fill_order"] == 2:
@@ -621,14 +736,20 @@ def _tiff_block(data: bytes, lay: dict, index: int, rows: int, cols: int, spp: i
             raise ValueError(f"{name}: a TIFF JPEG strip or tile is smaller than its layout")
         return rgb[:rows, :cols, :spp]
     stride = (cols * spp * bits + 7) // 8
-    buf = np.frombuffer(_tiff_unpack(raw, lay["compression"], stride * rows, name), np.uint8)
-    buf = buf.reshape(rows, stride)
+    if lay["compression"] in _TIFF_FAX:
+        buf = _tiff_fax(raw, lay, rows, cols, name)
+    else:
+        buf = np.frombuffer(_tiff_unpack(raw, lay["compression"], stride * rows, name), np.uint8)
+        buf = buf.reshape(rows, stride)
     if bits < 8:
         values = np.unpackbits(buf, axis=1)[:, : cols * spp * bits].reshape(rows, cols * spp, bits)
         values = (values << np.arange(bits - 1, -1, -1, dtype=np.uint8)).sum(-1, dtype=np.uint8)
         return values.reshape(rows, cols, spp)
-    if bits == 16:
-        values = buf.view(lay["order"] + "u2").astype(np.uint16).reshape(rows, cols, spp)
+    if lay["predictor"] == 3:
+        return _unpredict_float(buf, cols, spp).astype(np.uint32)
+    if bits in (16, 32):
+        kind = np.uint16 if bits == 16 else np.uint32
+        values = buf.view(f"{lay['order']}u{bits // 8}").astype(kind).reshape(rows, cols, spp)
     else:
         values = buf.reshape(rows, cols, spp)
     if lay["predictor"] == 2:  # horizontal differencing, per sample
@@ -664,7 +785,7 @@ def _tiff_samples(data: bytes, lay: dict, tables: bytes | None, name: str) -> np
     if len(lay["offsets"]) < planes * across * down:
         raise ValueError(f"{name}: TIFF has {len(lay['offsets'])} strips or tiles for "
                          f"{planes * across * down}")
-    dtype = np.uint16 if lay["bits"] == 16 else np.uint8
+    dtype = {16: np.uint16, 32: np.uint32}.get(lay["bits"], np.uint8)
     out = np.zeros((height, width, spp), dtype)
     for plane in range(planes):
         for ty in range(down):
@@ -690,6 +811,17 @@ def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def _tiff_rgb(samples: np.ndarray, lay: dict, tags: dict, name: str) -> np.ndarray:
     """PIL's convert("RGB") of the samples in the layout's mode."""
     mode, bits = lay["mode"], lay["bits"]
+    if lay["numeric"]:
+        if lay["compression"] != 1 and "B" in lay["numeric"]:
+            # libtiff hands PIL native (little-endian) samples, which its
+            # big-endian raw mode then reads byte-swapped.
+            samples = samples.byteswap()
+        if mode == "F":  # PIL's F -> L: clipped to 0..255 (NaN to 0), truncated
+            grey = np.clip(np.nan_to_num(samples.view(np.float32)[..., 0]), 0, 255)
+        else:  # "I": clipped
+            v = samples.view(np.int16 if bits == 16 else np.int32)[..., 0]
+            grey = np.clip(v, 0, 255)
+        return np.repeat(grey.astype(np.uint8)[..., None], 3, axis=2)
     s = samples.astype(np.int64)
     if bits == 16 and lay["planar"] == 2 and lay["compression"] == 1:
         bits = 8  # PIL's raw decoder read one byte a sample (_pil_raw_plane)
@@ -722,12 +854,143 @@ def _tiff_rgb(samples: np.ndarray, lay: dict, tags: dict, name: str) -> np.ndarr
     return np.repeat(grey.astype(np.uint8)[..., None], 3, axis=2)
 
 
+def _tiff_ycbcr_raw(data: bytes, lay: dict, name: str) -> np.ndarray:
+    """An uncompressed YCbCr TIFF as PIL's raw decoder reads it, with raw
+    mode "RGBX": each strip or tile read from its offset, four bytes a
+    pixel of which the first three are kept, a row of four bytes a pixel
+    (or, for a tile past the right edge, of the tile's bytes) whatever
+    the strip holds, so the rows run on past it into the rest of the file."""
+    width, height, w, h = lay["width"], lay["height"], lay["tw"], lay["pil_th"]
+    offsets = list(lay["offsets"])
+    if w == width and h == height:
+        offsets = offsets[-1:]
+    out = np.zeros((height, width, 3), np.uint8)
+    x = y = 0
+    for offset in offsets:
+        cols, rows = min(x + w, width) - x, min(y + h, height) - y
+        line = 4 * cols
+        step = 3 * w if x + w > width else line
+        if step < line:
+            raise ValueError(f"{name}: YCbCr TIFF tile rows shorter than PIL reads them")
+        need = (rows - 1) * step + line
+        if offset + need > len(data):
+            raise ValueError(f"{name}: truncated TIFF (an uncompressed YCbCr strip or tile is read "
+                             "as four bytes a pixel)")
+        raw = np.frombuffer(data, np.uint8, need, offset)
+        out[y:y + rows, x:x + cols] = np.lib.stride_tricks.as_strided(raw, (rows, cols, 3),
+                                                                        (step, 4, 1))
+        x += w
+        if x >= width:
+            x, y = 0, y + h
+            if y >= height:
+                y = 0
+    return out
+
+
+def _tiff_rationals(tags: dict, tag: int, count: int, default: tuple) -> np.ndarray:
+    value = tags.get(tag)
+    if value is None or len(value) < 2 * count:
+        return np.asarray(default, np.float32)
+    return np.asarray([value[2 * i] / value[2 * i + 1] if value[2 * i + 1] else 0.0
+                       for i in range(count)], np.float64).astype(np.float32)
+
+
+def _ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, tags: dict,
+                  name: str) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGBInit tables and TIFFYCbCrtoRGB (tif_color.c):
+    float32 coefficients, 16 fraction bits, over the YCbCrCoefficients and
+    ReferenceBlackWhite tags (defaults 0.299, 0.587, 0.114 and 0, 255,
+    128, 255, 128, 255)."""
+    f32 = np.float32
+    lr, lg, lb = _tiff_rationals(tags, 529, 3, (0.299, 0.587, 0.114))
+    rbw = _tiff_rationals(tags, 532, 6, (0, 255, 128, 255, 128, 255))
+    if np.isnan([lr, lg, lb]).any() or lg == 0 or np.isnan(rbw).any():
+        raise ValueError(f"{name}: invalid YCbCrCoefficients or ReferenceBlackWhite in the TIFF")
+
+    def fix(v):  # FIX(CLAMP(v, 0, 2))
+        v = f32(0) if not v >= 0 else f32(2) if v > 2 else v
+        return int(float(f32(v * f32(65536))) + 0.5)
+
+    f1 = f32(f32(2) - f32(2) * lr)
+    f3 = f32(f32(2) - f32(2) * lb)
+    d1, d2 = fix(f1), -fix(f32(f32(lr * f1) / lg))
+    d3, d4 = fix(f3), -fix(f32(f32(lb * f3) / lg))
+    x = np.arange(-128, 128)
+
+    def code2v(c, black, white, scale):  # Code2V, clamped to +-4096, truncated
+        span = f32(white - black)
+        v = (c - np.trunc(black)).astype(f32) * f32(scale) / (span if span != 0 else f32(1))
+        return np.trunc(np.clip(v.astype(f32), -4096, 4096)).astype(np.int64)
+
+    cr_v = code2v(x, f32(rbw[4] - f32(128)), f32(rbw[5] - f32(128)), 127)
+    cb_v = code2v(x, f32(rbw[2] - f32(128)), f32(rbw[3] - f32(128)), 127)
+    y_tab = code2v(x + 128, rbw[0], rbw[1], 255)
+    cr_r, cb_b = (d1 * cr_v + 32768) >> 16, (d3 * cb_v + 32768) >> 16
+    cr_g, cb_g = d2 * cr_v, d4 * cb_v + 32768
+    yv = y_tab[y]
+    rgb = np.stack([yv + cr_r[cr], yv + ((cb_g[cb] + cr_g[cr]) >> 16), yv + cb_b[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _tiff_ycbcr_rgba(data: bytes, lay: dict, tags: dict, name: str) -> np.ndarray:
+    """A compressed YCbCr TIFF as PIL reads it, through libtiff's RGBA
+    interface (tif_getimage.c): each strip or tile's sampling blocks (sh x
+    sv lumas, then Cb and Cr) spread over their pixels and converted as
+    libtiff converts them.  As libtiff reads them: a strip decodes only
+    its rows times TIFFScanlineSize bytes, a sampling row over sv rounded
+    down (the bytes past that are zero), and a tile clipped at the right
+    edge steps past its hidden blocks ten bytes a block under 4 x 4
+    subsampling (putcontig8bitYCbCr44tile's skew)."""
+    width, height, tw, th = lay["width"], lay["height"], lay["tw"], lay["th"]
+    sh, sv = lay["subsampling"]
+    bs = sh * sv + 2
+    across, down = (width + tw - 1) // tw, (height + th - 1) // th
+    if len(lay["offsets"]) < across * down:
+        raise ValueError(f"{name}: TIFF has {len(lay['offsets'])} strips or tiles for {across * down}")
+    out = np.zeros((height, width, 3), np.uint8)
+    for ty in range(down):
+        y0 = ty * th
+        band = min(th, height - y0)
+        for tx in range(across):
+            x0 = tx * tw
+            rows = th if lay["tiled"] else band
+            stored_across = -(-tw // sh)
+            size = -(-rows // sv) * stored_across * bs
+            read = size if lay["tiled"] else min(size, -(-rows // sv) * sv * (stored_across * bs // sv))
+            offset, count = lay["offsets"][ty * across + tx], lay["counts"][ty * across + tx]
+            raw = data[offset:offset + count]
+            if lay["fill_order"] == 2:
+                raw = _REVERSED_BITS[np.frombuffer(raw, np.uint8)].tobytes()
+            flat = np.zeros(size, np.uint8)
+            flat[:read] = np.frombuffer(_tiff_unpack(raw, lay["compression"], read, name), np.uint8, read)
+            if lay["predictor"] == 2:  # (1, 1) only: three samples a pixel
+                flat = np.cumsum(flat.reshape(rows, tw, 3), axis=1, dtype=np.uint8).reshape(-1)
+            w = min(tw, width - x0)
+            shown = -(-w // sh)
+            skip = (tw - w) // sh * (10 if (sh, sv) == (4, 4) else bs)
+            blocks = np.lib.stride_tricks.as_strided(flat, (-(-band // sv), shown, bs),
+                                                     (shown * bs + skip, bs, 1))
+            luma = blocks[..., : sh * sv].reshape(blocks.shape[0], shown, sv, sh)
+            luma = luma.transpose(0, 2, 1, 3).reshape(blocks.shape[0] * sv, shown * sh)
+            chroma = [np.repeat(np.repeat(blocks[..., sh * sv + k], sv, 0), sh, 1) for k in (0, 1)]
+            out[y0:y0 + band, x0:x0 + w] = _ycbcr_to_rgb(luma[:band, :w], chroma[0][:band, :w],
+                                                         chroma[1][:band, :w], tags, name)
+    return out
+
+
 def _decode_tiff(data: bytes, name: str) -> np.ndarray:
     order, tags = _tiff_tags(data, name)
     lay = _tiff_layout(order, tags, name)
-    tables = tags.get(347)
-    samples = _tiff_samples(data, lay, bytes(tables) if tables else None, name)
-    return _tiff_rgb(samples, lay, tags, name)
+    if lay["mode"] == "YCbCr raw":
+        rgb = _tiff_ycbcr_raw(data, lay, name)
+    elif lay["mode"] == "YCbCr RGBA":
+        rgb = _tiff_ycbcr_rgba(data, lay, tags, name)
+    else:
+        tables = tags.get(347)
+        samples = _tiff_samples(data, lay, bytes(tables) if tables else None, name)
+        rgb = _tiff_rgb(samples, lay, tags, name)
+    transpose = _TIFF_ORIENT.get(lay["orientation"])
+    return np.ascontiguousarray(transpose(rgb)) if transpose else rgb
 
 
 # --------------------------------------------------------------- WebP

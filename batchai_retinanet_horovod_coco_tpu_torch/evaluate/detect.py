@@ -4,8 +4,10 @@ and the dataset-level eval driver.
 The JAX package's ``evaluate/detect.py``.  The NMS suppression stage is
 ``ops.cuda.nms.batched_multiclass_nms_cuda``: the hand-written CUDA kernel
 on a card, the plain ``greedy_keep`` on the CPU — decided by the device the
-tensors are on, never by a fallback.  The schedule registry of the JAX
-package (``tune/``) is not ported: the knobs are the fixed defaults below.
+tensors are on, never by a fallback.  ``pre_nms_size`` left None is read
+from the schedule registry (``tune/schedule.py``) for that device, in
+:func:`postprocess`, which every detect path goes through (the built-in
+default is 1000).
 
 ``run_coco_eval`` streams eval batches, detects per shape bucket (one
 detect function each), rescales boxes to the original images and scores
@@ -74,14 +76,27 @@ EVAL_PREFETCH_DEPTH = 2
 
 @dataclasses.dataclass(frozen=True)
 class DetectConfig:
-    """FilterDetections-equivalent knobs (the reference's defaults)."""
+    """FilterDetections-equivalent knobs (the reference's defaults);
+    ``pre_nms_size`` None is the schedule registry's for the device."""
 
     score_threshold: float = 0.05
     iou_threshold: float = 0.5
-    pre_nms_size: int = 1000
+    pre_nms_size: int | None = None
     max_detections: int = 300
     codec: boxes_lib.BoxCodecConfig = boxes_lib.BoxCodecConfig()
     anchor: anchors_lib.AnchorConfig = anchors_lib.AnchorConfig()
+
+
+def resolve_detect_config(config: DetectConfig, device: str | torch.device | None) -> DetectConfig:
+    """``config`` with ``pre_nms_size`` from the schedule registry for
+    ``device`` where it is None (the JAX package's resolve_detect_config;
+    an explicit value wins)."""
+    if config.pre_nms_size is not None:
+        return config
+    from batchai_retinanet_horovod_coco_tpu_torch.tune import schedule as schedule_lib
+
+    size = int(schedule_lib.lookup(device)["nms"]["pre_nms_size"])
+    return dataclasses.replace(config, pre_nms_size=size)
 
 
 def postprocess(
@@ -93,8 +108,11 @@ def postprocess(
 ) -> nms_lib.Detections:
     """Forward outputs → Detections: sigmoid in f32 → decode against
     ``anchors`` (A, 4) → clip to the bucket extent (not the image: the
-    conversion re-clamps to the true image) → ``nms``."""
+    conversion re-clamps to the true image) → ``nms``, at the registry's
+    ``pre_nms_size`` for the outputs' device where ``config`` leaves it
+    None."""
     scores = torch.sigmoid(outputs["cls_logits"])  # (B, A, K)
+    config = resolve_detect_config(config, scores.device)
     boxes = boxes_lib.decode_boxes(anchors[None], outputs["box_deltas"], config.codec)
     boxes = boxes_lib.clip_boxes(boxes, image_hw)
     return nms(

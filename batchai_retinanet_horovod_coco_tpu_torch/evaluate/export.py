@@ -99,10 +99,15 @@ def export_model(
     partial batch to the smallest exported size that fits it.
     ``image_min_side`` / ``image_max_side`` record the resize rule the
     model was evaluated under, which the server routes raw images by."""
-    from batchai_retinanet_horovod_coco_tpu_torch.evaluate.detect import DetectConfig
+    from batchai_retinanet_horovod_coco_tpu_torch.evaluate.detect import (
+        DetectConfig,
+        resolve_detect_config,
+    )
+    from batchai_retinanet_horovod_coco_tpu_torch.tune import schedule as schedule_lib
 
-    config = config or DetectConfig()
     device = resolve_device(device)
+    # Resolved once, so that the manifest records the knobs the programs use.
+    config = resolve_detect_config(config or DetectConfig(), device)
     os.makedirs(output_dir, exist_ok=True)
     batch_sizes = (batch_size,) if isinstance(batch_size, int) else tuple(batch_size)
     entries = []
@@ -128,8 +133,8 @@ def export_model(
             "nms_impl": nms_cuda.OP_NAME,
             "nms_block_k": None,
         },
-        # The port has no schedule registry (the JAX package's tune/).
-        "schedule": None,
+        # Where the device's schedule came from (tune/schedule.py).
+        "schedule": schedule_lib.provenance(device),
         # Anchors parameterize the box decoding inside the programs.
         "anchor_config": dataclasses.asdict(config.anchor),
         "image_min_side": image_min_side,

@@ -6,8 +6,11 @@ of positive anchors (at least 1), then the batch takes the mean.  The train
 step uses the compact form (integer labels and a per-anchor state; the
 one-hot target is implicit), and on CUDA tensors the focal sums come from
 the kernels of ``ops/cuda/focal.cu``.  The JAX package's per-level and NHWC
-loss paths are TPU layout optimisations of the same values and are not
-carried over.
+loss paths (the NHWC one is its default, ``pallas_focal=False``) give the
+same values, which ``tests/test_torch_loss_levels.py`` holds this path to.
+They are not carried over: on a card this path is the only one, and a
+per-level path would come as a hand-written kernel, once a benchmark shows
+it faster than this one.
 
 ``jax.nn.softplus`` is ``logaddexp(x, 0)``; torch's ``softplus`` returns
 ``x`` above its threshold of 20 and would differ there, so softplus is

@@ -49,8 +49,11 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <initializer_list>
+#include <iterator>
 #include <stdexcept>
 #include <string>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -1493,6 +1496,1008 @@ size_t packbits(const uint8_t* in, size_t n, uint8_t* out, size_t cap) {
   }
   return w;
 }
+
+// ------------------------------------------------------------- TIFF fax
+
+// CCITT bilevel coding (ITU-T T.4 and T.6) as libtiff's tif_fax3.c decodes
+// it: compression 2 (modified Huffman runs, each row starting on a byte),
+// 3 (Group 3: an EOL before each row, then 1D runs, or with T4Options bit 0
+// a tag bit choosing a 1D row or a 2D row coded against the row above) and
+// 4 (Group 4: every row 2D, the first against an all-white row, no EOLs).
+// Runs alternate white (0 bits) and black (1 bits), white first; a row's
+// runs are cleaned up as libtiff's CLEANUP_RUNS does (a short row is
+// finished in white, a long one cut at the width).  Rows are packed most
+// significant bit first, ``(width + 7) / 8`` bytes each.
+struct FaxCode {
+  uint16_t bits;
+  uint8_t len;
+  int16_t run;
+};
+
+// Terminating (0-63), make-up (64-1728) and the shared extended make-up
+// (1792-2560) codes of T.4 Tables 2 and 3, as (code, length, run); run -1
+// is the EOL, whose eleven zeros are taken here and its one by the next
+// row's sync, as libtiff's tables have it.
+const FaxCode kFaxWhite[] = {
+    {0x35, 8, 0},     {0x7, 6, 1},      {0x7, 4, 2},      {0x8, 4, 3},      {0xB, 4, 4},
+    {0xC, 4, 5},      {0xE, 4, 6},      {0xF, 4, 7},      {0x13, 5, 8},     {0x14, 5, 9},
+    {0x7, 5, 10},     {0x8, 5, 11},     {0x8, 6, 12},     {0x3, 6, 13},     {0x34, 6, 14},
+    {0x35, 6, 15},    {0x2A, 6, 16},    {0x2B, 6, 17},    {0x27, 7, 18},    {0xC, 7, 19},
+    {0x8, 7, 20},     {0x17, 7, 21},    {0x3, 7, 22},     {0x4, 7, 23},     {0x28, 7, 24},
+    {0x2B, 7, 25},    {0x13, 7, 26},    {0x24, 7, 27},    {0x18, 7, 28},    {0x2, 8, 29},
+    {0x3, 8, 30},     {0x1A, 8, 31},    {0x1B, 8, 32},    {0x12, 8, 33},    {0x13, 8, 34},
+    {0x14, 8, 35},    {0x15, 8, 36},    {0x16, 8, 37},    {0x17, 8, 38},    {0x28, 8, 39},
+    {0x29, 8, 40},    {0x2A, 8, 41},    {0x2B, 8, 42},    {0x2C, 8, 43},    {0x2D, 8, 44},
+    {0x4, 8, 45},     {0x5, 8, 46},     {0xA, 8, 47},     {0xB, 8, 48},     {0x52, 8, 49},
+    {0x53, 8, 50},    {0x54, 8, 51},    {0x55, 8, 52},    {0x24, 8, 53},    {0x25, 8, 54},
+    {0x58, 8, 55},    {0x59, 8, 56},    {0x5A, 8, 57},    {0x5B, 8, 58},    {0x4A, 8, 59},
+    {0x4B, 8, 60},    {0x32, 8, 61},    {0x33, 8, 62},    {0x34, 8, 63},    {0x1B, 5, 64},
+    {0x12, 5, 128},   {0x17, 6, 192},   {0x37, 7, 256},   {0x36, 8, 320},   {0x37, 8, 384},
+    {0x64, 8, 448},   {0x65, 8, 512},   {0x68, 8, 576},   {0x67, 8, 640},   {0xCC, 9, 704},
+    {0xCD, 9, 768},   {0xD2, 9, 832},   {0xD3, 9, 896},   {0xD4, 9, 960},   {0xD5, 9, 1024},
+    {0xD6, 9, 1088},  {0xD7, 9, 1152},  {0xD8, 9, 1216},  {0xD9, 9, 1280},  {0xDA, 9, 1344},
+    {0xDB, 9, 1408},  {0x98, 9, 1472},  {0x99, 9, 1536},  {0x9A, 9, 1600},  {0x18, 6, 1664},
+    {0x9B, 9, 1728},
+};
+const FaxCode kFaxBlack[] = {
+    {0x37, 10, 0},    {0x2, 3, 1},      {0x3, 2, 2},      {0x2, 2, 3},      {0x3, 3, 4},
+    {0x3, 4, 5},      {0x2, 4, 6},      {0x3, 5, 7},      {0x5, 6, 8},      {0x4, 6, 9},
+    {0x4, 7, 10},     {0x5, 7, 11},     {0x7, 7, 12},     {0x4, 8, 13},     {0x7, 8, 14},
+    {0x18, 9, 15},    {0x17, 10, 16},   {0x18, 10, 17},   {0x8, 10, 18},    {0x67, 11, 19},
+    {0x68, 11, 20},   {0x6C, 11, 21},   {0x37, 11, 22},   {0x28, 11, 23},   {0x17, 11, 24},
+    {0x18, 11, 25},   {0xCA, 12, 26},   {0xCB, 12, 27},   {0xCC, 12, 28},   {0xCD, 12, 29},
+    {0x68, 12, 30},   {0x69, 12, 31},   {0x6A, 12, 32},   {0x6B, 12, 33},   {0xD2, 12, 34},
+    {0xD3, 12, 35},   {0xD4, 12, 36},   {0xD5, 12, 37},   {0xD6, 12, 38},   {0xD7, 12, 39},
+    {0x6C, 12, 40},   {0x6D, 12, 41},   {0xDA, 12, 42},   {0xDB, 12, 43},   {0x54, 12, 44},
+    {0x55, 12, 45},   {0x56, 12, 46},   {0x57, 12, 47},   {0x64, 12, 48},   {0x65, 12, 49},
+    {0x52, 12, 50},   {0x53, 12, 51},   {0x24, 12, 52},   {0x37, 12, 53},   {0x38, 12, 54},
+    {0x27, 12, 55},   {0x28, 12, 56},   {0x58, 12, 57},   {0x59, 12, 58},   {0x2B, 12, 59},
+    {0x2C, 12, 60},   {0x5A, 12, 61},   {0x66, 12, 62},   {0x67, 12, 63},   {0xF, 10, 64},
+    {0xC8, 12, 128},  {0xC9, 12, 192},  {0x5B, 12, 256},  {0x33, 12, 320},  {0x34, 12, 384},
+    {0x35, 12, 448},  {0x6C, 13, 512},  {0x6D, 13, 576},  {0x4A, 13, 640},  {0x4B, 13, 704},
+    {0x4C, 13, 768},  {0x4D, 13, 832},  {0x72, 13, 896},  {0x73, 13, 960},  {0x74, 13, 1024},
+    {0x75, 13, 1088}, {0x76, 13, 1152}, {0x77, 13, 1216}, {0x52, 13, 1280}, {0x53, 13, 1344},
+    {0x54, 13, 1408}, {0x55, 13, 1472}, {0x5A, 13, 1536}, {0x5B, 13, 1600}, {0x64, 13, 1664},
+    {0x65, 13, 1728},
+};
+const FaxCode kFaxExtended[] = {
+    {0x8, 11, 1792},  {0xC, 11, 1856},  {0xD, 11, 1920},  {0x12, 12, 1984}, {0x13, 12, 2048},
+    {0x14, 12, 2112}, {0x15, 12, 2176}, {0x16, 12, 2240}, {0x17, 12, 2304}, {0x1C, 12, 2368},
+    {0x1D, 12, 2432}, {0x1E, 12, 2496}, {0x1F, 12, 2560}, {0x0, 11, -1},
+};
+// The 2D mode codes (T.4 Table 4): pass, horizontal, vertical -3..3 and the
+// extension (0000001xxx); seven zero bits start an EOL.
+enum FaxMode : int16_t { kPass = 100, kHoriz, kV0, kVR1, kVR2, kVR3, kVL1, kVL2, kVL3, kExt, kEol };
+const FaxCode kFaxModes[] = {
+    {0x1, 4, kPass}, {0x1, 3, kHoriz}, {0x1, 1, kV0},   {0x3, 3, kVR1}, {0x3, 6, kVR2},
+    {0x3, 7, kVR3},  {0x2, 3, kVL1},   {0x2, 6, kVL2},  {0x2, 7, kVL3}, {0x1, 7, kExt},
+    {0x0, 7, kEol},
+};
+
+// A 13-bit lookup: the next 13 bits -> (run or mode, code length); length 0
+// marks a bit pattern that starts no code.
+struct FaxTable {
+  int16_t run[8192];
+  uint8_t len[8192];
+  FaxTable(std::initializer_list<std::pair<const FaxCode*, size_t>> parts) {
+    std::memset(len, 0, sizeof(len));
+    std::memset(run, 0, sizeof(run));
+    for (const auto& [codes, n] : parts) {
+      for (size_t i = 0; i < n; ++i) {
+        const int shift = 13 - codes[i].len;
+        for (int j = 0; j < (1 << shift); ++j) {
+          run[(codes[i].bits << shift) | j] = codes[i].run;
+          len[(codes[i].bits << shift) | j] = codes[i].len;
+        }
+      }
+    }
+  }
+};
+
+const FaxTable& fax_white() {
+  static const FaxTable t({{kFaxWhite, std::size(kFaxWhite)}, {kFaxExtended, std::size(kFaxExtended)}});
+  return t;
+}
+const FaxTable& fax_black() {
+  static const FaxTable t({{kFaxBlack, std::size(kFaxBlack)}, {kFaxExtended, std::size(kFaxExtended)}});
+  return t;
+}
+const FaxTable& fax_modes() {
+  static const FaxTable t({{kFaxModes, std::size(kFaxModes)}});
+  return t;
+}
+
+class FaxDecoder {
+ public:
+  // The run arrays are libtiff's: two of nruns entries, zeroed once, whose
+  // entries past a row's runs keep what earlier rows left there.
+  FaxDecoder(const uint8_t* in, size_t n, int width, bool two_d)
+      : in_(in), n_(n), width_(width),
+        nruns_((two_d ? 2 : 1) * ((static_cast<size_t>(width) + 32) / 32 * 32)),
+        runs_(2 * nruns_, 0), cur_(runs_.data()), ref_(runs_.data() + nruns_) {
+    ref_[0] = static_cast<uint32_t>(width);  // an all-white row
+    ref_[1] = 0;
+  }
+
+  // Decodes ``rows`` rows of the given compression into ``out``.  The data
+  // running out is an error (libtiff's premature EOF), except in Group 4,
+  // where a strip that ends (or meets its EOFB) after its first row keeps
+  // the rows decoded so far, as libtiff does.
+  void decode(int compression, int t4options, int rows, uint8_t* out) {
+    const size_t stride = (static_cast<size_t>(width_) + 7) / 8;
+    for (int row = 0; row < rows; ++row) {
+      uint8_t* dst = out + row * stride;
+      ncur_ = 0;
+      a0_ = 0;
+      run_ = 0;
+      bool ok;
+      if (compression == 2) {
+        ok = expand_1d();
+        take(avail_ & 7);  // to the next byte
+      } else if (compression == 3) {
+        ok = sync_eol() && !((t4options & 1) && !need(1));
+        if (ok) {
+          const bool one_d = !(t4options & 1) || take(1);
+          b1_ = static_cast<int>(ref_[0]);
+          pb_ = 1;
+          ok = one_d ? expand_1d() : expand_2d();
+        }
+      } else {
+        b1_ = static_cast<int>(ref_[0]);
+        pb_ = 1;
+        ok = expand_2d() && !eol_;
+        if (!ok) {
+          fill(dst);
+          if (row == 0) throw Error("CCITT Group 4 data ends before its first row");
+          return;
+        }
+      }
+      fill(dst);
+      if (!ok) throw Error("premature end of CCITT data at row " + std::to_string(row));
+      if (ncur_ < nruns_) push(0);  // the imaginary change that ends a reference row
+      std::swap(cur_, ref_);
+    }
+  }
+
+ private:
+  // libtiff's bit accumulator: ``avail_`` bits loaded and not yet taken,
+  // ``pos_`` bits taken.  Past the end of the data, a need for more bits
+  // than are left pads with zeros, and only a need with none left is the
+  // end (NeedBits8/16).
+  bool need(int k) {
+    while (avail_ < k) {
+      if (loaded_ >= n_) {
+        if (avail_ == 0) return false;
+        avail_ = k;
+        return true;
+      }
+      ++loaded_;
+      avail_ += 8;
+    }
+    return true;
+  }
+  int bit(size_t p) const { return p < 8 * n_ ? (in_[p >> 3] >> (7 - (p & 7))) & 1 : 0; }
+  uint32_t peek(int k) const {
+    uint32_t v = 0;
+    for (int i = 0; i < k; ++i) v = (v << 1) | static_cast<uint32_t>(bit(pos_ + i));
+    return v;
+  }
+  uint32_t take(int k) {
+    const uint32_t v = peek(k);
+    pos_ += static_cast<size_t>(k);
+    avail_ -= k;
+    return v;
+  }
+
+  void push(uint32_t v) {
+    if (ncur_ >= nruns_) throw Error("corrupt CCITT data (too many runs in a row)");
+    cur_[ncur_++] = v;
+  }
+
+  void set_value(int x) {
+    push(static_cast<uint32_t>(run_ + x));
+    a0_ += x;
+    run_ = 0;
+  }
+
+  // One code of ``t``, whose longest is ``bits``: false at the end of the
+  // data.
+  bool lookup(const FaxTable& t, int bits, int16_t* run, int* len) {
+    if (!need(bits)) return false;
+    const uint32_t p = peek(13);
+    *run = t.run[p];
+    *len = t.len[p];
+    take(*len);
+    return true;
+  }
+
+  // libtiff's SYNC_EOL: skip to the end of the next EOL (11 zero bits, any
+  // fill, a one), unless the last row ended on one.
+  bool sync_eol() {
+    if (!eol_) {
+      for (;;) {
+        if (!need(11)) return false;
+        if (peek(11) == 0) break;
+        take(1);
+      }
+    }
+    for (;;) {
+      if (!need(8)) return false;
+      if (peek(8) != 0) break;
+      take(8);
+    }
+    while (peek(1) == 0) take(1);
+    take(1);
+    eol_ = false;
+    return true;
+  }
+
+  // A white or black run: make-up codes then a terminating code.  Returns
+  // 0 at a terminating code, 1 at an EOL, 2 at a bad code, -1 at the end
+  // of the data.
+  int read_run(const FaxTable& t) {
+    for (;;) {
+      int16_t run;
+      int len;
+      if (!lookup(t, &t == &fax_white() ? 12 : 13, &run, &len)) return -1;
+      if (len == 0) return 2;
+      if (run < 0) {
+        eol_ = true;
+        return 1;
+      }
+      if (run < 64) {
+        set_value(run);
+        return 0;
+      }
+      a0_ += run;
+      run_ += run;
+    }
+  }
+
+  bool expand_1d() {
+    for (;;) {
+      int r = read_run(fax_white());
+      if (r < 0) {
+        cleanup();
+        return false;
+      }
+      if (r > 0 || a0_ >= width_) break;
+      r = read_run(fax_black());
+      if (r < 0) {
+        cleanup();
+        return false;
+      }
+      if (r > 0 || a0_ >= width_) break;
+      if (ncur_ >= 2 && cur_[ncur_ - 1] == 0 && cur_[ncur_ - 2] == 0) ncur_ -= 2;
+    }
+    cleanup();
+    return true;
+  }
+
+  void check_b1() {
+    if (ncur_ == 0) return;
+    while (b1_ <= a0_ && b1_ < width_) {
+      if (pb_ + 1 >= nruns_) throw Error("corrupt CCITT data (reference row overrun)");
+      b1_ += static_cast<int>(ref_[pb_]) + static_cast<int>(ref_[pb_ + 1]);
+      pb_ += 2;
+    }
+  }
+
+  int next_ref() {
+    if (pb_ >= nruns_) throw Error("corrupt CCITT data (reference row overrun)");
+    return static_cast<int>(ref_[pb_++]);
+  }
+
+  bool expand_2d() {
+    while (a0_ < width_) {
+      if (ncur_ >= nruns_) throw Error("corrupt CCITT data (too many runs in a row)");
+      int16_t mode;
+      int len;
+      if (!lookup(fax_modes(), 7, &mode, &len)) {
+        cleanup();
+        return false;
+      }
+      if (len == 0) {
+        cleanup();
+        return true;
+      }
+      switch (mode) {
+        case kPass:
+          check_b1();
+          b1_ += next_ref();
+          run_ += b1_ - a0_;
+          a0_ = b1_;
+          b1_ += next_ref();
+          break;
+        case kHoriz: {
+          const bool black_first = ncur_ & 1;
+          for (int k = 0; k < 2; ++k) {
+            const int r = read_run((k == 0) == black_first ? fax_black() : fax_white());
+            if (r < 0) {
+              cleanup();
+              return false;
+            }
+            if (r > 0) {
+              eol_ = false;
+              cleanup();
+              return true;
+            }
+          }
+          check_b1();
+          break;
+        }
+        case kV0:
+        case kVR1:
+        case kVR2:
+        case kVR3:
+          check_b1();
+          set_value(b1_ - a0_ + (mode - kV0));
+          b1_ += next_ref();
+          break;
+        case kVL1:
+        case kVL2:
+        case kVL3: {
+          const int d = mode - kVL1 + 1;
+          check_b1();
+          if (b1_ < a0_ + d) {
+            cleanup();
+            return true;
+          }
+          set_value(b1_ - a0_ - d);
+          b1_ -= static_cast<int>(ref_[--pb_]);
+          break;
+        }
+        case kExt:
+          push(static_cast<uint32_t>(width_ - a0_));
+          cleanup();
+          return true;
+        default:  // an EOL
+          push(static_cast<uint32_t>(width_ - a0_));
+          if (!need(4)) {
+            cleanup();
+            return false;
+          }
+          take(4);
+          eol_ = true;
+          cleanup();
+          return true;
+      }
+    }
+    if (run_) {
+      if (run_ + a0_ < width_) {
+        if (!need(1)) {
+          cleanup();
+          return false;
+        }
+        if (!take(1)) {
+          cleanup();
+          return true;
+        }
+      }
+      set_value(0);
+    }
+    cleanup();
+    return true;
+  }
+
+  // libtiff's CLEANUP_RUNS.
+  void cleanup() {
+    if (run_) set_value(0);
+    if (a0_ != width_) {
+      while (a0_ > width_ && ncur_ > 0) a0_ -= static_cast<int>(cur_[--ncur_]);
+      if (a0_ < width_) {
+        if (a0_ < 0) a0_ = 0;
+        if (ncur_ & 1) set_value(0);
+        set_value(width_ - a0_);
+      } else if (a0_ > width_) {
+        set_value(width_);
+        set_value(0);
+      }
+    }
+  }
+
+  // libtiff's _TIFFFax3fillruns: the row's runs as bits, black ones set.
+  void fill(uint8_t* dst) const {
+    const size_t stride = (static_cast<size_t>(width_) + 7) / 8;
+    std::memset(dst, 0, stride);
+    int x = 0;
+    for (size_t i = 0; i < ncur_ && x < width_; ++i) {
+      int run = static_cast<int>(cur_[i]);
+      if (x + run > width_ || run < 0) run = width_ - x;
+      if (i & 1) {
+        for (int k = x; k < x + run; ++k) dst[k >> 3] |= static_cast<uint8_t>(0x80 >> (k & 7));
+      }
+      x += run;
+    }
+  }
+
+  const uint8_t* in_;
+  size_t n_;
+  int width_;
+  size_t loaded_ = 0, pos_ = 0;
+  int avail_ = 0;
+  int a0_ = 0, run_ = 0, b1_ = 0;
+  size_t pb_ = 0, ncur_ = 0;
+  bool eol_ = false;
+  size_t nruns_;
+  std::vector<uint32_t> runs_;
+  uint32_t *cur_, *ref_;
+};
+
+// ------------------------------------------------------------- TIFF zstd
+
+// A Zstandard frame (RFC 8878), as libtiff's ZSTD codec (compression 50000)
+// stores a strip or tile: raw, RLE and compressed blocks; literals raw, RLE
+// or Huffman-coded (one or four streams, the tree's weights direct or
+// FSE-coded, a treeless block reusing the last tree); sequences whose
+// literal-length, offset and match-length codes are predefined, RLE,
+// FSE-coded or repeat the last table; the three repeat offsets; the window;
+// and the XXH64 content checksum when the frame carries one.  Skippable
+// frames are skipped.  A frame that names a dictionary is refused.
+uint64_t rotl64(uint64_t x, int r) { return (x << r) | (x >> (64 - r)); }
+
+uint64_t xxh64(const uint8_t* p, size_t n) {
+  const uint64_t P1 = 11400714785074694791ULL, P2 = 14029467366897019727ULL,
+                 P3 = 1609587929392839161ULL, P4 = 9650029242287828579ULL,
+                 P5 = 2870177450012600261ULL;
+  auto read64 = [](const uint8_t* q) {
+    uint64_t v;
+    std::memcpy(&v, q, 8);
+    return v;
+  };
+  auto round = [&](uint64_t acc, uint64_t in) { return rotl64(acc + in * P2, 31) * P1; };
+  const uint8_t* end = p + n;
+  uint64_t h;
+  if (n >= 32) {
+    uint64_t v1 = P1 + P2, v2 = P2, v3 = 0, v4 = 0 - P1;
+    for (; p + 32 <= end; p += 32) {
+      v1 = round(v1, read64(p));
+      v2 = round(v2, read64(p + 8));
+      v3 = round(v3, read64(p + 16));
+      v4 = round(v4, read64(p + 24));
+    }
+    h = rotl64(v1, 1) + rotl64(v2, 7) + rotl64(v3, 12) + rotl64(v4, 18);
+    for (uint64_t v : {v1, v2, v3, v4}) h = (h ^ round(0, v)) * P1 + P4;
+  } else {
+    h = P5;
+  }
+  h += n;
+  for (; p + 8 <= end; p += 8) h = rotl64(h ^ round(0, read64(p)), 27) * P1 + P4;
+  if (p + 4 <= end) {
+    uint32_t v;
+    std::memcpy(&v, p, 4);
+    h = rotl64(h ^ (v * P1), 23) * P2 + P3;
+    p += 4;
+  }
+  for (; p < end; ++p) h = rotl64(h ^ (*p * P5), 11) * P1;
+  h ^= h >> 33;
+  h *= P2;
+  h ^= h >> 29;
+  h *= P3;
+  h ^= h >> 32;
+  return h;
+}
+
+// A bitstream read backwards from its last byte, whose highest set bit
+// marks the start; bits past the beginning read as zeros.
+class BackBits {
+ public:
+  BackBits(const uint8_t* p, size_t n) : p_(p) {
+    if (n == 0 || p[n - 1] == 0) throw Error("corrupt zstd data (bitstream without end mark)");
+    int top = 7;
+    while (!((p[n - 1] >> top) & 1)) --top;
+    pos_ = static_cast<int64_t>(8 * (n - 1)) + top;
+  }
+  uint32_t read(int k) {
+    uint32_t v = 0;
+    for (int i = 0; i < k; ++i) {
+      --pos_;
+      v = (v << 1) | (pos_ >= 0 ? (p_[pos_ >> 3] >> (pos_ & 7)) & 1u : 0u);
+    }
+    return v;
+  }
+  uint32_t peek(int k) const {
+    uint32_t v = 0;
+    for (int i = 1; i <= k; ++i) {
+      const int64_t q = pos_ - i;
+      v = (v << 1) | (q >= 0 ? (p_[q >> 3] >> (q & 7)) & 1u : 0u);
+    }
+    return v;
+  }
+  void skip(int k) { pos_ -= k; }
+  int64_t left() const { return pos_; }
+
+ private:
+  const uint8_t* p_;
+  int64_t pos_;
+};
+
+struct FseEntry {
+  uint16_t symbol;
+  uint8_t bits;
+  uint16_t base;
+};
+
+struct FseTable {
+  int log = 0;
+  std::vector<FseEntry> t;
+};
+
+// FSE_buildDTable over normalized counts (-1: a "less than one" symbol).
+FseTable fse_build(const std::vector<int>& counts, int log) {
+  const int size = 1 << log;
+  FseTable table;
+  table.log = log;
+  table.t.assign(size, FseEntry{0, 0, 0});
+  std::vector<int> next(counts.size());
+  int high = size - 1;
+  for (size_t s = 0; s < counts.size(); ++s) {
+    if (counts[s] == -1) {
+      table.t[high--].symbol = static_cast<uint16_t>(s);
+      next[s] = 1;
+    } else {
+      next[s] = counts[s];
+    }
+  }
+  const int step = (size >> 1) + (size >> 3) + 3, mask = size - 1;
+  int pos = 0;
+  for (size_t s = 0; s < counts.size(); ++s) {
+    for (int i = 0; i < counts[s]; ++i) {
+      table.t[pos].symbol = static_cast<uint16_t>(s);
+      do pos = (pos + step) & mask;
+      while (pos > high);
+    }
+  }
+  if (pos != 0) throw Error("corrupt zstd data (bad FSE distribution)");
+  for (int u = 0; u < size; ++u) {
+    const int s = table.t[u].symbol;
+    const int state = next[s]++;
+    int hb = 31;
+    while (!((state >> hb) & 1)) --hb;
+    const int bits = log - hb;
+    table.t[u].bits = static_cast<uint8_t>(bits);
+    table.t[u].base = static_cast<uint16_t>((state << bits) - size);
+  }
+  return table;
+}
+
+FseTable fse_rle(int symbol) {
+  FseTable table;
+  table.log = 0;
+  table.t.assign(1, FseEntry{static_cast<uint16_t>(symbol), 0, 0});
+  return table;
+}
+
+// FSE_readNCount: a table description read forwards from ``p``; returns
+// the bytes it took.
+size_t fse_read_counts(const uint8_t* p, size_t n, int max_log, int max_symbol, FseTable* out) {
+  size_t bitpos = 0;
+  auto bits = [&](int k) {  // peek k bits, little-endian
+    uint32_t v = 0;
+    for (int i = 0; i < k; ++i) {
+      const size_t q = bitpos + i;
+      v |= (q < 8 * n ? ((p[q >> 3] >> (q & 7)) & 1u) : 0u) << i;
+    }
+    return v;
+  };
+  const int log = static_cast<int>(bits(4)) + 5;
+  bitpos = 4;
+  if (log > max_log) throw Error("corrupt zstd data (FSE accuracy too large)");
+  int remaining = (1 << log) + 1, threshold = 1 << log, nbits = log + 1;
+  std::vector<int> counts;
+  bool previous0 = false;
+  while (remaining > 1 && static_cast<int>(counts.size()) <= max_symbol) {
+    if (previous0) {
+      int n0 = static_cast<int>(counts.size());
+      while (bits(16) == 0xFFFF) {
+        n0 += 24;
+        bitpos += 16;
+      }
+      while ((bits(2) & 3) == 3) {
+        n0 += 3;
+        bitpos += 2;
+      }
+      n0 += static_cast<int>(bits(2) & 3);
+      bitpos += 2;
+      if (n0 > max_symbol) throw Error("corrupt zstd data (FSE symbol out of range)");
+      while (static_cast<int>(counts.size()) < n0) counts.push_back(0);
+    }
+    const int max = (2 * threshold - 1) - remaining;
+    int count;
+    if (static_cast<int>(bits(nbits) & (threshold - 1)) < max) {
+      count = static_cast<int>(bits(nbits) & (threshold - 1));
+      bitpos += nbits - 1;
+    } else {
+      count = static_cast<int>(bits(nbits) & (2 * threshold - 1));
+      if (count >= threshold) count -= max;
+      bitpos += nbits;
+    }
+    --count;
+    remaining -= count < 0 ? -count : count;
+    counts.push_back(count);
+    previous0 = count == 0;
+    while (remaining < threshold) {
+      --nbits;
+      threshold >>= 1;
+    }
+  }
+  if (remaining != 1 || bitpos > 8 * n) throw Error("corrupt zstd data (bad FSE description)");
+  *out = fse_build(counts, log);
+  return (bitpos + 7) / 8;
+}
+
+struct HufTable {
+  int max_bits = 0;
+  std::vector<uint8_t> symbol, bits;
+};
+
+HufTable huf_build(std::vector<uint8_t> weights) {
+  uint32_t total = 0;
+  for (uint8_t w : weights) {
+    if (w > 11) throw Error("corrupt zstd data (Huffman weight too large)");
+    if (w) total += 1u << (w - 1);
+  }
+  if (total == 0) throw Error("corrupt zstd data (empty Huffman tree)");
+  int max_bits = 0;
+  while ((1u << max_bits) <= total) ++max_bits;
+  const uint32_t rest = (1u << max_bits) - total;
+  if (rest & (rest - 1)) throw Error("corrupt zstd data (bad Huffman weights)");
+  int last = 0;
+  while ((1u << last) < rest) ++last;
+  weights.push_back(static_cast<uint8_t>(last + 1));
+  if (max_bits > 11 || weights.size() > 256) throw Error("corrupt zstd data (bad Huffman tree)");
+  HufTable h;
+  h.max_bits = max_bits;
+  h.symbol.assign(1u << max_bits, 0);
+  h.bits.assign(1u << max_bits, 0);
+  size_t pos = 0;
+  for (int w = 1; w <= max_bits; ++w) {
+    for (size_t s = 0; s < weights.size(); ++s) {
+      if (weights[s] != w) continue;
+      const size_t span = 1u << (w - 1);
+      for (size_t k = 0; k < span; ++k, ++pos) {
+        h.symbol[pos] = static_cast<uint8_t>(s);
+        h.bits[pos] = static_cast<uint8_t>(max_bits + 1 - w);
+      }
+    }
+  }
+  return h;
+}
+
+const int kLLBase[36] = {0,  1,  2,  3,  4,  5,  6,   7,   8,   9,    10,   11,
+                         12, 13, 14, 15, 16, 18, 20,  22,  24,  28,   32,   40,
+                         48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536};
+const int kLLBits[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1,
+                         1, 1, 2, 2, 3, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+const int kMLBase[53] = {3,  4,  5,  6,  7,  8,  9,  10, 11, 12,  13,  14,   15,   16,
+                         17, 18, 19, 20, 21, 22, 23, 24, 25, 26,  27,  28,   29,   30,
+                         31, 32, 33, 34, 35, 37, 39, 41, 43, 47,  51,  59,   67,   83,
+                         99, 131, 259, 515, 1027, 2051, 4099, 8195, 16387, 32771, 65539};
+const int kMLBits[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                         0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1,
+                         2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+const std::vector<int> kLLDefault = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 2, 2,
+                                     2, 2, 2, 2, 2, 2, 2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
+const std::vector<int> kMLDefault = {1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
+const std::vector<int> kOFDefault = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1, 1, 1, 1, 1, 1,
+                                     1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+
+class Zstd {
+ public:
+  Zstd(const uint8_t* in, size_t n, uint8_t* out, size_t cap) : in_(in), n_(n), out_(out), cap_(cap) {}
+
+  // Decodes every frame; returns the bytes written (at most ``cap``).
+  size_t run() {
+    size_t pos = 0;
+    while (pos + 4 <= n_) {
+      const uint32_t magic = le32(pos);
+      if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) {  // a skippable frame
+        if (pos + 8 > n_) throw Error("truncated zstd skippable frame");
+        pos += 8 + static_cast<size_t>(le32(pos + 4));
+        continue;
+      }
+      if (magic != 0xFD2FB528u) throw Error("corrupt zstd data (bad frame magic)");
+      pos = frame(pos + 4);
+      if (w_ >= cap_) break;
+    }
+    return std::min(w_, cap_);
+  }
+
+ private:
+  uint32_t le32(size_t at) const {
+    if (at + 4 > n_) throw Error("truncated zstd data");
+    return static_cast<uint32_t>(in_[at]) | static_cast<uint32_t>(in_[at + 1]) << 8 |
+           static_cast<uint32_t>(in_[at + 2]) << 16 | static_cast<uint32_t>(in_[at + 3]) << 24;
+  }
+  uint8_t byte(size_t at) const {
+    if (at >= n_) throw Error("truncated zstd data");
+    return in_[at];
+  }
+
+  void put(uint8_t v) {
+    if (w_ < cap_) out_[w_] = v;
+    ++w_;
+  }
+
+  size_t frame(size_t pos) {
+    const uint8_t desc = byte(pos++);
+    const int fcs_flag = desc >> 6, single = (desc >> 5) & 1, checksum = (desc >> 2) & 1,
+              dict_flag = desc & 3;
+    if (desc & 8) throw Error("corrupt zstd data (reserved frame header bit set)");
+    if (!single) ++pos;  // the window descriptor: the output buffer holds the whole strip
+    const int dict_bytes = dict_flag == 3 ? 4 : dict_flag;
+    uint32_t dict = 0;
+    for (int i = 0; i < dict_bytes; ++i) dict |= static_cast<uint32_t>(byte(pos + i)) << (8 * i);
+    if (dict != 0) throw Error("zstd frame needs dictionary " + std::to_string(dict) + ", which is not supported");
+    pos += dict_bytes;
+    const int fcs_bytes = fcs_flag == 0 ? single : (1 << fcs_flag);
+    pos += fcs_bytes;
+    const size_t start = w_;
+    reps_[0] = 1;
+    reps_[1] = 4;
+    reps_[2] = 8;
+    huf_.max_bits = 0;  // a frame starts with no tree and no tables to repeat
+    have_ll_ = have_of_ = have_ml_ = false;
+    for (;;) {
+      if (pos + 3 > n_) throw Error("truncated zstd block header");
+      const uint32_t h = in_[pos] | in_[pos + 1] << 8 | in_[pos + 2] << 16;
+      pos += 3;
+      const int last = h & 1, type = (h >> 1) & 3;
+      const size_t size = h >> 3;
+      if (type == 0) {
+        if (pos + size > n_) throw Error("truncated zstd raw block");
+        for (size_t i = 0; i < size; ++i) put(in_[pos + i]);
+        pos += size;
+      } else if (type == 1) {
+        const uint8_t v = byte(pos++);
+        for (size_t i = 0; i < size; ++i) put(v);
+      } else if (type == 2) {
+        if (pos + size > n_) throw Error("truncated zstd compressed block");
+        block(in_ + pos, size);
+        pos += size;
+      } else {
+        throw Error("corrupt zstd data (reserved block type)");
+      }
+      if (last) break;
+    }
+    if (checksum) {
+      const uint32_t want = le32(pos);
+      pos += 4;
+      if (w_ > cap_) throw Error("zstd frame larger than its strip; checksum not checked");
+      if (static_cast<uint32_t>(xxh64(out_ + start, w_ - start)) != want) {
+        throw Error("corrupt zstd data (content checksum mismatch)");
+      }
+    }
+    return pos;
+  }
+
+  void block(const uint8_t* p, size_t n) {
+    size_t used = literals(p, n);
+    sequences(p + used, n - used);
+  }
+
+  size_t literals(const uint8_t* p, size_t n) {
+    if (n < 1) throw Error("truncated zstd literals");
+    const int type = p[0] & 3, format = (p[0] >> 2) & 3;
+    lits_.clear();
+    if (type < 2) {
+      size_t regen, head;
+      if (format == 0 || format == 2) {
+        regen = p[0] >> 3;
+        head = 1;
+      } else if (format == 1) {
+        if (n < 2) throw Error("truncated zstd literals");
+        regen = (p[0] >> 4) + (static_cast<size_t>(p[1]) << 4);
+        head = 2;
+      } else {
+        if (n < 3) throw Error("truncated zstd literals");
+        regen = (p[0] >> 4) + (static_cast<size_t>(p[1]) << 4) + (static_cast<size_t>(p[2]) << 12);
+        head = 3;
+      }
+      if (type == 0) {
+        if (head + regen > n) throw Error("truncated zstd raw literals");
+        lits_.assign(p + head, p + head + regen);
+        return head + regen;
+      }
+      if (head + 1 > n) throw Error("truncated zstd RLE literals");
+      lits_.assign(regen, p[head]);
+      return head + 1;
+    }
+    size_t head = format < 2 ? 3 : format == 2 ? 4 : 5;
+    if (n < head) throw Error("truncated zstd literals");
+    uint64_t h = 0;
+    for (size_t i = 0; i < head; ++i) h |= static_cast<uint64_t>(p[i]) << (8 * i);
+    const int bits = format < 2 ? 10 : format == 2 ? 14 : 18;
+    const size_t regen = (h >> 4) & ((1u << bits) - 1);
+    const size_t comp = (h >> (4 + bits)) & ((1u << bits) - 1);
+    const int streams = format == 0 ? 1 : 4;
+    if (head + comp > n) throw Error("truncated zstd Huffman literals");
+    const uint8_t* q = p + head;
+    size_t qn = comp;
+    if (type == 2) {
+      const size_t used = huf_tree(q, qn);
+      q += used;
+      qn -= used;
+    } else if (huf_.max_bits == 0) {
+      throw Error("corrupt zstd data (treeless literals without a tree)");
+    }
+    lits_.resize(regen);
+    if (streams == 1) {
+      huf_stream(q, qn, lits_.data(), regen);
+    } else {
+      if (qn < 6) throw Error("truncated zstd literal streams");
+      size_t sizes[4] = {static_cast<size_t>(q[0] | q[1] << 8), static_cast<size_t>(q[2] | q[3] << 8),
+                         static_cast<size_t>(q[4] | q[5] << 8), 0};
+      if (sizes[0] + sizes[1] + sizes[2] + 6 > qn) throw Error("corrupt zstd literal jump table");
+      sizes[3] = qn - 6 - sizes[0] - sizes[1] - sizes[2];
+      const size_t each = (regen + 3) / 4;
+      const uint8_t* s = q + 6;
+      size_t at = 0;
+      for (int i = 0; i < 4; ++i) {
+        const size_t count = i < 3 ? std::min(each, regen - at) : regen - at;
+        huf_stream(s, sizes[i], lits_.data() + at, count);
+        s += sizes[i];
+        at += count;
+      }
+    }
+    return head + comp;
+  }
+
+  size_t huf_tree(const uint8_t* p, size_t n) {
+    if (n < 1) throw Error("truncated zstd Huffman tree");
+    const int hb = p[0];
+    std::vector<uint8_t> w;
+    size_t used;
+    if (hb >= 128) {
+      const int count = hb - 127;
+      used = 1 + (count + 1) / 2;
+      if (used > n) throw Error("truncated zstd Huffman weights");
+      for (int i = 0; i < count; ++i) {
+        w.push_back(static_cast<uint8_t>(i & 1 ? p[1 + i / 2] & 15 : p[1 + i / 2] >> 4));
+      }
+    } else {
+      used = 1 + hb;
+      if (used > n) throw Error("truncated zstd Huffman weights");
+      FseTable t;
+      const size_t desc = fse_read_counts(p + 1, hb, 6, 255, &t);
+      if (desc >= static_cast<size_t>(hb)) throw Error("corrupt zstd Huffman weights");
+      BackBits br(p + 1 + desc, hb - desc);
+      uint32_t s1 = br.read(t.log), s2 = br.read(t.log);
+      auto step = [&](uint32_t* s) {
+        const FseEntry& e = t.t[*s];
+        w.push_back(static_cast<uint8_t>(e.symbol));
+        *s = e.base + br.read(e.bits);
+      };
+      for (;;) {
+        if (w.size() > 254) throw Error("corrupt zstd Huffman weights");
+        step(&s1);
+        if (br.left() < 0) {
+          w.push_back(static_cast<uint8_t>(t.t[s2].symbol));
+          break;
+        }
+        step(&s2);
+        if (br.left() < 0) {
+          w.push_back(static_cast<uint8_t>(t.t[s1].symbol));
+          break;
+        }
+      }
+    }
+    huf_ = huf_build(w);
+    return used;
+  }
+
+  void huf_stream(const uint8_t* p, size_t n, uint8_t* dst, size_t count) {
+    BackBits br(p, n);
+    for (size_t i = 0; i < count; ++i) {
+      const uint32_t v = br.peek(huf_.max_bits);
+      dst[i] = huf_.symbol[v];
+      br.skip(huf_.bits[v]);
+    }
+    if (br.left() != 0) throw Error("corrupt zstd data (Huffman stream size mismatch)");
+  }
+
+  // One sequence code's table in ``mode`` (predefined, RLE, FSE-coded or
+  // repeat); returns the bytes its description took.
+  size_t table(const uint8_t* p, size_t n, int mode, const std::vector<int>& def, int def_log,
+               int max_log, int max_symbol, FseTable* t, bool* have) {
+    size_t used = 0;
+    if (mode == 0) {
+      *t = fse_build(def, def_log);
+    } else if (mode == 1) {
+      if (n < 1) throw Error("truncated zstd sequences");
+      if (p[0] > max_symbol) throw Error("corrupt zstd data (RLE symbol out of range)");
+      *t = fse_rle(p[0]);
+      used = 1;
+    } else if (mode == 2) {
+      used = fse_read_counts(p, n, max_log, max_symbol, t);
+    } else if (!*have) {
+      throw Error("corrupt zstd data (repeat mode without a table)");
+    }
+    *have = true;
+    return used;
+  }
+
+  void sequences(const uint8_t* p, size_t n) {
+    if (n < 1) throw Error("truncated zstd sequences");
+    size_t pos = 0, count = p[0];
+    if (count >= 128) {
+      if (n < 2) throw Error("truncated zstd sequences");
+      if (count < 255) {
+        count = ((count - 128) << 8) + p[1];
+        pos = 2;
+      } else {
+        if (n < 3) throw Error("truncated zstd sequences");
+        count = p[1] + (static_cast<size_t>(p[2]) << 8) + 0x7F00;
+        pos = 3;
+      }
+    } else {
+      pos = 1;
+    }
+    size_t lit = 0;
+    if (count > 0) {
+      if (pos >= n) throw Error("truncated zstd sequences");
+      const uint8_t modes = p[pos++];
+      if (modes & 3) throw Error("corrupt zstd data (reserved sequence mode bits)");
+      pos += table(p + pos, n - pos, modes >> 6, kLLDefault, 6, 9, 35, &ll_, &have_ll_);
+      pos += table(p + pos, n - pos, (modes >> 4) & 3, kOFDefault, 5, 8, 31, &of_, &have_of_);
+      pos += table(p + pos, n - pos, (modes >> 2) & 3, kMLDefault, 6, 9, 52, &ml_, &have_ml_);
+      if (pos > n) throw Error("truncated zstd sequences");
+      BackBits br(p + pos, n - pos);
+      uint32_t sl = br.read(ll_.log), so = br.read(of_.log), sm = br.read(ml_.log);
+      for (size_t i = 0; i < count; ++i) {
+        const int ofc = of_.t[so].symbol, mlc = ml_.t[sm].symbol, llc = ll_.t[sl].symbol;
+        if (ofc > 31 || mlc > 52 || llc > 35) throw Error("corrupt zstd data (sequence code)");
+        const uint64_t ov = (1ull << ofc) + br.read(ofc);
+        const size_t ml = kMLBase[mlc] + br.read(kMLBits[mlc]);
+        const size_t ll = kLLBase[llc] + br.read(kLLBits[llc]);
+        size_t offset;
+        if (ov > 3) {
+          offset = ov - 3;
+          reps_[2] = reps_[1];
+          reps_[1] = reps_[0];
+          reps_[0] = offset;
+        } else {
+          const int idx = static_cast<int>(ov) - 1 + (ll == 0);
+          if (idx == 0) {
+            offset = reps_[0];
+          } else {
+            offset = idx == 3 ? reps_[0] - 1 : reps_[idx];
+            if (idx != 1) reps_[2] = reps_[1];
+            reps_[1] = reps_[0];
+            reps_[0] = offset;
+          }
+        }
+        if (lit + ll > lits_.size()) throw Error("corrupt zstd data (literals overrun)");
+        for (size_t k = 0; k < ll; ++k) put(lits_[lit + k]);
+        lit += ll;
+        if (offset == 0 || offset > w_) throw Error("corrupt zstd data (offset before the start)");
+        for (size_t k = 0; k < ml; ++k) {
+          const size_t from = w_ - offset;
+          put(from < cap_ ? out_[from] : 0);
+        }
+        if (i + 1 < count) {
+          sl = ll_.t[sl].base + br.read(ll_.t[sl].bits);
+          sm = ml_.t[sm].base + br.read(ml_.t[sm].bits);
+          so = of_.t[so].base + br.read(of_.t[so].bits);
+        }
+      }
+      if (br.left() != 0) throw Error("corrupt zstd data (sequence stream size mismatch)");
+    }
+    for (; lit < lits_.size(); ++lit) put(lits_[lit]);
+  }
+
+  const uint8_t* in_;
+  size_t n_;
+  uint8_t* out_;
+  size_t cap_, w_ = 0;
+  size_t reps_[3] = {1, 4, 8};
+  std::vector<uint8_t> lits_;
+  HufTable huf_;
+  FseTable ll_, of_, ml_;
+  bool have_ll_ = false, have_of_ = false, have_ml_ = false;
+};
 
 // ------------------------------------------------------------- WebP VP8
 
@@ -3125,7 +4130,8 @@ int codec_gif_lzw(const uint8_t* data, size_t size, int min_code_size, int width
   }
 }
 
-// A TIFF strip or tile: LZW (``kind`` 5) or PackBits (32773) into at most
+// A TIFF strip or tile: LZW (``kind`` 5), PackBits (32773) or Zstandard
+// (50000) into at most
 // ``cap`` bytes of ``out``; ``written`` gets how many were written.
 int codec_tiff_unpack(const uint8_t* data, size_t size, int kind, uint8_t* out, size_t cap,
                       size_t* written, char* err, int errlen) {
@@ -3134,9 +4140,29 @@ int codec_tiff_unpack(const uint8_t* data, size_t size, int kind, uint8_t* out, 
       *written = tiff_lzw(data, size, out, cap);
     } else if (kind == 32773) {
       *written = packbits(data, size, out, cap);
+    } else if (kind == 50000) {
+      *written = Zstd(data, size, out, cap).run();
     } else {
       throw Error("unknown TIFF compression");
     }
+    return 0;
+  } catch (const std::exception& e) {
+    return report(e.what(), err, errlen);
+  }
+}
+
+// The ``rows`` x ``width`` bilevel rows of a CCITT-coded TIFF strip or tile
+// (``compression`` 2, 3 or 4; ``t4options`` as the T4Options tag) into
+// ``out``, rows * ((width + 7) / 8) bytes, packed; a Group 4 strip that ends
+// early leaves the rows after it as they were.
+int codec_tiff_fax(const uint8_t* data, size_t size, int compression, int t4options, int width,
+                   int rows, uint8_t* out, char* err, int errlen) {
+  try {
+    if (compression < 2 || compression > 4 || width <= 0 || rows < 0) {
+      throw Error("bad CCITT decode arguments");
+    }
+    const bool two_d = compression == 4 || (compression == 3 && (t4options & 1));
+    FaxDecoder(data, size, width, two_d).decode(compression, t4options, rows, out);
     return 0;
   } catch (const std::exception& e) {
     return report(e.what(), err, errlen);

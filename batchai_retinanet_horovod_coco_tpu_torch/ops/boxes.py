@@ -2,7 +2,8 @@
 
 Center-form deltas (dx, dy, dw, dh) with normalization stds; decoding
 clamps dw/dh with a max only, at ``log(1000/16)``.  The JAX package's
-coordinate-planar encode is a TPU layout and is not carried over.
+coordinate-planar encode, the (B, 4, A) targets of its NHWC loss path, is
+a TPU lane layout of the same values and is not carried over.
 """
 
 from __future__ import annotations

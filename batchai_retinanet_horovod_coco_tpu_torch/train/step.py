@@ -7,9 +7,11 @@ The path is the one the JAX package takes with its fused kernels on:
 the head outputs concatenated to (B, A, K), targets from
 ``anchor_targets_compact_batched`` (the matching kernel on a card) under
 ``torch.no_grad()``, and ``total_loss_compact`` (the focal kernels on a
-card).  The step records the pre-clip global gradient norm, which the clip
-reuses, and the post-update parameter norm; with ``numerics`` enabled, the
-numerics summary of ``obs/numerics.py`` too.
+card).  The JAX package's default arm, the per-level NHWC loss, gives the
+same values and is not carried over (``losses.py``).  The step records the
+pre-clip global gradient norm, which the clip reuses, and the post-update
+parameter norm; with ``numerics`` enabled, the numerics summary of
+``obs/numerics.py`` too.
 
 In a world (``launch/pod.py::World``) each rank runs its share of the
 global batch through the model's replica (``parallel/mesh.py::replicate``),

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in
-seventeen phases, and fails (non-zero exit, no result line) if any of them fails:
+eighteen phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
 2. build: compiles every CUDA kernel (NMS, matching, focal) from the
@@ -255,7 +255,20 @@ seventeen phases, and fails (non-zero exit, no result line) if any of them fails
    ``zero_world_size`` 1, and its residuals restored through the package
    equal to the saved ones.  Every rank's matching and focal kernels
    launched every step, the plain versions never.  The phase must take at
-   most 240 s.
+   most 240 s;
+18. the schedule registry (``tune/schedule.py``) on the card, in a
+   temporary directory named by ``RETINANET_TORCH_SCHEDULE_DIR``: with no
+   file, a process prints exactly one ``schedule_fallback`` line naming the
+   card and resolves ``pre_nms_size`` 1000; with a file for the card
+   (``nms.pre_nms_size`` 500), a process resolves 500 with no fallback
+   line, ``postprocess`` on the card hands the NMS kernel 500 candidates,
+   ``train synthetic`` (resnet_test, 64 x 64) runs 3 steps through the
+   matching and focal kernels and a final eval through the NMS kernel, and
+   ``convert_model`` writes a manifest whose ``schedule.found`` is true and
+   ``pre_nms_size`` 500; a malformed file gives the fallback line with
+   reason ``invalid_schedule_artifact`` and resolves 1000, and
+   ``load_schedule`` on it names every problem.  The phase must take at
+   most 150 s.
 
 Then it prints one JSON line with each kernel's launches, error, times and
 bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
@@ -326,6 +339,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.train import loop as loop_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import optim as optim_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import state as state_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import step as step_lib
+from batchai_retinanet_horovod_coco_tpu_torch.tune import schedule as schedule_lib
 from batchai_retinanet_horovod_coco_tpu_torch.serve.batcher import assemble_requests
 from batchai_retinanet_horovod_coco_tpu_torch.serve import fleet as serve_fleet
 from batchai_retinanet_horovod_coco_tpu_torch.serve import frontend as serve_frontend
@@ -365,6 +379,9 @@ FORMAT_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "form
 # GIF, TIFF and WebP; the 640 x 480 ones are timed and served.
 MORE_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "formats_more"
 NEW_FORMAT_FILES = ("gif_640x480.gif", "tiff_640x480_lzw.tif", "webp_640x480.webp")
+# CCITT fax, LZMA, Zstandard, float and signed samples, orientations, YCbCr.
+TIFF_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "formats_tiff"
+TIFF_TIMED_FILES = ("tiff_640x480_ccitt_g4.tif", "tiff_640x480_zstd.tif")
 TRAIN_HW = (800, 1344)  # the landscape bucket of the (800, 1333) resize rule
 MAX_GT = 100
 GOLDEN_HW = (64, 64)
@@ -727,7 +744,8 @@ def main() -> int:
             detect_lib.boxes_lib.decode_boxes(anchors[None], outputs["box_deltas"]), hw
         )
         cb, cs, ci = (t.contiguous() for t in nms_lib.select_candidates(
-            boxes, scores, dconfig.score_threshold, dconfig.pre_nms_size
+            boxes, scores, dconfig.score_threshold,
+            detect_lib.resolve_detect_config(dconfig, device).pre_nms_size,
         ))
     for field in nms_lib.Detections._fields:
         a, b = getattr(kernel_det, field), getattr(plain_det, field)
@@ -855,17 +873,19 @@ def main() -> int:
         dp_launches = data_parallel_phase(root, batches, device, kind, smi)
         phase(17, "gradient communication on one card")
         comm_launches = comm_phase(root, batches, device, kind, smi)
+        phase(18, "the schedule registry")
+        schedule_launches = schedule_phase(root, device, kind)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
         row["launches"] = (launches_by_kernel[key] + run_launches[key] + file_launches[key]
                            + obs_launches[key] + family_launches[key] + dp_launches[key]
-                           + comm_launches[key])
+                           + comm_launches[key] + schedule_launches[key])
     nms_row["launches"] = (launches + run_launches["nms"] + file_launches["nms"] + served["launches"]
                            + obs_launches["nms"] + fleet_launches + family_launches["nms"]
-                           + dp_launches["nms"] + comm_launches["nms"])
+                           + dp_launches["nms"] + comm_launches["nms"] + schedule_launches["nms"])
     end_phases()
-    print(f"chip_smoke: all 17 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
+    print(f"chip_smoke: all 18 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
 
     print(smi)
     print(json.dumps({"kernels": [nms_row, match_row, fwd_row, bwd_row]}))
@@ -1662,7 +1682,7 @@ def codec_and_pipeline(root: str, kind: str, smi: str) -> None:
     native_build.compile_library("imagecodec")
     print(f"built native/imagecodec.cpp with g++ in {time.perf_counter() - t0:.1f} s")
     checked = 0
-    for folder in (JPEG_FIXTURES, FORMAT_FIXTURES, MORE_FIXTURES):
+    for folder in (JPEG_FIXTURES, FORMAT_FIXTURES, MORE_FIXTURES, TIFF_FIXTURES):
         digests = json.loads((folder / "digests.json").read_text())
         for name, want in digests.items():
             path = folder / name
@@ -1673,18 +1693,21 @@ def codec_and_pipeline(root: str, kind: str, smi: str) -> None:
             if "size" in want:
                 require(list(image_io.read_size(path)) == want["size"], f"{name}: read_size differs from PIL's")
             checked += 1
-    print(f"{checked} fixtures of tests/fixtures/jpeg, formats and formats_more (progressive, cut and "
-          f"block-smoothed progressive, CMYK, YCCK, Adobe RGB JPEG; interlaced and 16-bit PNG; BMP, RLE8 "
-          f"and RLE4; GIF; TIFF uncompressed, PackBits, LZW, Deflate and JPEG, in strips, tiles and planes; "
-          f"WebP lossy, lossless, with alpha and animated) decode to their PIL digests bit for bit")
+    print(f"{checked} fixtures of tests/fixtures/jpeg, formats, formats_more and formats_tiff "
+          f"(progressive, cut and block-smoothed progressive, CMYK, YCCK, Adobe RGB JPEG; interlaced "
+          f"and 16-bit PNG; BMP, RLE8 and RLE4; GIF; TIFF uncompressed, PackBits, LZW, Deflate, JPEG, "
+          f"CCITT RLE, Group 3 and Group 4, LZMA and Zstandard, in strips, tiles and planes, float and "
+          f"signed samples, the eight orientations, YCbCr not JPEG-compressed; WebP lossy, lossless, "
+          f"with alpha and animated) decode to their PIL digests bit for bit")
     baseline = (JPEG_FIXTURES / "coco_0.jpg").read_bytes()
     progressive = (FORMAT_FIXTURES / "progressive_640x480.jpg").read_bytes()
     (b_med, b_min), (p_med, p_min) = decode_ms(baseline), decode_ms(progressive)
     print(f"decode of a 640 x 480 4:2:0 JPEG on the host ({os.cpu_count()} cores), median (min) over 30: "
           f"baseline ({len(baseline)} bytes) {b_med:.3f} ({b_min:.3f}) ms, progressive ({len(progressive)} "
           f"bytes) {p_med:.3f} ({p_min:.3f}) ms, {p_med / b_med:.2f}x; {kind}, {smi}")
-    for name in (*NEW_FORMAT_FILES, "webp_640x480_lossless.webp"):
-        data = (MORE_FIXTURES / name).read_bytes()
+    timed = [MORE_FIXTURES / n for n in (*NEW_FORMAT_FILES, "webp_640x480_lossless.webp")]
+    for path in timed + [TIFF_FIXTURES / n for n in TIFF_TIMED_FILES]:
+        name, data = path.name, path.read_bytes()
         med, low = decode_ms(data)
         print(f"decode of {name} (640 x 480, {len(data)} bytes) on the host, median (min) over 30: "
               f"{med:.3f} ({low:.3f}) ms, {med / b_med:.2f}x the baseline JPEG; {kind}, {smi}")
@@ -4045,6 +4068,129 @@ def comm_phase(root: str, batches, device, kind: str, smi: str, hw=TRAIN_HW, hie
     phase_s = time.perf_counter() - t_phase
     print(f"phase 17 in {phase_s:.1f} s (limit {COMM_DEADLINE_S} s); launches {launches}")
     require(phase_s <= COMM_DEADLINE_S, f"phase 17 took {phase_s:.1f} s")
+    return launches
+
+
+# ---- phase 18: the schedule registry ---------------------------------------
+
+SCHEDULE_DEADLINE_S = 150
+SCHEDULE_PROBE = """
+import json
+import torch
+from batchai_retinanet_horovod_coco_tpu_torch.evaluate import detect
+torch.cuda.init()
+for _ in range(3):
+    size = detect.resolve_detect_config(detect.DetectConfig(), "cuda").pre_nms_size
+print(json.dumps({"kind": torch.cuda.get_device_name(0), "pre_nms_size": size}))
+"""
+
+
+def schedule_probe(registry: str) -> tuple[dict, list[dict]]:
+    """SCHEDULE_PROBE in a process of its own over ``registry``: what it
+    resolved, and the ``schedule_fallback`` lines on its stderr."""
+    env = {**os.environ, schedule_lib.ENV_DIR: registry}
+    proc = subprocess.run([sys.executable, "-c", SCHEDULE_PROBE], capture_output=True, text=True,
+                          timeout=120, env=env, cwd=str(Path(__file__).resolve().parent))
+    require(proc.returncode == 0, f"the schedule probe failed: {proc.stderr[-2000:]}")
+    lines = [json.loads(line) for line in proc.stderr.splitlines()
+             if line.startswith("{") and '"schedule_fallback"' in line]
+    return json.loads(proc.stdout.strip().splitlines()[-1]), lines
+
+
+def schedule_phase(root: str, device, kind: str) -> dict[str, int]:
+    """Phase 18; returns each kernel's launches in its runs."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(("matching", "focal_fwd", "focal_bwd", "nms"), 0)
+    registry = os.path.join(root, "schedules")
+    os.makedirs(registry)
+    resolved, lines = schedule_probe(registry)
+    print(f"no file: resolved {resolved}; fallback lines {lines}")
+    require(len(lines) == 1 and lines[0]["device_kind"] == kind
+            and lines[0]["reason"] == "no_schedule_artifact", f"fallback lines {lines}")
+    require(resolved["pre_nms_size"] == 1000, "with no file pre_nms_size is not 1000")
+
+    doc = {"format": schedule_lib.FORMAT, "device_kind": kind,
+           "entries": {"nms": {"pre_nms_size": 500}}}
+    path = schedule_lib.save_schedule(doc, registry)
+    resolved, lines = schedule_probe(registry)
+    print(f"a file for the card: resolved {resolved}; fallback lines {lines}")
+    require(resolved == {"kind": kind, "pre_nms_size": 500} and not lines,
+            f"the file for the card was not read: {resolved}, {lines}")
+    previous = os.environ.get(schedule_lib.ENV_DIR)
+    os.environ[schedule_lib.ENV_DIR] = registry
+    try:
+        # The detect path reads the file where the config leaves the size
+        # None: the NMS kernel is handed the registry's candidate count.
+        tiny = build_retinanet(RetinaNetConfig(num_classes=3, backbone="resnet_test"), device=device)
+        hw = (64, 64)
+        anchors = detect_lib.anchors_on(hw, AnchorConfig(), device)
+        handed = []
+
+        def nms(*args, **kwargs):
+            handed.append(kwargs["pre_nms_size"])
+            return nms_cuda.batched_multiclass_nms_cuda(*args, **kwargs)
+
+        with torch.inference_mode():
+            outputs = tiny(torch.zeros((2, *hw, 3), device=device))
+            det = detect_lib.postprocess(outputs, anchors, hw, detect_lib.DetectConfig(), nms=nms)
+            torch.cuda.synchronize()
+        print(f"postprocess on the card with DetectConfig(): pre_nms_size handed to the NMS "
+              f"kernel {handed}, detections {tuple(det.boxes.shape)}")
+        require(handed == [500], f"postprocess handed the NMS kernel {handed}")
+        del tiny, outputs, det
+
+        small = ["--synthetic-root", os.path.join(root, "sched_synthetic"), "--synthetic-images", "16",
+                 "--synthetic-size", "64", "--image-min-side", "64", "--image-max-side", "64",
+                 "--backbone", "resnet_test", "--batch-size", "8", "--workers", "4"]
+        snap = os.path.join(root, "sched_snap")
+        reset_all_counts()
+        out = train_cli.main(["synthetic", *small, "--snapshot-path", snap, "--steps", "3",
+                              "--eval-every", "3", "--score-threshold", "0.001"])
+        used = counts()
+        for k in launches:
+            launches[k] += used[k]
+        print(f"train synthetic with the file: final step {out['final_step']}, loss "
+              f"{out.get('loss')}; launches {used}")
+        require(out["final_step"] == 3.0, f"final step {out['final_step']}")
+        require(all(used[k] == 3 for k in ("matching", "focal_fwd", "focal_bwd"))
+                and used["nms"] >= 1 and used["plain"] == 0, f"the registry's run launched {used}")
+        export = os.path.join(root, "sched_export")
+        reset_all_counts()
+        convert_cli.main(["--snapshot-path", snap, "--output", export, "--num-classes", "3",
+                          "--backbone", "resnet_test", "--image-min-side", "64",
+                          "--image-max-side", "64", "--batch-sizes", "1"])
+        for k in launches:
+            launches[k] += counts()[k]
+        manifest = json.loads(Path(export, "manifest.json").read_text())
+        print(f"convert_model: schedule {manifest['schedule']}, pre_nms_size "
+              f"{manifest['detect_config']['pre_nms_size']}")
+        require(manifest["schedule"]["found"] is True
+                and manifest["schedule"]["device_kind"] == kind
+                and manifest["detect_config"]["pre_nms_size"] == 500, "the manifest's schedule")
+    finally:
+        if previous is None:
+            os.environ.pop(schedule_lib.ENV_DIR, None)
+        else:
+            os.environ[schedule_lib.ENV_DIR] = previous
+
+    bad = {"format": schedule_lib.FORMAT, "device_kind": kind, "entries": {
+        "nms": {"pre_nms_size": 100000, "block_k": 256}, "focal": {"impl": "nhwc"},
+        "matching": {"tile_a": 8192}}}
+    Path(path).write_text(json.dumps(bad))
+    resolved, lines = schedule_probe(registry)
+    try:
+        schedule_lib.load_schedule(path)
+        problems = "load_schedule accepted it"
+    except schedule_lib.ScheduleError as e:
+        problems = str(e)
+    print(f"a malformed file: resolved {resolved}; fallback lines {lines}; load_schedule: {problems}")
+    require(len(lines) == 1 and lines[0]["reason"] == "invalid_schedule_artifact"
+            and resolved["pre_nms_size"] == 1000, "a malformed file did not fall back to the defaults")
+    require(all(w in problems for w in ("pre_nms_size", "block_k", "focal", "matching")),
+            f"load_schedule did not name every problem: {problems}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 18 in {phase_s:.1f} s (limit {SCHEDULE_DEADLINE_S} s); launches {launches}")
+    require(phase_s <= SCHEDULE_DEADLINE_S, f"phase 18 took {phase_s:.1f} s")
     return launches
 
 

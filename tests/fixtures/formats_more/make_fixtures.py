@@ -12,7 +12,10 @@ smaller than the screen or past it, a transparency index, a full LZW table
 without a clear, clear codes), TIFFs (``tiff``: either byte order, tiles,
 ragged strips, planar configuration 2, predictor 2, fill order 2, 1-, 2-,
 4- and 16-bit samples, associated alpha, JPEG strips over a JPEGTables tag
-with the YCbCr photometric) and animated WebPs whose first frame sits
+with the YCbCr photometric; since the CCITT, LZMA and Zstandard readers
+also libtiff's own data for those codecs, taken from a one-strip file PIL
+writes of each strip or tile (``pil_codec``), float and signed samples,
+predictor 3 and YCbCr sampling blocks) and animated WebPs whose first frame sits
 inside a larger canvas (``webp_animation``).  Lossy WebPs with the simple
 loop filter, a sharpness and several token partitions come from libwebp's
 own encoder, which PIL bundles, driven through its advanced API
@@ -204,6 +207,32 @@ def packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
+_PIL_CODECS = {2: "tiff_ccitt", 3: "group3", 4: "group4", 34925: "lzma", 50000: "zstd"}
+
+
+def pil_codec(pixels: np.ndarray, compression: int, tiffinfo: dict | None = None) -> bytes:
+    """The one strip libtiff (through PIL) writes for ``pixels``: (rows,
+    bytes) uint8 as grey, or (rows, cols) bool as bilevel for the CCITT
+    codecs; so a file built here carries libtiff's own LZMA, Zstandard or
+    fax data for any tile, byte order or layout."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    info = {278: pixels.shape[0], **(tiffinfo or {})}
+    Image.fromarray(pixels).save(buf, "TIFF", compression=_PIL_CODECS[compression], tiffinfo=info)
+    data = buf.getvalue()
+    order = "<" if data[:2] == b"II" else ">"
+    (ifd,) = struct.unpack_from(order + "I", data, 4)
+    (count,) = struct.unpack_from(order + "H", data, ifd)
+    tags = {}
+    for i in range(count):
+        tag, kind, _, value = struct.unpack_from(order + "HHII", data, ifd + 2 + 12 * i)
+        if kind == 3:
+            value = struct.unpack_from(order + "H", data, ifd + 10 + 12 * i)[0]
+        tags[tag] = value
+    return data[tags[273]:tags[273] + tags[279]]
+
+
 def _tiff_compress(raw: bytes, compression: int) -> bytes:
     if compression == 1:
         return raw
@@ -213,19 +242,49 @@ def _tiff_compress(raw: bytes, compression: int) -> bytes:
         return zlib.compress(raw)
     if compression == 32773:
         return packbits(raw)
+    if compression in (34925, 50000):
+        return pil_codec(np.frombuffer(raw, np.uint8)[None], compression)
     raise ValueError(compression)
+
+
+def _float_predictor(rows: np.ndarray, spp: int) -> np.ndarray:
+    """libtiff's floating-point predictor (3) over (rows, samples) float32:
+    each row's bytes as four planes, most significant first, then each
+    byte less the byte a sample before it."""
+    n = rows.shape[0]
+    planes = rows.astype(">f4").view(np.uint8).reshape(n, -1, 4).transpose(0, 2, 1).reshape(n, -1, spp)
+    planes = planes.astype(np.int64)
+    return (np.concatenate([planes[:, :1], np.diff(planes, axis=1)], axis=1) % 256).astype(np.uint8)
+
+
+def _pack_ycbcr(block: np.ndarray, sh: int, sv: int) -> bytes:
+    """(rows, cols, 3) Y, Cb, Cr as libtiff's subsampled blocks: sh x sv
+    lumas (edge blocks padded by repeating the last row and column), then
+    the block's top-left Cb and Cr."""
+    rows, cols, _ = block.shape
+    bv, bh = -(-rows // sv), -(-cols // sh)
+    padded = np.pad(block, ((0, bv * sv - rows), (0, bh * sh - cols), (0, 0)), mode="edge")
+    luma = padded[..., 0].reshape(bv, sv, bh, sh).transpose(0, 2, 1, 3).reshape(bv, bh, sv * sh)
+    chroma = padded[::sv, ::sh, 1:]
+    return np.concatenate([luma, chroma], -1).astype(np.uint8).tobytes()
 
 
 def _pack_samples(block: np.ndarray, bits: int, order: str, predictor: int) -> bytes:
     """(rows, cols, spp) samples as the bytes of a strip or tile, each row
-    differenced along itself under predictor 2."""
+    differenced along itself under predictor 2 (or 3, for float32); a
+    float or signed array is written as its own type."""
     rows = block.shape[0]
+    if predictor == 3:
+        return _float_predictor(block.reshape(rows, -1), block.shape[2]).tobytes()
+    if block.dtype.kind in "fi":
+        kind = {"f": "f", "i": "i"}[block.dtype.kind]
+        block = block.astype(f"{order}{kind}{bits // 8}").view(f"{order}u{bits // 8}")
     if predictor == 2:
         block = block.astype(np.int64)
         block = np.concatenate([block[:, :1], np.diff(block, axis=1)], axis=1) % (1 << bits)
     flat = block.reshape(rows, -1)
-    if bits == 16:
-        return flat.astype(order + "u2").tobytes()
+    if bits in (16, 32):
+        return flat.astype(f"{order}u{bits // 8}").tobytes()
     if bits == 8:
         return flat.astype(np.uint8).tobytes()
     return b"".join(_pack_row(r, bits).tobytes() for r in flat)
@@ -234,12 +293,16 @@ def _pack_samples(block: np.ndarray, bits: int, order: str, predictor: int) -> b
 def tiff(samples: np.ndarray, photometric: int, bits: int = 8, order: str = "<",
          compression: int = 1, predictor: int = 1, planar: int = 1, rows_per_strip=None,
          tile=None, extra=(), colormap=None, fill_order: int = 1, jpeg=None,
-         more_tags: dict | None = None) -> bytes:
+         more_tags: dict | None = None, sample_format: int = 1, subsampling=None,
+         t4options: int = 0) -> bytes:
     """A one-IFD TIFF of (h, w, spp) samples: strips of ``rows_per_strip``
     rows (the last one ragged) or ``tile`` = (width, length) tiles (edge
-    tiles padded), chunky or planar, uncompressed, LZW, Deflate or PackBits,
-    predictor 2, either byte order; ``jpeg`` = (tables, [stream per strip])
-    writes JPEG-compressed (7) strips instead."""
+    tiles padded), chunky or planar, uncompressed, LZW, Deflate, PackBits,
+    LZMA, Zstandard or CCITT (2, 3 with ``t4options``, 4; the last three
+    from libtiff through ``pil_codec``), predictor 2 or 3, either byte
+    order, float or signed samples (``sample_format`` 3 or 2), YCbCr in
+    ``subsampling`` = (h, v) blocks; ``jpeg`` = (tables, [stream per
+    strip]) writes JPEG-compressed (7) strips instead."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[..., None]
@@ -263,7 +326,13 @@ def tiff(samples: np.ndarray, photometric: int, bits: int = 8, order: str = "<",
             for y, x, bh, bw in boxes:
                 block = padded[y:y + bh, x:x + bw]
                 block = block if p is None else block[..., p:p + 1]
-                raw = _tiff_compress(_pack_samples(block, bits, order, predictor), compression)
+                if compression in (2, 3, 4):
+                    info = {292: t4options} if compression == 3 else {}
+                    raw = pil_codec(block[..., 0] != 0, compression, info)
+                elif subsampling:
+                    raw = _tiff_compress(_pack_ycbcr(block, *subsampling), compression)
+                else:
+                    raw = _tiff_compress(_pack_samples(block, bits, order, predictor), compression)
                 if fill_order == 2:  # libtiff reverses the bits of the stored bytes
                     raw = bytes(int(f"{b:08b}"[::-1], 2) for b in raw)
                 blocks.append(raw)
@@ -271,6 +340,12 @@ def tiff(samples: np.ndarray, photometric: int, bits: int = 8, order: str = "<",
             262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
     if predictor != 1:
         tags[317] = (3, [predictor])
+    if sample_format != 1:
+        tags[339] = (3, [sample_format])
+    if subsampling:
+        tags[530] = (3, list(subsampling))
+    if compression == 3 and t4options:
+        tags[292] = (4, [t4options])
     if extra:
         tags[338] = (3, list(extra))
     if colormap is not None:
@@ -302,8 +377,8 @@ def tiff(samples: np.ndarray, photometric: int, bits: int = 8, order: str = "<",
         if kind == 7:
             raw, count = bytes(vals), len(vals)
         else:
-            code = {3: "H", 4: "I"}[kind]
-            raw, count = struct.pack(order + code * len(vals), *vals), len(vals)
+            code = {3: "H", 4: "I", 5: "I"}[kind]  # a rational is two longs
+            raw, count = struct.pack(order + code * len(vals), *vals), len(vals) // (2 if kind == 5 else 1)
         if len(raw) <= 4:
             ifd += struct.pack(order + "HHI", tag, kind, count) + raw.ljust(4, b"\x00")
         else:

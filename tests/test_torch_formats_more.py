@@ -9,8 +9,9 @@ machines without PIL; ``make_fixtures.py`` there writes them and holds the
 GIF, TIFF and WebP builders the seeded cases below use.  Served bytes
 answer as the live engine answers their decoded pixels, and the codec's
 pixels are the JAX server's ``decode_payload``'s.  What stays refused
-(CCITT and old-style JPEG TIFF, a truncated GIF) raises ``ValueError``
-naming the file.
+(old-style JPEG TIFF, a truncated GIF) raises ``ValueError`` naming the
+file; CCITT fax TIFFs, refused until the codec read them, decode to PIL's
+pixels (``test_torch_formats_tiff.py`` holds the rest of the TIFF cases).
 """
 
 import hashlib
@@ -302,10 +303,17 @@ def tiff_with_compression(compression: int) -> bytes:
     return make.tiff(np.zeros((4, 8), np.uint8), 0, 1, more_tags={259: (3, [compression])})
 
 
+def fax_tiff(compression: int) -> bytes:
+    """A bilevel TIFF whose strip libtiff coded with ``compression``."""
+    return make.tiff(np.eye(8, 24, dtype=np.uint8), 0, 1, compression=compression)
+
+
+# message None: refused until the codec read them; each now decodes to
+# PIL's pixels.
 STILL_REFUSED = {
-    "ccitt-rle-tiff": (lambda: tiff_with_compression(2), r"CCITT RLE \(compression 2\)"),
-    "ccitt-g3-tiff": (lambda: tiff_with_compression(3), r"CCITT Group 3 fax \(compression 3\)"),
-    "ccitt-g4-tiff": (lambda: tiff_with_compression(4), r"CCITT Group 4 fax \(compression 4\)"),
+    "ccitt-rle-tiff": (lambda: fax_tiff(2), None),
+    "ccitt-g3-tiff": (lambda: fax_tiff(3), None),
+    "ccitt-g4-tiff": (lambda: fax_tiff(4), None),
     "old-jpeg-tiff": (lambda: tiff_with_compression(6), r"old-style JPEG \(compression 6\)"),
     "truncated-gif": (lambda: b"GIF89a" + bytes(32), r"GIF has no image"),
 }
@@ -313,12 +321,15 @@ STILL_REFUSED = {
 
 @pytest.mark.parametrize("kind", sorted(STILL_REFUSED))
 def test_what_stays_refused_raises_naming_the_file(kind, tmp_path):
-    """CCITT fax and old-style JPEG TIFFs stay refused (bilevel fax pages and
-    a JPEG layout libtiff itself reads only with guesswork); the GIF that
-    ends after its screen descriptor is refused by PIL too."""
+    """Old-style JPEG TIFFs stay refused (a JPEG layout libtiff itself reads
+    only with guesswork); the GIF that ends after its screen descriptor is
+    refused by PIL too.  The CCITT fax TIFFs decode as PIL decodes them."""
     make_bytes, message = STILL_REFUSED[kind]
     path = tmp_path / f"{kind}.img"
     path.write_bytes(make_bytes())
+    if message is None:
+        assert_equals_pil(path.read_bytes(), tmp_path, kind)
+        return
     with pytest.raises(ValueError, match=message) as info:
         image_io.read_rgb(path)
     assert str(path) in str(info.value)
@@ -328,13 +339,13 @@ def test_what_stays_refused_raises_naming_the_file(kind, tmp_path):
 
 
 def test_pil_written_group4_tiff_is_refused(tmp_path):
-    """Refused to decode, but sized as PIL sizes it."""
+    """Refused until the codec read CCITT; now decoded as PIL decodes it,
+    and sized as PIL sizes it."""
     buf = io.BytesIO()
     Image.fromarray(np.eye(16, 24, dtype=bool)).save(buf, "TIFF", compression="group4")
     path = tmp_path / "fax.tif"
     path.write_bytes(buf.getvalue())
-    with pytest.raises(ValueError, match=r"CCITT Group 4 fax \(compression 4\) TIFF is not supported"):
-        image_io.read_rgb(path)
-    assert pil_rgb(buf.getvalue()).shape == (16, 24, 3)  # PIL decodes it
+    assert np.array_equal(image_io.read_rgb(path), pil_rgb(buf.getvalue()))
+    assert pil_rgb(buf.getvalue()).shape == (16, 24, 3)
     with Image.open(path) as im:
         assert image_io.read_size(path) == im.size == (24, 16)
