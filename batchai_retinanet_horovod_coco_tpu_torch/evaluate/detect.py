@@ -4,10 +4,11 @@ and the dataset-level eval driver.
 The JAX package's ``evaluate/detect.py``.  The NMS suppression stage is
 ``ops.cuda.nms.batched_multiclass_nms_cuda``: the hand-written CUDA kernel
 on a card, the plain ``greedy_keep`` on the CPU — decided by the device the
-tensors are on, never by a fallback.  ``pre_nms_size`` left None is read
-from the schedule registry (``tune/schedule.py``) for that device, in
-:func:`postprocess`, which every detect path goes through (the built-in
-default is 1000).
+tensors are on, never by a fallback.  ``pre_nms_size`` and the NMS
+kernel's launch shape (``nms_mask_lanes``, ``nms_scan_threads``) left None
+are read from the schedule registry (``tune/schedule.py``) for that device,
+in :func:`postprocess`, which every detect path goes through (the built-in
+defaults are 1000 and the kernel's shapes before its menus, 4 and 256).
 
 ``run_coco_eval`` streams eval batches, detects per shape bucket (one
 detect function each), rescales boxes to the original images and scores
@@ -42,6 +43,7 @@ The stages heartbeat to ``obs/watchdog.py`` (``eval-device-prefetch``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue
 import threading
 from collections.abc import Callable, Iterable, Sequence
@@ -77,26 +79,36 @@ EVAL_PREFETCH_DEPTH = 2
 @dataclasses.dataclass(frozen=True)
 class DetectConfig:
     """FilterDetections-equivalent knobs (the reference's defaults);
-    ``pre_nms_size`` None is the schedule registry's for the device."""
+    ``pre_nms_size`` None is the schedule registry's for the device, and so
+    are the NMS kernel's launch shapes: lanes a mask row and scan threads
+    (their menus, ``ops/cuda/nms.py``; every shape gives the same
+    detections)."""
 
     score_threshold: float = 0.05
     iou_threshold: float = 0.5
     pre_nms_size: int | None = None
     max_detections: int = 300
+    nms_mask_lanes: int | None = None
+    nms_scan_threads: int | None = None
     codec: boxes_lib.BoxCodecConfig = boxes_lib.BoxCodecConfig()
     anchor: anchors_lib.AnchorConfig = anchors_lib.AnchorConfig()
 
 
+_SCHEDULED = (("pre_nms_size", "pre_nms_size"), ("nms_mask_lanes", "mask_lanes"),
+              ("nms_scan_threads", "scan_threads"))
+
+
 def resolve_detect_config(config: DetectConfig, device: str | torch.device | None) -> DetectConfig:
-    """``config`` with ``pre_nms_size`` from the schedule registry for
-    ``device`` where it is None (the JAX package's resolve_detect_config;
-    an explicit value wins)."""
-    if config.pre_nms_size is not None:
+    """``config`` with ``pre_nms_size`` and the NMS launch shape from the
+    schedule registry for ``device`` where they are None (the JAX package's
+    resolve_detect_config; an explicit value wins)."""
+    if all(getattr(config, field) is not None for field, _ in _SCHEDULED):
         return config
     from batchai_retinanet_horovod_coco_tpu_torch.tune import schedule as schedule_lib
 
-    size = int(schedule_lib.lookup(device)["nms"]["pre_nms_size"])
-    return dataclasses.replace(config, pre_nms_size=size)
+    entry = schedule_lib.lookup(device)["nms"]
+    return dataclasses.replace(config, **{
+        field: int(entry[key]) for field, key in _SCHEDULED if getattr(config, field) is None})
 
 
 def postprocess(
@@ -104,15 +116,21 @@ def postprocess(
     anchors: torch.Tensor,
     image_hw: tuple[int, int],
     config: DetectConfig,
-    nms: Callable[..., nms_lib.Detections] = nms_cuda.batched_multiclass_nms_cuda,
+    nms: Callable[..., nms_lib.Detections] | None = None,
 ) -> nms_lib.Detections:
     """Forward outputs → Detections: sigmoid in f32 → decode against
     ``anchors`` (A, 4) → clip to the bucket extent (not the image: the
     conversion re-clamps to the true image) → ``nms``, at the registry's
     ``pre_nms_size`` for the outputs' device where ``config`` leaves it
-    None."""
+    None.  ``nms`` None is ``batched_multiclass_nms_cuda`` at the config's
+    launch shape (the registry's where it leaves them None); another
+    ``nms`` takes the selection knobs only."""
     scores = torch.sigmoid(outputs["cls_logits"])  # (B, A, K)
     config = resolve_detect_config(config, scores.device)
+    if nms is None:
+        nms = functools.partial(nms_cuda.batched_multiclass_nms_cuda,
+                                mask_lanes=config.nms_mask_lanes,
+                                scan_threads=config.nms_scan_threads)
     boxes = boxes_lib.decode_boxes(anchors[None], outputs["box_deltas"], config.codec)
     boxes = boxes_lib.clip_boxes(boxes, image_hw)
     return nms(

@@ -133,8 +133,11 @@ def export_model(
             "nms_impl": nms_cuda.OP_NAME,
             "nms_block_k": None,
         },
-        # Where the device's schedule came from (tune/schedule.py).
+        # Where the device's schedule came from (tune/schedule.py), and the
+        # NMS kernel's launch shape baked into every program.
         "schedule": schedule_lib.provenance(device),
+        "launch_shapes": {"nms": {"mask_lanes": config.nms_mask_lanes,
+                                  "scan_threads": config.nms_scan_threads}},
         # Anchors parameterize the box decoding inside the programs.
         "anchor_config": dataclasses.asdict(config.anchor),
         "image_min_side": image_min_side,

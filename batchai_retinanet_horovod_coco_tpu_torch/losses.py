@@ -35,6 +35,13 @@ class LossConfig:
     focal_gamma: float = 2.0
     smooth_l1_beta: float = 1.0 / 9.0  # sigma=3 in the reference parametrization
     box_loss_weight: float = 1.0
+    # The focal kernels' launch shapes (their menus, ops/cuda/focal.py):
+    # groups a forward block, threads a backward block.  None: the train
+    # step asks the schedule registry (train/step.py::
+    # resolve_kernel_schedule); a caller below the step gets the kernels'
+    # defaults.
+    focal_fwd_tile_a: int | None = None
+    focal_bwd_tile_a: int | None = None
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -121,6 +128,8 @@ def focal_loss_compact(
         anchor_state.to(torch.int32).reshape(-1, a).contiguous(),
         config.focal_alpha,
         config.focal_gamma,
+        config.focal_fwd_tile_a,
+        config.focal_bwd_tile_a,
     )
     return _normalize_per_image(sums.reshape(anchor_state.shape[:-1]), anchor_state)
 

@@ -641,6 +641,22 @@ VOCABULARY: dict[str, dict] = {
         "kinds": ("series",),
         "consumers": (),
     },
+    "tune_compile": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
+    "tune_search": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
+    "tune_trial": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
+    "tune_window": {
+        "kinds": ("span",),
+        "consumers": (),
+    },
     "watchdog_beat_age_seconds": {
         "kinds": ("series",),
         "consumers": (),

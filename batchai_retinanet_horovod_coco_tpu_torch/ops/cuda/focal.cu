@@ -24,15 +24,21 @@
 // result, where these stay at f32 rounding of autograd's.  Round-to-nearest
 // intrinsics throughout, and no FMA contraction (--fmad=false).
 //
-//   focal_fwd_kernel     grid (ceil(G / (kThreads kItems)), B), where G is the
+//   focal_fwd_kernel     grid (ceil(G / (kThreads Items)), B), where G is the
 //                        image's number of V-element groups (V = 4 when K is a
 //                        multiple of 4: one 16-byte load; else V = 1).  Each
-//                        thread sums kItems groups in order, the block reduces
+//                        thread sums Items groups in order, the block reduces
 //                        with a fixed shuffle tree and writes ONE partial.
+//                        The forward tile (groups a block, kThreads x Items)
+//                        is 1024 or 2048; each tile sums in its own order,
+//                        so two tiles' sums may differ in their last bits,
+//                        and one tile's repeat bit for bit.
 //   focal_reduce_kernel  one block an image sums its partials in a fixed
 //                        order, so the loss is the same bit for bit from run
 //                        to run (no float atomics).
-//   focal_bwd_kernel     one thread a group: reads V logits, writes V grads.
+//   focal_bwd_kernel     one thread a group: reads V logits, writes V grads;
+//                        Threads a block, 128 or 256 (elementwise, so
+//                        every tile gives the same gradient bit for bit).
 //
 // Bound on this card: bytes.  The forward reads B·A·K·4 bytes of logits and
 // 8 bytes an anchor (1.03 GB at B 16, A 201 600, K 80: some 0.32 ms at
@@ -45,8 +51,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 8;  // groups a forward thread sums
+constexpr int kThreads = 256;  // threads of a forward and a reduce block
 
 struct Focal {
   float alpha, one_minus_alpha, neg_gamma, gamma;
@@ -131,7 +136,9 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return v;  // valid in thread 0
 }
 
-template <int V>
+// No __launch_bounds__ here: with it ptxas gave the forward fewer registers
+// and the card ran it some 4% slower.
+template <int V, int Items>
 __global__ void focal_fwd_kernel(const typename Vec<V>::T* __restrict__ logits,
                                  const int* __restrict__ labels,
                                  const int* __restrict__ state, int num_anchors,
@@ -140,10 +147,10 @@ __global__ void focal_fwd_kernel(const typename Vec<V>::T* __restrict__ logits,
   const int b = blockIdx.y;
   const int groups = num_anchors * per_anchor;
   const size_t img = (size_t)b * num_anchors;
-  const int q0 = blockIdx.x * (kThreads * kItems) + threadIdx.x;
+  const int q0 = blockIdx.x * (kThreads * Items) + threadIdx.x;
   float sum = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
+  for (int i = 0; i < Items; ++i) {
     const int q = q0 + i * kThreads;
     if (q < groups) sum = __fadd_rn(sum, group_sum<V>(logits, labels, state, img, per_anchor, q, f));
   }
@@ -162,7 +169,7 @@ __global__ void focal_reduce_kernel(const float* __restrict__ partials, int n,
   if (threadIdx.x == 0) out[b] = sum;
 }
 
-template <int V>
+template <int V, int Threads>
 __global__ void focal_bwd_kernel(const typename Vec<V>::T* __restrict__ logits,
                                  const int* __restrict__ labels,
                                  const int* __restrict__ state,
@@ -170,7 +177,7 @@ __global__ void focal_bwd_kernel(const typename Vec<V>::T* __restrict__ logits,
                                  int per_anchor, Focal f,
                                  typename Vec<V>::T* __restrict__ grad) {
   const int b = blockIdx.y;
-  const int q = blockIdx.x * kThreads + threadIdx.x;
+  const int q = blockIdx.x * Threads + threadIdx.x;
   if (q >= num_anchors * per_anchor) return;
   const size_t img = (size_t)b * num_anchors;
   const int anchor = q / per_anchor;
@@ -196,56 +203,82 @@ Focal make_focal(float alpha, float one_minus_alpha, float gamma) {
   return Focal{alpha, one_minus_alpha, -gamma, gamma};
 }
 
+template <int Items>
+void launch_fwd(dim3 grid, const float* logits, const int* labels, const int* state,
+                int num_anchors, int per_anchor, int vec, const Focal& f, float* partials,
+                cudaStream_t s) {
+  if (vec == 4)
+    focal_fwd_kernel<4, Items><<<grid, kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(logits), labels, state, num_anchors, per_anchor, f,
+        partials);
+  else
+    focal_fwd_kernel<1, Items><<<grid, kThreads, 0, s>>>(logits, labels, state, num_anchors,
+                                                          per_anchor, f, partials);
+}
+
+template <int Threads>
+void launch_bwd(int groups, int batch, const float* logits, const int* labels,
+                const int* state, const float* cotangent, int num_anchors, int per_anchor,
+                int vec, const Focal& f, float* grad, cudaStream_t s) {
+  dim3 grid((groups + Threads - 1) / Threads, batch);
+  if (vec == 4)
+    focal_bwd_kernel<4, Threads><<<grid, Threads, 0, s>>>(
+        reinterpret_cast<const float4*>(logits), labels, state, cotangent, num_anchors,
+        per_anchor, f, reinterpret_cast<float4*>(grad));
+  else
+    focal_bwd_kernel<1, Threads><<<grid, Threads, 0, s>>>(logits, labels, state, cotangent,
+                                                          num_anchors, per_anchor, f, grad);
+}
+
 }  // namespace
 
 extern "C" {
 
-int focal_threads() { return kThreads; }
-int focal_items() { return kItems; }
-
-// Forward: `partials` is (B, ceil(G / (kThreads kItems))) scratch, `sums`
-// (B,).  `vec` is 4 (K a multiple of 4, 16-byte aligned logits) or 1.
-// Returns the launch error code (0 = ok).
+// Forward at `tile` groups a block (1024 or 2048; the menu of
+// ops/cuda/shapes.py): `partials` is
+// (B, ceil(G / tile)) scratch, `sums` (B,).  `vec` is 4 (K a multiple of 4,
+// 16-byte aligned logits) or 1.  Returns the launch error code (0 = ok;
+// cudaErrorInvalidValue for a tile off the menu).
 int focal_fwd_launch(const float* logits, const int* labels, const int* state, int batch,
                      int num_anchors, int num_classes, int vec, float alpha,
                      float one_minus_alpha, float gamma, float* partials, float* sums,
-                     void* stream) {
+                     int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Focal f = make_focal(alpha, one_minus_alpha, gamma);
   const int per_anchor = num_classes / vec;
   const int groups = num_anchors * per_anchor;
-  const int blocks = (groups + kThreads * kItems - 1) / (kThreads * kItems);
+  const int blocks = (groups + tile - 1) / tile;
   dim3 grid(blocks, batch);
-  if (vec == 4)
-    focal_fwd_kernel<4><<<grid, kThreads, 0, s>>>(reinterpret_cast<const float4*>(logits),
-                                                   labels, state, num_anchors, per_anchor,
-                                                   f, partials);
-  else
-    focal_fwd_kernel<1><<<grid, kThreads, 0, s>>>(logits, labels, state, num_anchors,
-                                                   per_anchor, f, partials);
+  switch (tile) {
+    case 1024: launch_fwd<4>(grid, logits, labels, state, num_anchors, per_anchor, vec, f,
+                             partials, s); break;
+    case 2048: launch_fwd<8>(grid, logits, labels, state, num_anchors, per_anchor, vec, f,
+                             partials, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   focal_reduce_kernel<<<batch, kThreads, 0, s>>>(partials, blocks, sums);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Backward: `grad` (B, A, K) = dL/dlogits scaled by `cotangent` (B,).
+// Backward at `tile` threads a block (128 or 256): `grad`
+// (B, A, K) = dL/dlogits scaled by `cotangent` (B,).
 int focal_bwd_launch(const float* logits, const int* labels, const int* state,
                      const float* cotangent, int batch, int num_anchors, int num_classes,
                      int vec, float alpha, float one_minus_alpha, float gamma, float* grad,
-                     void* stream) {
+                     int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Focal f = make_focal(alpha, one_minus_alpha, gamma);
   const int per_anchor = num_classes / vec;
   const int groups = num_anchors * per_anchor;
-  dim3 grid((groups + kThreads - 1) / kThreads, batch);
-  if (vec == 4)
-    focal_bwd_kernel<4><<<grid, kThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(logits), labels, state, cotangent, num_anchors,
-        per_anchor, f, reinterpret_cast<float4*>(grad));
-  else
-    focal_bwd_kernel<1><<<grid, kThreads, 0, s>>>(logits, labels, state, cotangent,
-                                                   num_anchors, per_anchor, f, grad);
+  switch (tile) {
+    case 128: launch_bwd<128>(groups, batch, logits, labels, state, cotangent, num_anchors,
+                              per_anchor, vec, f, grad, s); break;
+    case 256: launch_bwd<256>(groups, batch, logits, labels, state, cotangent, num_anchors,
+                              per_anchor, vec, f, grad, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

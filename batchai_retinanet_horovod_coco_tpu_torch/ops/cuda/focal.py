@@ -17,20 +17,30 @@ stream the logits with 16-byte loads when K is a multiple of 4; the forward
 reduces per block and then per image in a fixed order, so its sums repeat
 bit for bit.
 
+The launch shapes are choices (their menus and defaults, ``ops/cuda/
+shapes.py``): the forward's tile (groups a block, 1024 or 2048; 2048 by
+default) and the backward's (threads a block, 128 or 256; 256 by default).
+Each forward tile sums in its own order (its sums may differ from another
+tile's in the last bits); every backward tile gives the same gradient.  The
+schedule registry's ``focal.fwd_tile_a`` and ``focal.bwd_tile_a`` pick them
+(``LossConfig``).
+
 On CPU tensors the wrapper runs the plain version (``losses.
-focal_sums_compact``, differentiated by autograd); on CUDA tensors it
-launches the kernels or raises.  ``fwd_launches``, ``bwd_launches`` and
-``plain_calls`` count which ran.
+focal_sums_compact``, differentiated by autograd; it has no tiles); on CUDA
+tensors it launches the kernels or raises.  ``fwd_launches``,
+``bwd_launches`` and ``plain_calls`` count which ran, ``fwd_variant_launches``
+and ``bwd_variant_launches`` the launches by tile.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
 import torch
 
-from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import build
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import build, shapes
 
 #: Launches of the forward kernel pair (partials + reduce), one per call.
 fwd_launches = 0
@@ -38,6 +48,9 @@ fwd_launches = 0
 bwd_launches = 0
 #: Calls that took the plain version because the tensors were on the CPU.
 plain_calls = 0
+#: Launches by tile: groups a forward block, threads a backward block.
+fwd_variant_launches: collections.Counter = collections.Counter()
+bwd_variant_launches: collections.Counter = collections.Counter()
 
 
 def reset_counts() -> None:
@@ -45,6 +58,8 @@ def reset_counts() -> None:
     fwd_launches = 0
     bwd_launches = 0
     plain_calls = 0
+    fwd_variant_launches.clear()
+    bwd_variant_launches.clear()
 
 
 @functools.cache
@@ -55,17 +70,14 @@ def _library() -> ctypes.CDLL:
               ctypes.c_float, ctypes.c_float, ctypes.c_float]
     lib.focal_fwd_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, *common,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.focal_fwd_launch.restype = ctypes.c_int
     lib.focal_bwd_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, *common,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.focal_bwd_launch.restype = ctypes.c_int
-    for name in ("focal_threads", "focal_items"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
     lib.focal_error_string.argtypes = [ctypes.c_int]
     lib.focal_error_string.restype = ctypes.c_char_p
     return lib
@@ -106,13 +118,15 @@ def _check(lib, err: int, what: str) -> None:
                            f"{lib.focal_error_string(err).decode()}")
 
 
-def focal_fwd(logits, labels, state, alpha: float, gamma: float) -> torch.Tensor:
-    """Per-image sums (B,) from the forward kernel (CUDA tensors only)."""
+def focal_fwd(logits, labels, state, alpha: float, gamma: float,
+              tile: int | None = None) -> torch.Tensor:
+    """Per-image sums (B,) from the forward kernel at ``tile`` groups a
+    block (CUDA tensors only)."""
     global fwd_launches
     lib = _library()
+    tile = shapes.resolve("focal", "fwd_tile_a", tile)
     b, a, k, vec, *consts = _launch_args(logits, alpha, gamma)
-    per_block = lib.focal_threads() * lib.focal_items()
-    blocks = -(-(a * k // vec) // per_block)
+    blocks = -(-(a * k // vec) // tile)
     device = logits.device
     sums = torch.empty((b,), dtype=torch.float32, device=device)
     if b == 0 or a == 0:
@@ -121,19 +135,22 @@ def focal_fwd(logits, labels, state, alpha: float, gamma: float) -> torch.Tensor
         partials = torch.empty((b, blocks), dtype=torch.float32, device=device)
         err = lib.focal_fwd_launch(
             logits.data_ptr(), labels.data_ptr(), state.data_ptr(), b, a, k, vec, *consts,
-            partials.data_ptr(), sums.data_ptr(),
+            partials.data_ptr(), sums.data_ptr(), tile,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _check(lib, err, "forward")
     fwd_launches += 1
+    fwd_variant_launches[tile] += 1
     return sums
 
 
-def focal_bwd(logits, labels, state, cotangent, alpha: float, gamma: float) -> torch.Tensor:
+def focal_bwd(logits, labels, state, cotangent, alpha: float, gamma: float,
+              tile: int | None = None) -> torch.Tensor:
     """dL/dlogits (B, A, K) scaled by ``cotangent`` (B,), from the backward
-    kernel (CUDA tensors only)."""
+    kernel at ``tile`` threads a block (CUDA tensors only)."""
     global bwd_launches
     lib = _library()
+    tile = shapes.resolve("focal", "bwd_tile_a", tile)
     b, a, k, vec, *consts = _launch_args(logits, alpha, gamma)
     device = logits.device
     grad = torch.empty_like(logits)
@@ -143,11 +160,12 @@ def focal_bwd(logits, labels, state, cotangent, alpha: float, gamma: float) -> t
     with torch.cuda.device(device):
         err = lib.focal_bwd_launch(
             logits.data_ptr(), labels.data_ptr(), state.data_ptr(), cotangent.data_ptr(),
-            b, a, k, vec, *consts, grad.data_ptr(),
+            b, a, k, vec, *consts, grad.data_ptr(), tile,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _check(lib, err, "backward")
     bwd_launches += 1
+    bwd_variant_launches[tile] += 1
     return grad
 
 
@@ -155,16 +173,16 @@ class _FocalSums(torch.autograd.Function):
     """The kernels under autograd; gradients flow to the logits only."""
 
     @staticmethod
-    def forward(ctx, logits, labels, state, alpha, gamma):
+    def forward(ctx, logits, labels, state, alpha, gamma, fwd_tile, bwd_tile):
         ctx.save_for_backward(logits, labels, state)
-        ctx.alpha, ctx.gamma = alpha, gamma
-        return focal_fwd(logits, labels, state, alpha, gamma)
+        ctx.alpha, ctx.gamma, ctx.bwd_tile = alpha, gamma, bwd_tile
+        return focal_fwd(logits, labels, state, alpha, gamma, fwd_tile)
 
     @staticmethod
     def backward(ctx, cotangent):
         logits, labels, state = ctx.saved_tensors
-        grad = focal_bwd(logits, labels, state, cotangent, ctx.alpha, ctx.gamma)
-        return grad, None, None, None, None
+        grad = focal_bwd(logits, labels, state, cotangent, ctx.alpha, ctx.gamma, ctx.bwd_tile)
+        return grad, None, None, None, None, None, None
 
 
 def focal_loss_per_image_sums(
@@ -173,16 +191,21 @@ def focal_loss_per_image_sums(
     state: torch.Tensor,
     alpha: float = 0.25,
     gamma: float = 2.0,
+    fwd_tile_a: int | None = None,
+    bwd_tile_a: int | None = None,
 ) -> torch.Tensor:
     """Per-image focal-loss sums (B,) over non-ignored anchors, differentiable
     in ``logits``.  logits (B, A, K) contiguous f32; labels and state (B, A)
-    contiguous int32, state in {-1 ignore, 0 negative, 1 positive}."""
+    contiguous int32, state in {-1 ignore, 0 negative, 1 positive}.  The
+    tiles (None: the defaults) are checked against their menus."""
     global plain_calls
     _check_inputs(logits, labels, state)
+    fwd_tile = shapes.resolve("focal", "fwd_tile_a", fwd_tile_a)
+    bwd_tile = shapes.resolve("focal", "bwd_tile_a", bwd_tile_a)
     device = logits.device
     if device.type == "cpu":
         plain_calls += 1
         return focal_sums_plain(logits, labels, state, alpha, gamma)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    return _FocalSums.apply(logits, labels, state, alpha, gamma)
+    return _FocalSums.apply(logits, labels, state, alpha, gamma, fwd_tile, bwd_tile)

@@ -9,10 +9,13 @@
 //                label;
 //   per gt:      best IoU, and the LOWEST anchor index reaching it.
 //
-//   match_kernel     grid (ceil(A / kTile), B), kThreads threads.  The G gt
+//   match_kernel     grid (ceil(A / Tile), B), Threads threads, for each
+//                    tile of the menu (128 or 256: Tile = Threads x
+//                    kPerThread anchors a block, the launcher's `tile`
+//                    argument).  The G gt
 //                    rows go to shared memory (box, area, label, key, mask
 //                    and a list slot: 37 B a gt).  Each thread owns
-//                    kPerThread anchors (strided by kThreads, so loads and
+//                    kPerThread anchors (strided by Threads, so loads and
 //                    stores coalesce) in registers.  Each warp reduces each
 //                    of its kPerThread chunks of 32 consecutive anchors to
 //                    the chunk's bounding box (min x1, min y1, max x2,
@@ -63,7 +66,11 @@
 // positions along a row), and of their 11.8 M (anchor, gt) pairs some 5.5 M
 // lie in a chunk whose box the gt overlaps (a chunk of 32 anchors is three
 // or four neighbouring positions).  Smaller tiles cull more and cost more
-// blocks; of 256, 512 and 1024 anchors a tile, 256 measured fastest.
+// blocks; of 256, 512 and 1024 anchors a tile, 256 measured fastest (by
+// hand, on the first port), and 128 came out level with it.  The tile is a
+// launch choice (the launcher's switch; the menu of ops/cuda/shapes.py), the
+// schedule registry's ``matching.tile_a`` picks one, and the culling
+// argument above holds for any set of anchors, hence any tile.
 //
 // IoU arithmetic is op for op ops/iou.py (max/min corners → clamped w, h →
 // product → (area_a + area_b) - inter → union > 0 ? inter / max(union,
@@ -76,10 +83,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 1;
-constexpr int kTile = kThreads * kPerThread;  // anchors a block
-constexpr int kWarps = kThreads / 32;
+constexpr int kPerThread = 1;  // anchors a thread
+constexpr int kDefaultTile = 256;  // anchors a block, the tile before the menu
 constexpr int kMaxGt = 1024;  // 37 KB of shared memory
 
 __device__ __forceinline__ float area(float x1, float y1, float x2, float y2) {
@@ -114,7 +119,8 @@ __device__ __forceinline__ bool overlaps(float4 c, float4 g) {
   return fminf(c.z, g.z) > fmaxf(c.x, g.x) && fminf(c.w, g.w) > fmaxf(c.y, g.y);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int Threads>
+__global__ void __launch_bounds__(Threads)
 match_kernel(const float4* __restrict__ anchors,   // (A,)
              const float4* __restrict__ gt_boxes,  // (B, G)
              const int* __restrict__ gt_labels,    // (B, G)
@@ -124,6 +130,9 @@ match_kernel(const float4* __restrict__ anchors,   // (A,)
              int* __restrict__ matched_labels,     // (B, A)
              float* __restrict__ max_iou,          // (B, A)
              unsigned long long* __restrict__ gt_keys) {  // (B, G)
+  constexpr int kTile = Threads * kPerThread;  // anchors a block
+  constexpr int kWarps = Threads / 32;
+  static_assert(Threads % 32 == 0 && kWarps <= 32, "warp 0 folds one box a warp");
   extern __shared__ __align__(16) unsigned char smem[];
   float4* s_box = reinterpret_cast<float4*>(smem);
   unsigned long long* s_key = reinterpret_cast<unsigned long long*>(s_box + num_gt);
@@ -138,7 +147,7 @@ match_kernel(const float4* __restrict__ anchors,   // (A,)
   const int a0 = blockIdx.x * kTile;
   const unsigned lane = threadIdx.x & 31u;
   const int warp = threadIdx.x >> 5;
-  for (int g = threadIdx.x; g < num_gt; g += kThreads) {
+  for (int g = threadIdx.x; g < num_gt; g += Threads) {
     const float4 box = gt_boxes[(size_t)b * num_gt + g];
     s_box[g] = box;
     s_area[g] = area(box.x, box.y, box.z, box.w);
@@ -157,7 +166,7 @@ match_kernel(const float4* __restrict__ anchors,   // (A,)
   float4 tile = empty;
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
-    const int a = a0 + k * kThreads + threadIdx.x;
+    const int a = a0 + k * Threads + threadIdx.x;
     live[k] = a < num_anchors;
     box[k] = live[k] ? anchors[a] : make_float4(0.f, 0.f, 0.f, 0.f);
     box_area[k] = area(box[k].x, box[k].y, box[k].z, box[k].w);
@@ -212,7 +221,7 @@ match_kernel(const float4* __restrict__ anchors,   // (A,)
       if (v > thread_best) {
         thread_best = v;
         hi = __float_as_uint(__fadd_rn(v, 0.0f));  // v > 0: the sign bit stays clear
-        lo = ~static_cast<unsigned>(a0 + k * kThreads + threadIdx.x);
+        lo = ~static_cast<unsigned>(a0 + k * Threads + threadIdx.x);
       }
     }
     if (!walked) continue;  // warp-uniform
@@ -226,13 +235,13 @@ match_kernel(const float4* __restrict__ anchors,   // (A,)
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     if (!live[k]) continue;
-    const size_t o = (size_t)b * num_anchors + a0 + k * kThreads + threadIdx.x;
+    const size_t o = (size_t)b * num_anchors + a0 + k * Threads + threadIdx.x;
     matched_boxes[o] = s_box[best_g[k]];
     matched_labels[o] = s_label[best_g[k]];
     max_iou[o] = best[k];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < count; i += kThreads) {
+  for (int i = threadIdx.x; i < count; i += Threads) {
     const int g = s_list[i];
     if (s_key[g] != 0ull) atomicMax(&gt_keys[(size_t)b * num_gt + g], s_key[g]);
   }
@@ -251,32 +260,52 @@ __global__ void finalize_kernel(const unsigned long long* __restrict__ gt_keys, 
       key == 0ull ? 0 : static_cast<int>(~static_cast<unsigned>(key & 0xffffffffull));
 }
 
+// One tile's launch of match_kernel: Threads x kPerThread anchors a block.
+template <int Threads>
+cudaError_t launch_tile(const float* anchors, const float* gt_boxes, const int* gt_labels,
+                        const uint8_t* gt_mask, int batch, int num_anchors, int num_gt,
+                        float* matched_boxes, int* matched_labels, float* max_iou,
+                        unsigned long long* gt_keys, size_t smem, cudaStream_t s) {
+  constexpr int tile = Threads * kPerThread;
+  dim3 grid((num_anchors + tile - 1) / tile, batch);
+  match_kernel<Threads><<<grid, Threads, smem, s>>>(
+      reinterpret_cast<const float4*>(anchors), reinterpret_cast<const float4*>(gt_boxes),
+      gt_labels, gt_mask, num_anchors, num_gt, reinterpret_cast<float4*>(matched_boxes),
+      matched_labels, max_iou, gt_keys);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int match_max_gt() { return kMaxGt; }
 
-int match_tile() { return kTile; }
+// The default tile (anchors a block), which a caller naming none launches.
+int match_tile() { return kDefaultTile; }
 
-// Launches both kernels on `stream`; `gt_keys` is (B, G) scratch.  Returns
-// the launch error code (0 = ok).
+// Launches both kernels on `stream` at `tile` anchors a block (128 or 256);
+// `gt_keys` is (B, G) scratch.  Returns the launch error code (0 = ok;
+// cudaErrorInvalidValue for a tile off the menu).
 int match_launch(const float* anchors, const float* gt_boxes, const int* gt_labels,
                  const uint8_t* gt_mask, int batch, int num_anchors, int num_gt,
                  float* matched_boxes, int* matched_labels, float* max_iou,
                  unsigned long long* gt_keys, float* gt_best_iou, int* gt_best_anchor,
-                 void* stream) {
+                 int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(gt_keys, 0, sizeof(unsigned long long) * batch * num_gt, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = (size_t)num_gt * (sizeof(float4) + sizeof(unsigned long long) +
                                         sizeof(float) + 2 * sizeof(int) + sizeof(uint8_t));
-  dim3 grid((num_anchors + kTile - 1) / kTile, batch);
-  match_kernel<<<grid, kThreads, smem, s>>>(
-      reinterpret_cast<const float4*>(anchors), reinterpret_cast<const float4*>(gt_boxes),
-      gt_labels, gt_mask, num_anchors, num_gt, reinterpret_cast<float4*>(matched_boxes),
-      matched_labels, max_iou, gt_keys);
-  err = cudaGetLastError();
+  cudaError_t err = cudaMemsetAsync(gt_keys, 0, sizeof(unsigned long long) * batch * num_gt, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (tile) {
+    case 128: err = launch_tile<128>(anchors, gt_boxes, gt_labels, gt_mask, batch,
+                                     num_anchors, num_gt, matched_boxes, matched_labels,
+                                     max_iou, gt_keys, smem, s); break;
+    case 256: err = launch_tile<256>(anchors, gt_boxes, gt_labels, gt_mask, batch,
+                                     num_anchors, num_gt, matched_boxes, matched_labels,
+                                     max_iou, gt_keys, smem, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = batch * num_gt;
   finalize_kernel<<<(n + 255) / 256, 256, 0, s>>>(gt_keys, n, gt_best_iou, gt_best_anchor);

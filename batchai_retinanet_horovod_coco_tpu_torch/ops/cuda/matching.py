@@ -20,31 +20,41 @@ note), so the outputs stay equal to the plain version's.
 argmax is a 64-bit (IoU bits, ~anchor) key and ``atomicMax``:
 deterministic, no float atomics.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.  ``kernel_launches`` and ``plain_calls``
-count which of the two ran.
+The tile (anchors a block) is a launch choice (its menu and default,
+``ops/cuda/shapes.py``: 128 or 256; 256 by default), every tile gives the
+same outputs, and the schedule registry's ``matching.tile_a`` picks one
+(``MatchingConfig.tile_a``).
+
+On a CPU tensor the wrapper runs the plain version (which has no tile); on
+a CUDA tensor it launches the kernel or raises.  ``kernel_launches`` and
+``plain_calls`` count which of the two ran, ``variant_launches`` the
+launches by tile.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
 import torch
 
-from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import build
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import build, shapes
 from batchai_retinanet_horovod_coco_tpu_torch.ops.iou import pairwise_iou
 
 #: Launches of the CUDA kernel pair, one per call on CUDA tensors.
 kernel_launches = 0
 #: Calls that took the plain version because the tensors were on the CPU.
 plain_calls = 0
+#: Launches by tile (anchors a block).
+variant_launches: collections.Counter = collections.Counter()
 
 
 def reset_counts() -> None:
     global kernel_launches, plain_calls
     kernel_launches = 0
     plain_calls = 0
+    variant_launches.clear()
 
 
 @functools.cache
@@ -56,7 +66,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.match_launch.restype = ctypes.c_int
     lib.match_max_gt.argtypes = []
@@ -69,9 +79,14 @@ def _library() -> ctypes.CDLL:
 
 
 def kernel_tile() -> int:
-    """Anchors a block of the kernel takes (its ``kTile``), read from the
-    library, which this builds on first use."""
+    """The default tile (anchors a block), which a call naming none
+    launches, read from the library, which this builds on first use."""
     return _library().match_tile()
+
+
+def check_tile(tile_a: int | None) -> int:
+    """``tile_a`` checked against the menu; None is the default."""
+    return shapes.resolve("matching", "tile_a", tile_a)
 
 
 def _check_inputs(anchors, gt_boxes, gt_labels, gt_mask) -> None:
@@ -143,9 +158,11 @@ def assign_fused(
     gt_boxes: torch.Tensor,
     gt_labels: torch.Tensor,
     gt_mask: torch.Tensor,
+    tile_a: int | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Batched fused assignment: anchors (A, 4) f32, gt boxes (B, G, 4) f32,
-    labels (B, G) int32, mask (B, G) bool, all contiguous on one device.
+    labels (B, G) int32, mask (B, G) bool, all contiguous on one device;
+    ``tile_a`` anchors a block (on the menu; None is the default).
 
     Returns matched boxes (B, A, 4) f32, matched labels (B, A) int32, max
     IoU (B, A) f32, per-gt best IoU (B, G) f32 and best anchor (B, G)
@@ -153,6 +170,7 @@ def assign_fused(
     global kernel_launches, plain_calls
     _check_inputs(anchors, gt_boxes, gt_labels, gt_mask)
     device = gt_boxes.device
+    tile = check_tile(tile_a)
     if device.type == "cpu":
         plain_calls += 1
         return assign_fused_plain(anchors, gt_boxes, gt_labels, gt_mask)
@@ -180,11 +198,12 @@ def assign_fused(
             gt_mask.data_ptr(), b, a, g,
             matched_boxes.data_ptr(), matched_labels.data_ptr(), max_iou.data_ptr(),
             keys.data_ptr(), gt_best_iou.data_ptr(), gt_best_anchor.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
+            tile, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
             f"matching kernel launch failed: {lib.match_error_string(err).decode()}"
         )
     kernel_launches += 1
+    variant_launches[tile] += 1
     return out

@@ -9,15 +9,17 @@
 // a parallel bitmask pass and a blocked scan, two launches:
 //
 //   nms_mask_kernel  grid (ceil(K/64) row blocks, ceil(K/64) column blocks, B),
-//                    256 threads.  Row j = 64*row_block + r gets ONE uint64
-//                    word: bit c is set iff j < i (i = the c-th column of
-//                    the block), same class, IoU(j, i) > t.  Four
-//                    neighbouring lanes share a row, every fourth column each,
-//                    unrolled and branch-free (areas precomputed, bits
-//                    masked afterwards) so that a thread's IoUs overlap, and
-//                    OR their bits with two shuffles.  Blocks below the
+//                    64 x Lanes threads.  Row j = 64*row_block + r gets ONE
+//                    uint64 word: bit c is set iff j < i (i = the c-th column
+//                    of the block), same class, IoU(j, i) > t.  Lanes
+//                    neighbouring lanes share a row (2, 4 or 8; 4 by
+//                    default), every Lanes-th column each, unrolled and
+//                    branch-free (areas precomputed, bits masked afterwards)
+//                    so that a thread's IoUs overlap, and OR their bits with
+//                    log2(Lanes) shuffles.  Blocks below the
 //                    diagonal write nothing: the scan never reads them.
-//   nms_scan_kernel  one block of kScanThreads an image, walking the K
+//   nms_scan_kernel  one block of ScanThreads an image (256 or 512; 256 by
+//                    default), walking the K
 //                    candidates a 64-candidate word at a time.  `removed`
 //                    (the candidates suppressed by kept rows of earlier
 //                    words) and the validity bits live in shared memory as
@@ -72,8 +74,6 @@ namespace {
 constexpr int kBlock = 64;       // candidates per mask block / word
 constexpr int kMaxWords = 128;   // words of the scan's shared bitsets
 constexpr int kMaxK = kMaxWords * kBlock;  // 8192 candidates
-constexpr int kMaskThreads = 4 * kBlock;  // four threads a row
-constexpr int kScanThreads = 256;
 
 __device__ __forceinline__ float area(float4 b) {
   return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.0f), fmaxf(__fsub_rn(b.w, b.y), 0.0f));
@@ -94,7 +94,8 @@ __device__ __forceinline__ float4 load_box(const float* p) {
   return make_float4(p[0], p[1], p[2], p[3]);
 }
 
-__global__ void __launch_bounds__(kMaskThreads)
+template <int Lanes>
+__global__ void __launch_bounds__(Lanes * kBlock)
 nms_mask_kernel(const float* __restrict__ boxes,  // (B, K, 4)
                 const int* __restrict__ cls,      // (B, K)
                 int k, int words, float threshold,
@@ -118,27 +119,27 @@ nms_mask_kernel(const float* __restrict__ boxes,  // (B, K, 4)
     col_cls[c] = c < n_cols ? cls[(size_t)b * k + i0 + c] : 0;
   }
   __syncthreads();
-  // Four neighbouring lanes share row r, a quarter of the columns each.
-  const int r = threadIdx.x >> 2;
-  const int quarter = threadIdx.x & 3;
+  // Lanes neighbouring lanes share row r, every Lanes-th column each.
+  const int r = threadIdx.x / Lanes;
+  const int quarter = threadIdx.x % Lanes;
   const int j = row_block * kBlock + r;
   const float4 row = j < k ? load_box(boxes + ((size_t)b * k + j) * 4)
                            : make_float4(0.f, 0.f, 0.f, 0.f);
   const float row_area = area(row);
   const int c_row = j < k ? cls[(size_t)b * k + j] : 0;
-  // The lane's 16 columns (every fourth, so that the four lanes read
+  // The lane's 64 / Lanes columns (every Lanes-th, so that the lanes read
   // neighbouring shared words) unrolled and branch-free: their IoUs overlap.
   unsigned long long bits = 0ull;
 #pragma unroll
-  for (int n = 0; n < kBlock / 4; ++n) {
-    const int c = 4 * n + quarter;
+  for (int n = 0; n < kBlock / Lanes; ++n) {
+    const int c = Lanes * n + quarter;
     // Cross-class IoU is zeroed BEFORE the threshold, as in ops/nms.py.
     const float v_iou = iou(row, row_area, col_box[c], col_area[c]);
     const float v = col_cls[c] == c_row ? v_iou : 0.0f;
     bits |= static_cast<unsigned long long>(v > threshold) << c;
   }
-  bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
-  bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+#pragma unroll
+  for (int o = 1; o < Lanes; o <<= 1) bits |= __shfl_xor_sync(0xffffffffu, bits, o);
   if (n_cols < kBlock) bits &= (1ull << n_cols) - 1ull;  // columns past K
   if (col_block == row_block) bits &= r == kBlock - 1 ? 0ull : ~0ull << (r + 1);  // i > j only
   if (quarter == 0 && j < k) mask[((size_t)b * k + j) * words + col_block] = bits;
@@ -164,7 +165,8 @@ __device__ __forceinline__ void stage_rows(const unsigned long long* __restrict_
   __pipeline_commit();
 }
 
-__global__ void __launch_bounds__(kScanThreads)
+template <int ScanThreads>
+__global__ void __launch_bounds__(ScanThreads)
 nms_scan_kernel(const float* __restrict__ scores,  // (B, K)
                 const unsigned long long* __restrict__ mask,  // (B, K, words)
                 int k, int words, float pad_score,
@@ -181,7 +183,7 @@ nms_scan_kernel(const float* __restrict__ scores,  // (B, K)
   const unsigned long long* rows = mask + (size_t)b * k * words;
 
   // Validity (score above the padding level), a warp a word.
-  for (int w = tid >> 5; w < words; w += kScanThreads / 32) {
+  for (int w = tid >> 5; w < words; w += ScanThreads / 32) {
     const int i = w * kBlock + lane;
     const unsigned lo = __ballot_sync(0xffffffffu, i < k && scores[(size_t)b * k + i] > pad_score);
     const unsigned hi =
@@ -191,7 +193,7 @@ nms_scan_kernel(const float* __restrict__ scores,  // (B, K)
       removed[w] = 0ull;
     }
   }
-  stage_rows(rows, staged, 0, k, words, tid, kScanThreads);
+  stage_rows(rows, staged, 0, k, words, tid, ScanThreads);
   __pipeline_wait_prior(0);
   __syncthreads();
 
@@ -213,7 +215,7 @@ nms_scan_kernel(const float* __restrict__ scores,  // (B, K)
       // Meanwhile warps 1.. start copying the next row block into the other
       // buffer, last read before the previous barrier.
       stage_rows(rows, staged + ((w + 1) & 1) * kBlock * words, w + 1, k, words, tid - 32,
-                 kScanThreads - 32);
+                 ScanThreads - 32);
     }
     __syncthreads();
     const unsigned long long kept = kept_word;
@@ -224,7 +226,7 @@ nms_scan_kernel(const float* __restrict__ scores,  // (B, K)
     // a row) and the rows r = tid / later + n * groups.
     const int later = words - 1 - w;
     if (later > 0 && kept != 0ull) {
-      const int groups = kScanThreads / later;  // >= 2: words <= 128
+      const int groups = ScanThreads / later;  // >= 2: words <= 128
       const int first = tid / later;
       if (first < groups) {
         const int ww = w + 1 + tid % later;
@@ -239,37 +241,67 @@ nms_scan_kernel(const float* __restrict__ scores,  // (B, K)
   }
 }
 
+template <int Lanes>
+cudaError_t launch_mask(const float* boxes, const int* cls, int batch, int k, int words,
+                        float threshold, unsigned long long* mask, cudaStream_t s) {
+  dim3 grid(words, words, batch);
+  nms_mask_kernel<Lanes><<<grid, Lanes * kBlock, 0, s>>>(boxes, cls, k, words, threshold, mask);
+  return cudaGetLastError();
+}
+
+template <int ScanThreads>
+cudaError_t launch_scan(const float* scores, const unsigned long long* mask, int batch, int k,
+                        int words, float pad_score, bool* keep, cudaStream_t s) {
+  const size_t smem = 2 * sizeof(unsigned long long) * kBlock * words;  // 128 KB at K 8192
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(nms_scan_kernel<ScanThreads>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  nms_scan_kernel<ScanThreads><<<batch, ScanThreads, smem, s>>>(scores, mask, k, words,
+                                                                pad_score, keep);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int nms_max_k() { return kMaxK; }
 
-// The mask pass on `stream`: (B, K, words) uint64 suppression bits, upper
-// blocks only.  Returns the launch error code (0 = ok).
+// The mask pass on `stream` at `lanes` threads a row (2, 4 or 8; the menu of
+// ops/cuda/shapes.py): (B, K, words) uint64 suppression bits, upper blocks
+// only.  Returns the launch error code (0 = ok; cudaErrorInvalidValue for a
+// shape off the menu).
 int nms_mask_launch(const float* boxes, const int* cls, int batch, int k, float threshold,
-                    unsigned long long* mask, void* stream) {
+                    unsigned long long* mask, int lanes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int words = (k + kBlock - 1) / kBlock;
-  dim3 grid(words, words, batch);
-  nms_mask_kernel<<<grid, kMaskThreads, 0, s>>>(boxes, cls, k, words, threshold, mask);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  switch (lanes) {
+    case 2: err = launch_mask<2>(boxes, cls, batch, k, words, threshold, mask, s); break;
+    case 4: err = launch_mask<4>(boxes, cls, batch, k, words, threshold, mask, s); break;
+    case 8: err = launch_mask<8>(boxes, cls, batch, k, words, threshold, mask, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
-// The scan on `stream`, after nms_mask_launch on the same stream: the (B, K)
-// keep flags.  Returns the launch error code (0 = ok).
+// The scan on `stream` at `threads` threads (256 or 512), after
+// nms_mask_launch on the same stream: the (B, K) keep flags.  Returns the
+// launch error code (0 = ok).
 int nms_scan_launch(const float* scores, const unsigned long long* mask, int batch, int k,
-                    float pad_score, bool* keep, void* stream) {
+                    float pad_score, bool* keep, int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int words = (k + kBlock - 1) / kBlock;
-  const size_t smem = 2 * sizeof(unsigned long long) * kBlock * words;  // 128 KB at K 8192
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err;
+  switch (threads) {
+    case 256: err = launch_scan<256>(scores, mask, batch, k, words, pad_score, keep, s); break;
+    case 512: err = launch_scan<512>(scores, mask, batch, k, words, pad_score, keep, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  nms_scan_kernel<<<batch, kScanThreads, smem, s>>>(scores, mask, k, words, pad_score, keep);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 const char* nms_error_string(int code) {

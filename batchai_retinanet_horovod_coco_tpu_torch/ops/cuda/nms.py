@@ -29,17 +29,28 @@ that ``torch.export`` records a call to the op, not the plain body, and an
 exported detect program runs the hand kernel on a card.  On a CUDA tensor
 the op launches the kernel or raises.  The counters ``kernel_launches``
 and ``plain_calls`` let a run show which of the two it went through.
+
+The launch shapes are choices (their menus and defaults, ``ops/cuda/
+shapes.py``): the lanes (threads) sharing one row of the mask pass's
+64 x 64 block (2, 4 or 8; 4 by default) and the scan's threads (256 or 512;
+256 by default).  Every shape gives the same keep mask.  They are arguments
+of the op, with those defaults, so a program exported before they existed
+still loads and runs, and an export bakes in the shape it was traced with.
+The schedule registry's ``nms.mask_lanes`` and ``nms.scan_threads`` pick
+them (``DetectConfig``); ``variant_launches`` counts the launches by
+``(mask_lanes, scan_threads)``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as nms_lib
-from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import build
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import build, shapes
 
 #: The custom op that ``batched_multiclass_nms_cuda`` calls.
 OP_NAME = "retinanet_torch::nms_keep_mask"
@@ -48,15 +59,22 @@ OP_NAME = "retinanet_torch::nms_keep_mask"
 kernel_launches = 0
 #: Calls that took the plain version because the tensors were on the CPU.
 plain_calls = 0
+#: Launches by (mask_lanes, scan_threads).
+variant_launches: collections.Counter = collections.Counter()
 
 _BLOCK = 64  # candidates per mask word, as kBlock in nms.cu
 _PAD_SCORE = nms_lib._NEG_INF / 2  # scores at or below this are padding
+# The defaults of the op's launch-shape arguments: the kernel's shapes
+# before the menus.
+DEFAULT_MASK_LANES = shapes.DEFAULTS[("nms", "mask_lanes")]
+DEFAULT_SCAN_THREADS = shapes.DEFAULTS[("nms", "scan_threads")]
 
 
 def reset_counts() -> None:
     global kernel_launches, plain_calls
     kernel_launches = 0
     plain_calls = 0
+    variant_launches.clear()
 
 
 @functools.cache
@@ -65,12 +83,12 @@ def _library() -> ctypes.CDLL:
     lib = build.load("nms")
     lib.nms_mask_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.nms_mask_launch.restype = ctypes.c_int
     lib.nms_scan_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.nms_scan_launch.restype = ctypes.c_int
     lib.nms_max_k.argtypes = []
@@ -78,6 +96,12 @@ def _library() -> ctypes.CDLL:
     lib.nms_error_string.argtypes = [ctypes.c_int]
     lib.nms_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_shape(mask_lanes: int, scan_threads: int) -> None:
+    """Raise unless the shape is on the menus."""
+    shapes.resolve("nms", "mask_lanes", mask_lanes)
+    shapes.resolve("nms", "scan_threads", scan_threads)
 
 
 def _check(lib: ctypes.CDLL, which: str, err: int) -> None:
@@ -122,22 +146,26 @@ def nms_keep_mask_plain(
 
 @torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cpu")
 def _keep_mask_op(
-    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, iou_threshold: float
+    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, iou_threshold: float,
+    mask_lanes: int = DEFAULT_MASK_LANES, scan_threads: int = DEFAULT_SCAN_THREADS,
 ) -> torch.Tensor:
-    """The op's CPU kernel: the plain version."""
+    """The op's CPU kernel: the plain version (it has no launch shape)."""
     global plain_calls
     _check_inputs(boxes, scores, classes)
+    check_shape(mask_lanes, scan_threads)
     plain_calls += 1
     return nms_keep_mask_plain(boxes, scores, classes, iou_threshold)
 
 
 @_keep_mask_op.register_kernel("cuda")
 def _keep_mask_cuda(
-    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, iou_threshold: float
+    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, iou_threshold: float,
+    mask_lanes: int = DEFAULT_MASK_LANES, scan_threads: int = DEFAULT_SCAN_THREADS,
 ) -> torch.Tensor:
     """The op's CUDA kernel: the mask pass, then the blocked scan."""
     global kernel_launches
     _check_inputs(boxes, scores, classes)
+    check_shape(mask_lanes, scan_threads)
     device = scores.device
     b, k = scores.shape
     lib = _library()
@@ -152,20 +180,24 @@ def _keep_mask_cuda(
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib, "mask", lib.nms_mask_launch(
             boxes.data_ptr(), classes.data_ptr(), b, k, float(iou_threshold),
-            mask.data_ptr(), stream,
+            mask.data_ptr(), mask_lanes, stream,
         ))
         _check(lib, "scan", lib.nms_scan_launch(
-            scores.data_ptr(), mask.data_ptr(), b, k, _PAD_SCORE, keep.data_ptr(), stream,
+            scores.data_ptr(), mask.data_ptr(), b, k, _PAD_SCORE, keep.data_ptr(),
+            scan_threads, stream,
         ))
     kernel_launches += 1
+    variant_launches[(mask_lanes, scan_threads)] += 1
     return keep
 
 
 @_keep_mask_op.register_fake
 def _keep_mask_fake(
-    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, iou_threshold: float
+    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, iou_threshold: float,
+    mask_lanes: int = DEFAULT_MASK_LANES, scan_threads: int = DEFAULT_SCAN_THREADS,
 ) -> torch.Tensor:
     _check_inputs(boxes, scores, classes)
+    check_shape(mask_lanes, scan_threads)
     return scores.new_empty(scores.shape, dtype=torch.bool)
 
 
@@ -174,16 +206,20 @@ def nms_keep_mask(
     cand_scores: torch.Tensor,
     class_idx: torch.Tensor,
     iou_threshold: float = 0.5,
+    mask_lanes: int | None = None,
+    scan_threads: int | None = None,
 ) -> torch.Tensor:
     """(B, K) bool greedy keep mask over candidates SORTED by descending
     score per image (``select_candidates`` output): boxes (B, K, 4) f32,
     scores (B, K) f32, class ids (B, K) int32, all contiguous.  Scores at
     or below ``_NEG_INF / 2`` are padding, never kept and never
-    suppressing.  Equal, bit for bit, to :func:`nms_keep_mask_plain`.
-    A call of the custom op: the kernel on a card, the plain version on
-    the CPU."""
+    suppressing.  Equal, bit for bit, to :func:`nms_keep_mask_plain`, at
+    every launch shape (None: the default).  A call of the custom op: the
+    kernel on a card, the plain version on the CPU."""
     return torch.ops.retinanet_torch.nms_keep_mask.default(
-        cand_boxes, cand_scores, class_idx, float(iou_threshold)
+        cand_boxes, cand_scores, class_idx, float(iou_threshold),
+        DEFAULT_MASK_LANES if mask_lanes is None else int(mask_lanes),
+        DEFAULT_SCAN_THREADS if scan_threads is None else int(scan_threads),
     )
 
 
@@ -194,17 +230,20 @@ def batched_multiclass_nms_cuda(
     iou_threshold: float = 0.5,
     pre_nms_size: int = 1000,
     max_detections: int = 300,
+    mask_lanes: int | None = None,
+    scan_threads: int | None = None,
 ) -> nms_lib.Detections:
     """``ops.nms.batched_multiclass_nms`` with the suppression stage on
-    :func:`nms_keep_mask` — the CUDA kernel on a card, the plain version on
-    the CPU.  Selection and compaction are the shared stages, so the
-    output equals the plain pipeline's bit for bit."""
+    :func:`nms_keep_mask` at the given launch shape — the CUDA kernel on a
+    card, the plain version on the CPU.  Selection and compaction are the
+    shared stages, so the output equals the plain pipeline's bit for
+    bit."""
     cand_boxes, cand_scores, class_idx = nms_lib.select_candidates(
         boxes, cls_scores, score_threshold, pre_nms_size
     )
     keep = nms_keep_mask(
         cand_boxes.contiguous(), cand_scores.contiguous(),
-        class_idx.contiguous(), iou_threshold,
+        class_idx.contiguous(), iou_threshold, mask_lanes, scan_threads,
     )
     sel, valid = nms_lib.compact_keep(cand_scores, keep, max_detections)
     return nms_lib.build_detections(cand_boxes, cand_scores, class_idx, sel, valid)

@@ -44,6 +44,11 @@ class MatchingConfig:
     negative_iou: float = 0.4
     # Force-match each gt's best anchor even below positive_iou.
     force_match_best: bool = True
+    # Anchors a block of the matching kernel (its menu, ops/cuda/matching.py).
+    # None: the train step asks the schedule registry (train/step.py::
+    # resolve_kernel_schedule); a caller below the step gets the kernel's
+    # default.  Every tile gives the same targets.
+    tile_a: int | None = None
 
 
 class AnchorAssignment(NamedTuple):
@@ -197,9 +202,10 @@ def anchor_targets_compact_batched(
     the rest; on the CPU the plain path runs.  Both give the same targets.
     ``box_targets`` is (B, A, 4)."""
     if gt_boxes.device.type == "cpu":
+        matching_cuda.check_tile(matching.tile_a)
         return anchor_targets_compact(anchors, gt_boxes, gt_labels, gt_mask, matching, codec)
     assigned = matching_cuda.assign_fused(
         anchors.float().contiguous(), gt_boxes.float().contiguous(),
-        gt_labels.to(torch.int32).contiguous(), gt_mask.contiguous(),
+        gt_labels.to(torch.int32).contiguous(), gt_mask.contiguous(), matching.tile_a,
     )
     return finish_fused(anchors, gt_boxes, gt_labels, gt_mask, assigned, matching, codec)

@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import random
 import sys
@@ -1800,6 +1801,13 @@ def build_parser():
                         "replica's breaker opens (sheds are load signals "
                         "first; raise this in harnesses that shed on "
                         "purpose so availability stays a death signal)")
+    p.add_argument("--replica-start-timeout-s", type=float, default=60.0,
+                   help="how long a spawned replica (at start-up, on a "
+                        "respawn, a scale-up or as the canary) may take "
+                        "to answer /healthz 200 before the spawn fails; "
+                        "a replica loading full-width programs on a "
+                        "host busy with traffic can need more than the "
+                        "default")
     p.add_argument("--spawn-serve-args", default=None, metavar="ARGS",
                    help="extra serve-CLI arguments appended to EVERY "
                         "spawned replica, as one shell-quoted string "
@@ -1843,6 +1851,8 @@ def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
     if args.spawn and not (args.export_dir or args.stub_engine):
         raise SystemExit("--spawn needs --export-dir or --stub-engine")
+    if args.replica_start_timeout_s <= 0:
+        raise SystemExit("--replica-start-timeout-s must be > 0")
     if (args.spawn and args.export_dir and not args.stub_engine) or args.canary_export_dir:
         resolve_device(args.device)  # no card for --device cuda: raise now
 
@@ -1863,11 +1873,17 @@ def main(argv: list[str] | None = None) -> dict:
     procs: dict[str, tuple] = {}  # replica_id -> (proc, port)
     export_dir = None if args.stub_engine else args.export_dir
 
+    # /healthz is probed every 0.5 s until the start timeout.
+    start_wait = BackoffPolicy(
+        max_tries=max(1, math.ceil(args.replica_start_timeout_s / 0.5)),
+        base_s=0.5, multiplier=1.0, jitter=0.0,
+    )
+
     def spawn(rid: str, port: int | None = None):
         return spawn_http_replica(
             rid, port=port, export_dir=export_dir,
             stub_delay_ms=args.stub_delay_ms if args.stub_engine else None,
-            extra_args=spawn_extra, device=args.device,
+            extra_args=spawn_extra, wait_policy=start_wait, device=args.device,
         )
 
     def spawn_one(rid: str, port: int | None = None):
@@ -1947,7 +1963,8 @@ def main(argv: list[str] | None = None) -> dict:
             else:
                 canary_proc, canary = spawn_http_replica(
                     "canary", export_dir=args.canary_export_dir,
-                    stub_delay_ms=args.canary_stub_delay_ms, device=args.device,
+                    stub_delay_ms=args.canary_stub_delay_ms, wait_policy=start_wait,
+                    device=args.device,
                 )
                 emit_event(
                     "fleet_replica_spawned", sink=sink, file=sys.stdout,

@@ -50,10 +50,17 @@ metrics, and feed ``replica_agreement`` the local gradient norm before the
 reduce.  A NaN or Inf gradient poisons its block's scale, so the world's
 loss metrics and norms go non-finite together and the loop stops every
 rank at the same step.
+
+The kernels' launch shapes (the matching kernel's ``tile_a``, the focal
+kernels' ``focal_fwd_tile_a``/``focal_bwd_tile_a``) left None in the configs
+are the schedule registry's for the step's device
+(:func:`resolve_kernel_schedule`), once when the step is built, for every
+flavor and on every rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from collections.abc import Callable
 from typing import Any
@@ -79,6 +86,31 @@ from batchai_retinanet_horovod_coco_tpu_torch.utils.device import resolve_device
 #: The step's phases, in order; a step called with ``mark`` calls
 #: ``mark(name)`` as each one ends.
 PHASES = ("forward", "targets", "loss", "backward", "optimizer")
+
+
+def resolve_kernel_schedule(
+    loss_config: losses_lib.LossConfig,
+    matching_config: matching_lib.MatchingConfig,
+    device: str | torch.device,
+) -> tuple[losses_lib.LossConfig, matching_lib.MatchingConfig]:
+    """The configs with every launch shape left None filled from the
+    schedule registry for ``device`` (the JAX package's
+    resolve_kernel_schedule): the focal kernels' forward and backward
+    tiles and the matching kernel's tile.  An explicit value always wins;
+    a device with no file gets the kernels' default shapes."""
+    from batchai_retinanet_horovod_coco_tpu_torch.tune import schedule as schedule_lib
+
+    sched = schedule_lib.lookup(device)
+    if matching_config.tile_a is None:
+        matching_config = dataclasses.replace(
+            matching_config, tile_a=int(sched["matching"]["tile_a"]))
+    if loss_config.focal_fwd_tile_a is None:
+        loss_config = dataclasses.replace(
+            loss_config, focal_fwd_tile_a=int(sched["focal"]["fwd_tile_a"]))
+    if loss_config.focal_bwd_tile_a is None:
+        loss_config = dataclasses.replace(
+            loss_config, focal_bwd_tile_a=int(sched["focal"]["bwd_tile_a"]))
+    return loss_config, matching_config
 
 
 def forward_and_loss(
@@ -161,6 +193,7 @@ def make_train_step(
     compressed gather is flat), with a warning each.
     """
     device = resolve_device(device)
+    loss_config, matching_config = resolve_kernel_schedule(loss_config, matching_config, device)
     if model.config.num_classes != num_classes:
         raise ValueError(
             f"the model has {model.config.num_classes} classes, the step {num_classes}"

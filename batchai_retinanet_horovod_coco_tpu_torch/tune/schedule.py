@@ -20,17 +20,29 @@ The device kind is the consumer's torch device (each function's
 ``device_kind`` takes a ``torch.device`` or a kind): the card's
 ``torch.cuda.get_device_name`` (for example ``NVIDIA H100 80GB HBM3``, slug
 ``nvidia_h100_80gb_hbm3``) or ``cpu``; a lookup for the CPU never
-initialises CUDA.  The one entry is the one knob a consumer of the port
-reads: ``nms.pre_nms_size`` (1 to the NMS kernel's largest K, 8192), read
-by the detect path (``evaluate/detect.py``).  The JAX entries without a
-reader here are refused as unknown: ``focal`` (the port has one loss path),
-``eval`` and ``serve`` (per-bucket batch sizes: the port has no benchmark
-yet, and no entry point of it builds the serve engine from a live model),
-and ``matching``.  The kernels' launch shapes are compile-time constants
-of their sources, so the keys ``block_k``, ``tile_a``, ``fwd_tile_a`` and
-``bwd_tile_a`` come with the search and its kernel variants
-(``ROADMAP.md``), and there is no ``impl``: the port never takes a plain
-version on a card.
+initialises CUDA.  The entries and their units:
+
+- ``nms.pre_nms_size``: candidates an image that reach the suppression (1
+  to the NMS kernel's largest K, 8192), read by the detect path
+  (``evaluate/detect.py``);
+- the kernels' launch shapes, each read by its kernel's consumer, with
+  its unit, menu and default in ``ops/cuda/shapes.py``: ``nms.mask_lanes``
+  (threads sharing one row of the mask pass's 64 x 64 block) and
+  ``nms.scan_threads`` (threads of the scan's block), read by the detect
+  path; ``focal.fwd_tile_a`` (groups a forward block) and
+  ``focal.bwd_tile_a`` (threads a backward block) and ``matching.tile_a``
+  (anchors a block), read by the train step (``train/step.py``).
+
+Each launch key takes only a value of its kernel's menu (:data:`MENUS`),
+and the defaults are the kernels' launch shapes before the menus existed,
+so a device with no file launches exactly those.  Refused, each with its
+reason: ``impl`` (the port never takes a plain version on a card),
+``block_k`` (the NMS scan's word is 64 candidates because its bitsets are
+uint64, not a launch choice), ``eval`` (its reader, the benchmark
+harness's eval, is not ported) and ``serve`` (per-bucket batch sizes: no
+entry point of the port builds the serve engine from a live model, and a
+batch size is chosen by timing the whole detect program, which the search
+does not).
 
 Import-light (the standard library, and torch only where a CUDA device is
 named), so the shm decode workers can import a consumer of it.
@@ -45,14 +57,30 @@ import re
 import sys
 from typing import Any
 
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda.shapes import DEFAULTS as SHAPE_DEFAULTS
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda.shapes import MENUS
+
 FORMAT = "retinanet_torch.schedule.v1"
 ENV_DIR = "RETINANET_TORCH_SCHEDULE_DIR"
 # ops/cuda/nms.cu's kMaxK: the most candidates one image's keep mask takes.
 NMS_MAX_K = 8192
 
-DEFAULT_SCHEDULE: dict[str, Any] = {"nms": {"pre_nms_size": 1000}}
+# The built-in entries: pre_nms_size, and each kernel's default launch shape.
+DEFAULT_SCHEDULE: dict[str, Any] = {"nms": {"pre_nms_size": 1000}, "focal": {}, "matching": {}}
+for (_op, _key), _shape in SHAPE_DEFAULTS.items():
+    DEFAULT_SCHEDULE[_op][_key] = _shape
 
-_LAUNCH_KEYS = {"block_k", "tile_a", "fwd_tile_a", "bwd_tile_a", "impl"}
+# Keys and entries of the JAX registry that the port refuses, with the reason.
+_REFUSED = {
+    "impl": "the port never takes a plain version on a card",
+    "block_k": "the NMS word is 64 candidates because the scan's bitsets are uint64; "
+               "its launch shapes are mask_lanes and scan_threads",
+}
+_REFUSED_OPS = {
+    "eval": "its reader, the benchmark harness's eval, is not ported",
+    "serve": "no entry point of the port builds the serve engine from a live model, and the "
+             "search does not time the whole detect program",
+}
 
 
 class ScheduleError(ValueError):
@@ -76,17 +104,26 @@ def validate_schedule(doc: Any) -> dict:
         entries = {}
     unknown = sorted(set(entries) - set(DEFAULT_SCHEDULE))
     if unknown:
-        problems.append(f"entries: unknown op keys {unknown} (known: {sorted(DEFAULT_SCHEDULE)})")
-    e = entries.get("nms")
-    if e is not None and not isinstance(e, dict):
-        problems.append("nms: object required")
-    elif e is not None:
-        bad = sorted(set(e) - set(DEFAULT_SCHEDULE["nms"]))
+        why = "".join(f"; {op}: {_REFUSED_OPS[op]}" for op in unknown if op in _REFUSED_OPS)
+        problems.append(f"entries: unknown op keys {unknown} (known: "
+                        f"{sorted(DEFAULT_SCHEDULE)}){why}")
+    for op in ("nms", "focal", "matching"):
+        e = entries.get(op)
+        if e is None:
+            continue
+        if not isinstance(e, dict):
+            problems.append(f"{op}: object required")
+            continue
+        bad = sorted(set(e) - set(DEFAULT_SCHEDULE[op]))
         if bad:
-            launch = sorted(set(bad) & _LAUNCH_KEYS)
-            why = (f" (the kernels' launch shapes are compile-time constants; {launch} come with "
-                   "the search and its kernel variants, ROADMAP.md queue 1)") if launch else ""
-            problems.append(f"nms: unknown keys {bad}{why}")
+            why = "".join(f"; {k}: {_REFUSED[k]}" for k in bad if k in _REFUSED)
+            problems.append(f"{op}: unknown keys {bad}{why}")
+        for key in sorted(set(e) & set(DEFAULT_SCHEDULE[op])):
+            v = e[key]
+            menu = MENUS.get((op, key))
+            if menu is not None and (not isinstance(v, int) or isinstance(v, bool) or v not in menu):
+                problems.append(f"{op}.{key}: one of the kernel's menu {list(menu)} required, "
+                                f"got {v!r}")
         if "pre_nms_size" in e:
             v = e["pre_nms_size"]
             if not isinstance(v, int) or isinstance(v, bool) or not 1 <= v <= NMS_MAX_K:

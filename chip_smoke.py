@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in
-eighteen phases, and fails (non-zero exit, no result line) if any of them fails:
+nineteen phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
 2. build: compiles every CUDA kernel (NMS, matching, focal) from the
@@ -268,18 +268,44 @@ eighteen phases, and fails (non-zero exit, no result line) if any of them fails:
    ``pre_nms_size`` 500; a malformed file gives the fallback line with
    reason ``invalid_schedule_artifact`` and resolves 1000, and
    ``load_schedule`` on it names every problem.  The phase must take at
+   most 150 s;
+19. the schedule search (``tune/``) over the kernels' launch shapes (the
+   menus of ``ops/cuda/shapes.py``): (a) every variant against its plain
+   version on the card: NMS at every (lanes a mask row, scan threads) on
+   phase 3's cases and at K 4200 and 8192 (where the scan's later words
+   outnumber half its threads), and matching at every tile on phase 6's
+   fields (each culling edit aimed at the tile; the last-tile field at
+   (768, 1344) where the tile divides the bucket's anchors), EQUAL; the
+   focal forward at every tile within rel 1e-5 of the plain version and
+   repeating bit for bit, the backward at every tile equal to the default
+   tile's bit for bit; each variant's device ms; (b) ``python -m
+   batchai_retinanet_horovod_coco_tpu_torch.tune --ops nms,focal,matching
+   --steps 10`` into a temporary registry (its ``main`` in this process),
+   whose file validates, with every trial ``ok`` or ``failed`` with its
+   error; it prints the winners and each trial's device ms; (c) a fresh
+   process over that registry: ``train synthetic`` (resnet_test, 64 x 64,
+   3 steps and an eval) launches the winning matching and focal variants
+   only, ``postprocess`` the winning NMS variant and no other (the
+   per-variant counters), and ``convert_model``'s manifest records the
+   winning NMS shape; (d) ``tune --check`` reads the search's record,
+   measures its winner again and prints a verdict (a timing verdict, which
+   does not fail the smoke); (e) ``tune --from-report`` on phase 13's
+   ``PERF_REPORT.json`` prints the ops it derived.  The phase must take at
    most 150 s.
 
-Then it prints one JSON line with each kernel's launches, error, times and
-bound, and as its last line ``{"ok": true, "device": {...}}``.  A kernel's
-``ms`` there is CUDA events around wrapper calls made back to back, as the
-plain version's ``plain_ms``; ``device_ms`` is the same call's device time
-from a replayed CUDA graph, without the host's time to launch it.
+Then it prints one JSON line with each kernel's launches, error, times,
+bound and its variants' device ms, and as its last line ``{"ok": true,
+"device": {...}}``.  A kernel's ``ms`` there is CUDA events around wrapper
+calls made back to back, as the plain version's ``plain_ms``;
+``device_ms`` is the same call's device time from a replayed CUDA graph,
+without the host's time to launch it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import multiprocessing
 import os
@@ -334,6 +360,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import cases as cases_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import focal as focal_cuda
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import matching as matching_cuda
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import nms as nms_cuda
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import shapes
 from batchai_retinanet_horovod_coco_tpu_torch.train import __main__ as train_cli
 from batchai_retinanet_horovod_coco_tpu_torch.train import loop as loop_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import optim as optim_lib
@@ -498,11 +525,13 @@ def nms_pass_ms(cb: torch.Tensor, cs: torch.Tensor, ci: torch.Tensor) -> tuple[f
 
     def mask_pass():
         require(lib.nms_mask_launch(cb.data_ptr(), ci.data_ptr(), b, k, IOU_THRESHOLD, mask.data_ptr(),
+                                    nms_cuda.DEFAULT_MASK_LANES,
                                     torch.cuda.current_stream().cuda_stream) == 0, "NMS mask launch")
 
     def scan():
         require(lib.nms_scan_launch(cs.data_ptr(), mask.data_ptr(), b, k, nms_cuda._PAD_SCORE,
-                                    keep.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0,
+                                    keep.data_ptr(), nms_cuda.DEFAULT_SCAN_THREADS,
+                                    torch.cuda.current_stream().cuda_stream) == 0,
                 "NMS scan launch")
 
     mask_ms = device_ms(mask_pass)  # also leaves the mask that the scan reads
@@ -875,17 +904,22 @@ def main() -> int:
         comm_launches = comm_phase(root, batches, device, kind, smi)
         phase(18, "the schedule registry")
         schedule_launches = schedule_phase(root, device, kind)
+        phase(19, "the schedule search over the kernels' launch shapes")
+        tune_launches, variants = tune_phase(root, device, kind, smi, anchors, batches[0])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
         row["launches"] = (launches_by_kernel[key] + run_launches[key] + file_launches[key]
                            + obs_launches[key] + family_launches[key] + dp_launches[key]
-                           + comm_launches[key] + schedule_launches[key])
+                           + comm_launches[key] + schedule_launches[key] + tune_launches[key])
     nms_row["launches"] = (launches + run_launches["nms"] + file_launches["nms"] + served["launches"]
                            + obs_launches["nms"] + fleet_launches + family_launches["nms"]
-                           + dp_launches["nms"] + comm_launches["nms"] + schedule_launches["nms"])
+                           + dp_launches["nms"] + comm_launches["nms"] + schedule_launches["nms"]
+                           + tune_launches["nms"])
+    for row in (nms_row, match_row, fwd_row, bwd_row):
+        row["variants"] = variants[row["name"]]
     end_phases()
-    print(f"chip_smoke: all 18 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
+    print(f"chip_smoke: all 19 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
 
     print(smi)
     print(json.dumps({"kernels": [nms_row, match_row, fwd_row, bwd_row]}))
@@ -895,13 +929,14 @@ def main() -> int:
     return 0
 
 
-def culling_field(edit: str, seed: int, anchors: torch.Tensor):
+def culling_field(edit: str, seed: int, anchors: torch.Tensor, tile: int | None = None):
     """B 16, G 100 at TRAIN_HW, 1-60 real gts an image, reshaped by the
-    culling edit ``edit`` of ``ops/cuda/cases.py`` against the kernel's
-    tiles."""
+    culling edit ``edit`` of ``ops/cuda/cases.py`` against the tiles of
+    ``tile`` anchors (the kernel's default tile where None)."""
     boxes, labels, mask = gt_scene(16, MAX_GT, seed, counts=(1, 60))
     rng = np.random.default_rng(seed)
-    cases_lib.CULLING_EDITS[edit](boxes, mask, rng, anchors.cpu().numpy(), matching_cuda.kernel_tile())
+    cases_lib.CULLING_EDITS[edit](boxes, mask, rng, anchors.cpu().numpy(),
+                                  tile or matching_cuda.kernel_tile())
     return boxes, labels, mask
 
 
@@ -2868,6 +2903,13 @@ def slot_gap(want: dict, name: str, answer: list[dict]) -> float:
     return min(answer_gap(answer, w) for (n, *_slot), w in want.items() if n == name)
 
 
+# How long a spawned full-width replica may take to answer /healthz: it
+# imports torch and loads two 157 MB programs, in 25-43 s on a quiet card
+# host and in more than the fleet's default 60 s once, under (e)'s burst
+# of 32 clients (NVIDIA H100 80GB HBM3, 700 W).
+REPLICA_START_S = 180
+
+
 def fleet_phase(root: str, served: dict, device, kind: str, smi: str) -> int:
     """Phase 14 over phase 12's exported programs; returns the NMS kernel's
     launches by this process's servers ((a) and (d) in process)."""
@@ -2879,7 +2921,8 @@ def fleet_phase(root: str, served: dict, device, kind: str, smi: str) -> int:
         "--spawn", "1", "--export-dir", export_dir, "--device", device.type, "--autoscale",
         "--min-replicas", "1", "--max-replicas", "2", "--autoscale-for-s", "1",
         "--autoscale-up-cooldown-s", "5", "--autoscale-down-cooldown-s", "5",
-        "--autoscale-interval-s", "0.5", "--poll-interval", "0.5", "--fleet-timeout-s", "300"], wait=False)
+        "--autoscale-interval-s", "0.5", "--poll-interval", "0.5", "--fleet-timeout-s", "300",
+        "--replica-start-timeout-s", str(REPLICA_START_S)], wait=False)
     try:
         canary_cli(root, kind, smi)
         autoscale_cli(scaled.ready(), root, served, kind, smi)
@@ -3032,7 +3075,7 @@ def fleet_cli(root: str, export_dir: str, served: dict, device, kind: str, smi: 
     fleet = FleetCli(root, "fleet", [
         "--spawn", "2", "--export-dir", export_dir, "--device", device.type, "--obs-port", "0",
         "--poll-interval", "0.5", "--slo-poll-s", "0.5", "--respawn-delay-s", "0.5",
-        "--fleet-timeout-s", "300"])
+        "--fleet-timeout-s", "300", "--replica-start-timeout-s", str(REPLICA_START_S)])
     try:
         spawned = {e["replica_id"]: e for _, e in fleet.events("fleet_replica_spawned")}
         print(f"(b) fleet CLI with 2 replicas of the export up in {fleet.up_s:.1f} s (the replicas start "
@@ -3160,7 +3203,8 @@ def autoscale_cli(fleet: FleetCli, root: str, served: dict, kind: str, smi: str)
     try:
         burst = Load(f"{fleet.url}/detect", 32, root)
         t_burst = time.monotonic()
-        t_decision = fleet.wait("a scale-up decision", lambda: fleet.events("autoscale_decision"), 240)
+        t_decision = fleet.wait("a scale-up decision", lambda: fleet.events("autoscale_decision"),
+                                REPLICA_START_S + 60)
         new = fleet.status()["replicas"][-1]["replica_id"]
         t_first = fleet.wait(f"{new}'s first weighted request", lambda: (
             (r := fleet.replica(new)) is not None and r["weight"] > 0
@@ -3182,6 +3226,9 @@ def autoscale_cli(fleet: FleetCli, root: str, served: dict, kind: str, smi: str)
             print(f"(e) {t - t_burst:+.1f} s after the burst began: {d['decision']} ({d['reason']}), delta "
                   f"{d['delta']}, occupancy {d['occupancy']}, replicas before {d['replicas_before']}"
                   + (f", victims {d['victims']}" if "victims" in d else ""))
+        failed_launches = [d for _, d in fleet.events("autoscale_launch_failed")]
+        for d in failed_launches:
+            print(f"(e) a scale-up's replica failed to start: {d['error']}")
         every = results + slow
         codes = Counter(r[1][0] for r in every)
         worst = max(slot_gap(want, n, r[1]["detections"]) for n, r, _, _ in every if r[0] == 200)
@@ -3202,7 +3249,8 @@ def autoscale_cli(fleet: FleetCli, root: str, served: dict, kind: str, smi: str)
         # A breach that outlasts the scale-up at max_replicas is a capped
         # decision, which changes nothing.
         require([d["decision"] for _, d in decisions if d["decision"] != "scale_up_capped"]
-                == ["scale_up", "scale_down"], f"decisions {[d for _, d in decisions]}")
+                == ["scale_up", "scale_down"],
+                f"decisions {[d for _, d in decisions]}, failed launches {failed_launches}")
         require(set(codes) == {200} and worst == 0 and final["failed"] == 0 and not final["shed"],
                 f"statuses {dict(codes)}, gap {worst}, fleet_stats {final}")
     finally:
@@ -4192,6 +4240,267 @@ def schedule_phase(root: str, device, kind: str) -> dict[str, int]:
     print(f"phase 18 in {phase_s:.1f} s (limit {SCHEDULE_DEADLINE_S} s); launches {launches}")
     require(phase_s <= SCHEDULE_DEADLINE_S, f"phase 18 took {phase_s:.1f} s")
     return launches
+
+
+
+# ---- phase 19: the schedule search over the kernels' launch shapes ---------
+
+TUNE_DEADLINE_S = 150
+# 201 600 anchors, the (800, 1344) bucket's, are a multiple of 128: the last
+# 128-anchor tile is ragged at this bucket instead.
+RAGGED_HW = (768, 1344)
+TUNE_CONSUMERS = """
+import json, os, sys
+import torch
+from batchai_retinanet_horovod_coco_tpu_torch import convert_model as convert_cli
+from batchai_retinanet_horovod_coco_tpu_torch.evaluate import detect
+from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import RetinaNetConfig, build_retinanet
+from batchai_retinanet_horovod_coco_tpu_torch.ops.anchors import AnchorConfig
+from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import focal, matching, nms
+from batchai_retinanet_horovod_coco_tpu_torch.train import __main__ as train_cli
+
+root = sys.argv[1]
+kernels = (matching, focal, nms)
+
+
+def counts():
+    return {"matching": dict(matching.variant_launches),
+            "focal_fwd": dict(focal.fwd_variant_launches),
+            "focal_bwd": dict(focal.bwd_variant_launches),
+            "nms": {f"{l},{t}": n for (l, t), n in nms.variant_launches.items()},
+            "plain": sum(k.plain_calls for k in kernels)}
+
+
+def reset():
+    for k in kernels:
+        k.reset_counts()
+
+
+out = {}
+small = ["--synthetic-root", os.path.join(root, "synthetic"), "--synthetic-images", "16",
+         "--synthetic-size", "64", "--image-min-side", "64", "--image-max-side", "64",
+         "--backbone", "resnet_test", "--batch-size", "8", "--workers", "4"]
+snap = os.path.join(root, "snap")
+reset()
+run = train_cli.main(["synthetic", *small, "--snapshot-path", snap, "--steps", "3",
+                      "--eval-every", "3", "--score-threshold", "0.001"])
+out["train"] = dict(counts(), final_step=run["final_step"])
+model = build_retinanet(RetinaNetConfig(num_classes=3, backbone="resnet_test"), device="cuda")
+hw = (64, 64)
+anchors = detect.anchors_on(hw, AnchorConfig(), torch.device("cuda"))
+reset()
+with torch.inference_mode():
+    det = detect.postprocess(model(torch.zeros((2, *hw, 3), device="cuda")), anchors, hw,
+                             detect.DetectConfig(score_threshold=0.001))
+    torch.cuda.synchronize()
+out["postprocess"] = counts()
+reset()
+manifest = convert_cli.main(["--snapshot-path", snap, "--output", os.path.join(root, "export"),
+                             "--num-classes", "3", "--backbone", "resnet_test",
+                             "--image-min-side", "64", "--image-max-side", "64",
+                             "--batch-sizes", "1"])
+out["convert"] = counts()
+out["manifest"] = json.loads(open(manifest).read())
+print(json.dumps(out))
+"""
+
+
+def variant_label(params: dict) -> str:
+    return ",".join(f"{k}={v}" for k, v in sorted(params.items()))
+
+
+def variant_checks(anchors: torch.Tensor, batch: pipeline_lib.Batch, device) -> dict[str, dict]:
+    """Phase 19 (a): every variant agrees with its plain version on the
+    fields of phases 3, 6 and 7.  Returns each kernel row's variants'
+    device ms."""
+    menus = shapes.MENUS
+    require(matching_cuda.kernel_tile() == shapes.DEFAULTS[("matching", "tile_a")],
+            "the matching library's default tile is not the one of ops/cuda/shapes.py")
+    rows: dict[str, dict] = {}
+
+    # NMS: phase 3's cases, every (lanes, scan threads) equal to plain.
+    nms_shapes = [(lanes, threads) for lanes in menus[("nms", "mask_lanes")]
+                  for threads in menus[("nms", "scan_threads")]]
+    cases = [dict(batch=8, k=1000, num_classes=8, seed=0), dict(batch=8, k=1000, num_classes=8, seed=1),
+             dict(batch=8, k=1000, num_classes=8, seed=2),
+             dict(batch=8, k=1000, num_classes=8, seed=3, tied=True),
+             dict(batch=8, k=1000, num_classes=8, seed=4, pad_images=(0,)),
+             dict(batch=8, k=300, num_classes=8, seed=5), dict(batch=8, k=65, num_classes=3, seed=6),
+             dict(batch=8, k=129, num_classes=3, seed=7),
+             "one box repeated", "disjoint boxes", "cross-word chain",
+             # More later words than half the scan's threads, up to its
+             # largest K.
+             dict(batch=2, k=4200, num_classes=8, seed=8), dict(batch=2, k=8192, num_classes=8, seed=9)]
+    timed = None
+    for case in cases:
+        cb, cs, ci = random_candidates(device=device, **case) if isinstance(case, dict) \
+            else nms_case(case, device)
+        timed = timed or (cb, cs, ci)
+        want = nms_cuda.nms_keep_mask_plain(cb, cs, ci, IOU_THRESHOLD)
+        for lanes, threads in nms_shapes:
+            got = nms_cuda.nms_keep_mask(cb, cs, ci, IOU_THRESHOLD, lanes, threads)
+            require(torch.equal(got, want), f"NMS at lanes {lanes}, scan threads {threads} differs "
+                                            f"from the plain version ({case})")
+    rows["nms_keep_mask"] = {
+        variant_label({"mask_lanes": lanes, "scan_threads": threads}): device_ms(
+            lambda: nms_cuda.nms_keep_mask(*timed, IOU_THRESHOLD, lanes, threads))
+        for lanes, threads in nms_shapes}
+    print(f"(a) NMS: {len(nms_shapes)} shapes x {len(cases)} cases (phase 3's, K 4200 and 8192) equal "
+          f"to the plain version; device ms at B 8, K 1000: {rows['nms_keep_mask']}")
+
+    # Matching: phase 6's fields, each culling edit aimed at the tile.
+    num_anchors = anchors.shape[0]
+    ragged = detect_lib.anchors_on(RAGGED_HW, AnchorConfig(), device)
+    rows["assign_fused"] = {}
+    for tile in menus[("matching", "tile_a")]:
+        fields = [
+            (anchors, gt_scene(16, MAX_GT, 0, counts=(1, 100), empty=(3,), dup=(4, 5), tiny=(6, 7))),
+            (anchors, gt_scene(16, MAX_GT, 1, counts=(0, 40), dup=range(8))),
+            (anchors, culling_field("scatter", 2, anchors, tile)),
+            (anchors, culling_field("off anchors", 3, anchors, tile)),
+            (anchors, culling_field("tile edges", 4, anchors, tile)),
+            (anchors, gt_scene(2, 1000, 5, counts=(1000, 1000))),
+            (ragged, culling_field("last tile", 6, ragged, tile)) if num_anchors % tile == 0
+            else (anchors, culling_field("last tile", 6, anchors, tile)),
+            (anchors, (batch.gt_boxes, batch.gt_labels, batch.gt_mask)),
+        ]
+        for i, (a, arrays) in enumerate(fields):
+            gts = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in arrays)
+            got = matching_cuda.assign_fused(a, *gts, tile)
+            want = matching_cuda.assign_fused_plain(a, *gts)
+            require(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+                    f"matching at tile {tile} differs from the plain version (field {i})")
+        rows["assign_fused"][variant_label({"tile_a": tile})] = device_ms(
+            lambda: matching_cuda.assign_fused(anchors, *gts, tile))
+    print(f"(a) matching: {len(menus[('matching', 'tile_a')])} tiles x {len(fields)} fields of phase 6 "
+          f"equal to the plain version (the last tile's field at {RAGGED_HW} where 128 divides "
+          f"{num_anchors}); device ms on the first training batch: {rows['assign_fused']}")
+
+    # Focal: phase 7's field.
+    gts = tuple(torch.from_numpy(a).to(device) for a in (batch.gt_boxes, batch.gt_labels, batch.gt_mask))
+    targets = matching_lib.anchor_targets_compact_batched(anchors, *gts)
+    labels, state = targets.matched_labels.contiguous(), targets.state.contiguous()
+    b, a = state.shape
+    gen = torch.Generator(device=device).manual_seed(0)
+    logits = torch.rand((b, a, 80), generator=gen, device=device) * 24 - 12
+    far = torch.rand(logits.shape, generator=gen, device=device) < 0.01
+    logits = torch.where(far, torch.sign(logits) * 25, logits).contiguous()
+    weights = torch.linspace(0.5, 2.0, b, device=device)
+    with torch.no_grad():
+        plain = focal_cuda.focal_sums_plain(logits, labels, state)
+    rows["focal_fwd"], rows["focal_bwd"], rels = {}, {}, {}
+    for tile in menus[("focal", "fwd_tile_a")]:
+        sums = focal_cuda.focal_fwd(logits, labels, state, 0.25, 2.0, tile)
+        again = focal_cuda.focal_fwd(logits, labels, state, 0.25, 2.0, tile)
+        rels[tile] = float(((sums - plain).abs() / plain.abs()).max())
+        require(torch.equal(sums, again), f"the focal forward at tile {tile} does not repeat")
+        require(rels[tile] <= 1e-5, f"the focal forward at tile {tile} is rel {rels[tile]} off")
+        rows["focal_fwd"][variant_label({"fwd_tile_a": tile})] = device_ms(
+            lambda: focal_cuda.focal_fwd(logits, labels, state, 0.25, 2.0, tile), 5, 4)
+    base = focal_cuda.focal_bwd(logits, labels, state, weights, 0.25, 2.0)
+    for tile in menus[("focal", "bwd_tile_a")]:
+        grad = focal_cuda.focal_bwd(logits, labels, state, weights, 0.25, 2.0, tile)
+        require(torch.equal(grad, base), f"the focal backward at tile {tile} differs from the default's")
+        rows["focal_bwd"][variant_label({"bwd_tile_a": tile})] = device_ms(
+            lambda: focal_cuda.focal_bwd(logits, labels, state, weights, 0.25, 2.0, tile), 5, 4)
+    print(f"(a) focal: forward rel err by tile {rels} (limit 1e-05), each repeating bit for bit; "
+          f"every backward tile equal to the default's bit for bit; device ms "
+          f"{rows['focal_fwd']} and {rows['focal_bwd']}")
+    return rows
+
+
+def tune_phase(root: str, device, kind: str, smi: str, anchors: torch.Tensor,
+               batch: pipeline_lib.Batch) -> tuple[dict[str, int], dict[str, dict]]:
+    """Phase 19; returns each kernel's launches in its consumers' run and
+    each kernel row's variants' device ms."""
+    from batchai_retinanet_horovod_coco_tpu_torch.tune import __main__ as tune_cli
+
+    t_phase = time.perf_counter()
+    variants = variant_checks(anchors, batch, device)
+
+    registry = os.path.join(root, "tuned")
+    record = os.path.join(registry, "tunebench.json")
+    here = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items() if k != schedule_lib.ENV_DIR}
+    # The command line's main in this process, as (d)'s --check after it.
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tune_cli.main(["--ops", "nms,focal,matching", "--steps", "10",
+                            "--out-root", registry, "--bench-out", record])
+    require(rc == 0, f"the search exited {rc}: {out.getvalue()[-3000:]}")
+    summary = json.loads([line for line in out.getvalue().splitlines() if line.startswith("{")][-1])
+    doc = schedule_lib.load_schedule(summary["artifact"])  # validates
+    print(f"(b) the search in {time.perf_counter() - t0:.1f} s: {len(doc['trials'])} trials, "
+          f"{summary['failed']} failed, {summary['skipped']} skipped; winners {doc['entries']} "
+          f"({smi})")
+    for t in doc["trials"]:
+        require(t["status"] == "ok" or (t["status"] == "failed" and t["error"]),
+                f"a trial is {t['status']} without an error: {t}")
+        print(f"  {t['op']} {variant_label(t['params'])}: {t['ms_per_call']} device ms a call, windows "
+              f"{t['window_ms']}, noise {t['noise_pct']}% ({t['status']})")
+    require(set(doc["entries"]) == {"nms", "focal", "matching"} and doc["device_kind"] == kind,
+            f"the search's file {doc['entries']}")
+    win = doc["entries"]
+
+    work = os.path.join(root, "tune_consumers")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", TUNE_CONSUMERS, work], capture_output=True, text=True,
+                          timeout=300, env={**env, schedule_lib.ENV_DIR: registry}, cwd=here)
+    require(proc.returncode == 0, f"the consumers' process failed: {proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    nms_key = f"{win['nms']['mask_lanes']},{win['nms']['scan_threads']}"
+    train = got["train"]
+    print(f"(c) a fresh process over the file, {time.perf_counter() - t0:.1f} s: train synthetic "
+          f"launched matching {train['matching']}, focal forward {train['focal_fwd']}, backward "
+          f"{train['focal_bwd']}, NMS {train['nms']} (tile / shape: launches); postprocess NMS "
+          f"{got['postprocess']['nms']}; the manifest's launch shapes {got['manifest']['launch_shapes']}, schedule "
+          f"{got['manifest']['schedule']}")
+    require(train["final_step"] == 3.0 and train["plain"] == 0, f"the training run: {train}")
+    require(train["matching"] == {str(win["matching"]["tile_a"]): 3}
+            and train["focal_fwd"] == {str(win["focal"]["fwd_tile_a"]): 3}
+            and train["focal_bwd"] == {str(win["focal"]["bwd_tile_a"]): 3},
+            f"the training run did not launch the winning variants only: {train}")
+    require(set(train["nms"]) == {nms_key}, f"the training run's eval launched NMS {train['nms']}")
+    require(got["postprocess"]["nms"] == {nms_key: 1} and got["postprocess"]["plain"] == 0,
+            f"postprocess launched {got['postprocess']}, not the winning NMS variant only")
+    manifest = got["manifest"]
+    require(manifest["launch_shapes"]["nms"] == {k: win["nms"][k] for k in ("mask_lanes", "scan_threads")}
+            and manifest["schedule"]["found"] is True and manifest["schedule"]["device_kind"] == kind,
+            f"the manifest's launch shapes {manifest['launch_shapes']}, schedule {manifest['schedule']}")
+    require(set(got["convert"]["nms"]) <= {nms_key} and got["convert"]["plain"] == 0,
+            f"convert_model launched {got['convert']}")
+    launches = {
+        "matching": sum(train["matching"].values()),
+        "focal_fwd": sum(train["focal_fwd"].values()),
+        "focal_bwd": sum(train["focal_bwd"].values()),
+        "nms": sum(train["nms"].values()) + sum(got["postprocess"]["nms"].values())
+        + sum(got["convert"]["nms"].values()),
+    }
+
+    # --check reads the record and measures its winner again.  Its verdict
+    # is a timing, printed and not gated on here.
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tune_cli.main(["--check", "--bench-out", record, "--steps", "10"])
+    verdict = out.getvalue().strip()
+    print(f"(d) {verdict} (exit {rc})")
+    require((rc, verdict.endswith(": ok")) in ((0, True), (1, False)) and "vs recorded" in verdict,
+            f"tune --check did not measure the record's winner: exit {rc}, {verdict!r}")
+
+    report = os.path.join(root, "perf_obs", "PERF_REPORT.json")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tune_cli.main(["--from-report", report, "--smoke", "--steps", "2", "--dry-run",
+                            "--out-root", os.path.join(root, "tuned_dry")])
+    derived = [line for line in out.getvalue().splitlines() if line.startswith("# tune: --from-report")]
+    print(f"(e) {derived[0] if derived else out.getvalue()[:500]}")
+    require(rc == 0 and derived, "tune --from-report did not derive its ops from phase 13's report")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 19 in {phase_s:.1f} s (limit {TUNE_DEADLINE_S} s); launches {launches}")
+    require(phase_s <= TUNE_DEADLINE_S, f"phase 19 took {phase_s:.1f} s")
+    return launches, variants
 
 
 if __name__ == "__main__":

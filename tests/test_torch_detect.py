@@ -46,6 +46,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.models import retinanet as t_retin
 from batchai_retinanet_horovod_coco_tpu_torch.models.convert import load_flax_variables
 from batchai_retinanet_horovod_coco_tpu_torch.ops import nms as t_nms
 from batchai_retinanet_horovod_coco_tpu_torch.ops.cuda import nms as t_nms_cuda
+from batchai_retinanet_horovod_coco_tpu_torch.tune import schedule as t_schedule
 
 HW = (80, 112)  # C4 5 x 7, C5 3 x 4: a non-2x upsample and odd stride-2 inputs
 SMALL = dict(num_classes=3, backbone="resnet_test", fpn_channels=32, head_width=32, head_depth=2)
@@ -108,10 +109,21 @@ def test_nms_on_jax_stages_is_bit_identical(jax_run):
     assert 0 < got.valid.sum() < 2 * NMS["pre_nms_size"]
 
 
-def test_postprocess_on_jax_forward(jax_run):
+@pytest.mark.parametrize("registry", [None, {"nms": {"pre_nms_size": 500, "mask_lanes": 8,
+                                                       "scan_threads": 512}}],
+                         ids=["defaults", "registry"])
+def test_postprocess_on_jax_forward(jax_run, registry, tmp_path, monkeypatch):
     """Part 1b: JAX's forward outputs through the port's own sigmoid,
-    decode, clip and NMS."""
+    decode, clip and NMS; with a schedule registry that names other NMS
+    launch shapes (and a ``pre_nms_size`` that the pinned one overrides),
+    the same Detections."""
     outputs, _, _, det = jax_run
+    if registry is not None:
+        monkeypatch.setenv(t_schedule.ENV_DIR, str(tmp_path))
+        t_schedule.save_schedule({"format": t_schedule.FORMAT, "device_kind": "cpu",
+                                  "entries": registry}, str(tmp_path))
+        resolved = t_detect.resolve_detect_config(t_detect.DetectConfig(**NMS), "cpu")
+        assert (resolved.pre_nms_size, resolved.nms_mask_lanes, resolved.nms_scan_threads) == (32, 8, 512)
     got = t_detect.postprocess(
         {k: torch.from_numpy(np.array(v)) for k, v in outputs.items()},
         t_detect.anchors_on(HW, t_detect.DetectConfig().anchor, torch.device("cpu")),

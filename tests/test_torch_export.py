@@ -306,13 +306,14 @@ def test_manifest_has_the_jax_keys_and_is_written_last(exports, bf16_export):
     jax_dir, port_dir = exports
     want = json.loads((Path(jax_dir) / "manifest.json").read_text())
     got = json.loads((Path(port_dir) / "manifest.json").read_text())
-    assert set(got) == set(want) | {"device"}
+    assert set(got) == set(want) | {"device", "launch_shapes"}
     assert set(got["detect_config"]) == set(want["detect_config"])
     assert got["format"] == t_export.FORMAT and got["device"] == "cpu"
     assert got["detect_config"]["nms_impl"] == nms_cuda.OP_NAME
     assert got["detect_config"]["nms_block_k"] is None
     # The port's registry has no file for the CPU: the built-in defaults.
     assert got["schedule"] == {"device_kind": "cpu", "source": "defaults", "found": False}
+    assert got["launch_shapes"] == {"nms": {"mask_lanes": 4, "scan_threads": 256}}
     for key in ("input", "output", "anchor_config", "image_min_side", "image_max_side"):
         assert got[key] == want[key], key
     for key in ("score_threshold", "iou_threshold", "pre_nms_size", "max_detections"):

@@ -25,6 +25,7 @@ pass.  Every comparison is exact unless it says otherwise:
 """
 
 import dataclasses
+import inspect
 import json
 import os
 import signal
@@ -489,12 +490,30 @@ def test_fleet_http_answers_as_jax():
 
 def test_fleet_flags_are_the_jax_command_line_s():
     """Every flag and default of the JAX fleet command line, plus
-    ``--device`` (default ``cuda``)."""
+    ``--device`` (default ``cuda``) and ``--replica-start-timeout-s``,
+    whose default is the JAX spawn's fixed wait for /healthz."""
     want = {a.dest: a.default for a in j_fleet.build_parser()._actions}
     got = {a.dest: a.default for a in t_fleet.build_parser()._actions}
-    assert set(got) == set(want) | {"device"}
+    assert set(got) == set(want) | {"device", "replica_start_timeout_s"}
     assert all(got[k] == want[k] for k in want)
     assert got["device"] == "cuda"
+    jax_wait = inspect.signature(j_replica.spawn_http_replica).parameters["wait_policy"].default
+    assert got["replica_start_timeout_s"] == jax_wait.max_tries * jax_wait.base_s == 60.0
+
+
+def test_replica_start_timeout_bounds_every_spawn(tmp_path):
+    """``--replica-start-timeout-s`` is the spawn's wait for /healthz: a
+    stub replica, which imports torch before it listens, misses a wait of
+    0.5 s and the fleet refuses to start, naming it; 0 is refused."""
+    with pytest.raises(SystemExit, match="must be > 0"):
+        t_fleet.main(["--http", "0", "--spawn", "1", "--stub-engine",
+                      "--replica-start-timeout-s", "0"])
+    proc = subprocess.run(
+        [sys.executable, "-m", "batchai_retinanet_horovod_coco_tpu_torch.serve.fleet", "--http", "0",
+         "--spawn", "1", "--stub-engine", "--replica-start-timeout-s", "0.5"],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "spawned replica replica-0 never became healthy: healthz 0" in proc.stderr, proc.stderr[-2000:]
 
 
 def test_fleet_cli_with_an_export_raises_without_a_card():

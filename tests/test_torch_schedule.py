@@ -5,10 +5,10 @@ apply to the port (every problem named, unknown ops and keys, the slug, the
 deep merge, one ``schedule_fallback`` line per (device, reason), the cache
 keyed by path, the environment override, provenance relative to the
 checkout), the port's departures (its own format and directory, the torch
-device as the device kind, the one entry it has a reader for, no
-launch-shape keys), and its consumers: ``pre_nms_size`` in the detect path
-and the export manifest.  A lookup for the CPU leaves CUDA uninitialised,
-in a process of its own.
+device as the device kind, the kernels' launch shapes as menus, no
+``impl``, ``block_k`` or ``eval``), and its consumers: ``pre_nms_size`` and
+the NMS launch shape in the detect path and the export manifest.  A lookup
+for the CPU leaves CUDA uninitialised, in a process of its own.
 """
 
 import json
@@ -53,7 +53,9 @@ def test_round_trip_and_deep_merge(tmp_path):
     path = schedule_lib.save_schedule(doc(nms={"pre_nms_size": 500}), str(tmp_path))
     assert path == str(tmp_path / "cpu.json")
     assert schedule_lib.load_schedule(path)["entries"] == {"nms": {"pre_nms_size": 500}}
-    assert schedule_lib.lookup("cpu", str(tmp_path)) == {"nms": {"pre_nms_size": 500}}
+    want = {**schedule_lib.DEFAULT_SCHEDULE,
+            "nms": {**schedule_lib.DEFAULT_SCHEDULE["nms"], "pre_nms_size": 500}}
+    assert schedule_lib.lookup("cpu", str(tmp_path)) == want
     # A file that names no knob keeps the defaults.
     schedule_lib.save_schedule(doc(nms={}), str(tmp_path))
     assert schedule_lib.lookup("cpu", str(tmp_path)) == schedule_lib.DEFAULT_SCHEDULE
@@ -67,8 +69,10 @@ def test_every_problem_is_named():
         schedule_lib.validate_schedule(bad)
     text = str(info.value)
     for needle in ("format: expected 'retinanet_torch.schedule.v1'", "device_kind",
-                   "unknown op keys ['focal', 'matching']", "nms: unknown keys ['block_k', 'impl']",
-                   "ROADMAP.md", "nms.pre_nms_size: int in [1, 8192]", "trials: list"):
+                   "matching.tile_a: one of the kernel's menu [128, 256] required, got 8192",
+                   "focal: unknown keys ['impl']", "nms: unknown keys ['block_k', 'impl']",
+                   "bitsets are uint64", "never takes a plain version",
+                   "nms.pre_nms_size: int in [1, 8192]", "trials: list"):
         assert needle in text, needle
     with pytest.raises(schedule_lib.ScheduleError, match="nms: object required"):
         schedule_lib.validate_schedule(doc(nms=500))
@@ -135,11 +139,22 @@ def test_provenance(tmp_path):
 
 
 @pytest.mark.parametrize("op", ["focal", "eval", "serve", "matching"])
-def test_jax_entries_without_a_reader_are_refused(op):
-    """The JAX registry's other entries are refused, so that a file cannot
-    set a knob that nothing reads."""
-    with pytest.raises(schedule_lib.ScheduleError, match=f"unknown op keys \\['{op}'\\]"):
-        schedule_lib.validate_schedule(doc(**{op: {}}))
+def test_jax_entries_without_a_reader_are_refused(op, tmp_path):
+    """The JAX registry's entries with a reader in the port are accepted and
+    resolve (focal and matching: the train step); eval (its reader, the
+    benchmark harness's eval, is not ported) and serve (no entry point
+    builds the engine from a live model) are refused with their reasons,
+    so that a file cannot set a knob that nothing reads."""
+    if op in ("eval", "serve"):
+        why = {"eval": "not ported", "serve": "builds the serve engine from a live model"}[op]
+        with pytest.raises(schedule_lib.ScheduleError,
+                           match=f"unknown op keys \\['{op}'\\].*{why}"):
+            schedule_lib.validate_schedule(doc(**{op: {}}))
+        return
+    entry = {"focal": {"fwd_tile_a": 1024, "bwd_tile_a": 128}, "matching": {"tile_a": 128}}[op]
+    assert schedule_lib.validate_schedule(doc(**{op: {}}))
+    schedule_lib.save_schedule(doc(**{op: entry}), str(tmp_path))
+    assert schedule_lib.lookup("cpu", str(tmp_path))[op] == entry
 
 
 def test_a_cpu_lookup_leaves_cuda_uninitialised(tmp_path):
@@ -160,9 +175,10 @@ def test_detect_and_export_read_the_registry(tmp_path, monkeypatch):
     monkeypatch.setenv(schedule_lib.ENV_DIR, str(registry))
     config = t_detect.DetectConfig(score_threshold=0.001, max_detections=20)
     assert t_detect.resolve_detect_config(config, "cpu").pre_nms_size == 1000
-    schedule_lib.save_schedule(doc(nms={"pre_nms_size": 37}), str(registry))
-    assert t_detect.resolve_detect_config(config, "cpu").pre_nms_size == 37
-    pinned = t_detect.DetectConfig(pre_nms_size=5)
+    schedule_lib.save_schedule(doc(nms={"pre_nms_size": 37, "mask_lanes": 8}), str(registry))
+    resolved = t_detect.resolve_detect_config(config, "cpu")
+    assert (resolved.pre_nms_size, resolved.nms_mask_lanes, resolved.nms_scan_threads) == (37, 8, 256)
+    pinned = t_detect.DetectConfig(pre_nms_size=5, nms_mask_lanes=2, nms_scan_threads=512)
     assert t_detect.resolve_detect_config(pinned, "cpu") is pinned
     # postprocess, which every detect path goes through, hands the NMS the
     # registry's size where the config leaves it None, and a pinned one else.
@@ -183,5 +199,6 @@ def test_detect_and_export_read_the_registry(tmp_path, monkeypatch):
     manifest = json.loads(Path(t_export.export_model(
         model, str(tmp_path / "export"), (hw,), 1, config, "cpu")).read_text())
     assert manifest["detect_config"]["pre_nms_size"] == 37
+    assert manifest["launch_shapes"] == {"nms": {"mask_lanes": 8, "scan_threads": 256}}
     assert manifest["schedule"] == {"device_kind": "cpu", "found": True,
                                     "source": str(registry / "cpu.json")}

@@ -49,7 +49,9 @@ from batchai_retinanet_horovod_coco_tpu import losses as j_losses
 from batchai_retinanet_horovod_coco_tpu.train import optim as j_optim
 from batchai_retinanet_horovod_coco_tpu.train import state as j_state
 from batchai_retinanet_horovod_coco_tpu.train import step as j_step
+from batchai_retinanet_horovod_coco_tpu_torch import losses as t_losses
 from batchai_retinanet_horovod_coco_tpu_torch.data import pipeline as t_pipeline
+from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as t_matching
 from batchai_retinanet_horovod_coco_tpu_torch.data.prefetch import prefetch_map
 from batchai_retinanet_horovod_coco_tpu_torch.models import resnet as t_resnet
 from batchai_retinanet_horovod_coco_tpu_torch.models import retinanet as t_retinanet
@@ -61,6 +63,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.train import loop as t_loop
 from batchai_retinanet_horovod_coco_tpu_torch.train import optim as t_optim
 from batchai_retinanet_horovod_coco_tpu_torch.train import state as t_state
 from batchai_retinanet_horovod_coco_tpu_torch.train import step as t_step
+from batchai_retinanet_horovod_coco_tpu_torch.tune import schedule as t_schedule
 
 HW = (64, 64)
 
@@ -175,22 +178,43 @@ def run_port(norm_kind, opt, batch, initial, backbone="resnet_test", steps=STEPS
     return history, model
 
 
+# The JAX runs by (norm, backbone, steps, f64): the registry case reuses
+# its golden twin's.
+_JAX_RUNS: dict = {}
+# Launch shapes other than the kernels' defaults (the CPU's plain versions
+# take none: the values must not move).
+NON_DEFAULT_SHAPES = {"focal": {"fwd_tile_a": 1024, "bwd_tile_a": 128}, "matching": {"tile_a": 128}}
+
+
 @pytest.mark.parametrize(
-    "norm_kind,opt,backbone,steps,jax_f64",
+    "norm_kind,opt,backbone,steps,jax_f64,registry",
     [
-        ("gn", GOLDEN_OPT, "resnet_test", STEPS, False),
-        ("bn", GOLDEN_OPT, "resnet_test", STEPS, False),
+        ("gn", GOLDEN_OPT, "resnet_test", STEPS, False, None),
+        ("bn", GOLDEN_OPT, "resnet_test", STEPS, False, None),
         # MobileNet: depthwise convs, SAME padding, relu6, BatchNorm
         # training; one step against the f64 JAX step (module docstring).
-        ("bn", GOLDEN_OPT, "mobilenet", 1, True),
+        ("bn", GOLDEN_OPT, "mobilenet", 1, True, None),
+        # A schedule registry naming other launch shapes for the CPU.
+        ("gn", GOLDEN_OPT, "resnet_test", STEPS, False, NON_DEFAULT_SHAPES),
     ],
-    ids=["gn-golden", "bn-golden", "bn-mobilenet"],
+    ids=["gn-golden", "bn-golden", "bn-mobilenet", "gn-golden-registry"],
 )
-def test_train_steps_match_jax(norm_kind, opt, backbone, steps, jax_f64):
+def test_train_steps_match_jax(norm_kind, opt, backbone, steps, jax_f64, registry, tmp_path,
+                               monkeypatch):
+    if registry is not None:
+        monkeypatch.setenv(t_schedule.ENV_DIR, str(tmp_path))
+        t_schedule.save_schedule({"format": t_schedule.FORMAT, "device_kind": "cpu",
+                                  "entries": registry}, str(tmp_path))
+        loss, match = t_step.resolve_kernel_schedule(t_losses.LossConfig(),
+                                                     t_matching.MatchingConfig(), "cpu")
+        assert (loss.focal_fwd_tile_a, loss.focal_bwd_tile_a, match.tile_a) == (1024, 128, 128)
     batch = golden_batch()
-    with jax.enable_x64(jax_f64):
-        initial, want, final = run_jax(norm_kind, opt, batch, backbone, steps,
-                                       jnp.float64 if jax_f64 else jnp.float32)
+    key = (norm_kind, backbone, steps, jax_f64)
+    if key not in _JAX_RUNS:
+        with jax.enable_x64(jax_f64):
+            _JAX_RUNS[key] = run_jax(norm_kind, opt, batch, backbone, steps,
+                                     jnp.float64 if jax_f64 else jnp.float32)
+    initial, want, final = _JAX_RUNS[key]
     got, model = run_port(norm_kind, opt, batch, initial, backbone, steps)
     assert len(got) == len(want) == steps
     for g, w in zip(got, want):
