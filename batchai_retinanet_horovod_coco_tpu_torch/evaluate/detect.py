@@ -29,6 +29,10 @@ in the same order as the sequential path (``pipelined=False``):
    image as its batch arrives (``StreamingCocoEval``), behind a bounded
    queue, FIFO, with the error contract of the prefetch thread.
 
+:func:`make_detect_fn_spatial` is the JAX package's spatial detection:
+each image's H axis over the ranks of a space group, the heads' outputs
+gathered into the one-process order, and NMS replicated on every rank.
+
 In a data-parallel world each rank detects its own shard of the val set
 (the pipeline's ``shard_index``/``shard_count``) and
 :func:`allgather_process_detections` merges the shards, so every rank
@@ -197,6 +201,78 @@ def make_detect_fn(
             raise ValueError(f"batch of {tuple(x.shape)} for bucket {image_hw}")
         with torch.inference_mode():
             return nms_lib.Detections(*program(x))
+
+    return detect
+
+
+def make_detect_fn_spatial(
+    model: torch.nn.Module,
+    image_hw: tuple[int, int],
+    config: DetectConfig = DetectConfig(),
+    world=None,
+    num_space: int | None = None,
+) -> Callable[[object], nms_lib.Detections]:
+    """Detection with each image's H axis over the ``num_space`` ranks of
+    this rank's space group (the JAX package's ``make_detect_fn_spatial``),
+    on the world's device (``parallel/mesh.py::space_axis``; every rank of
+    ``world`` builds it, the groups are made on first use).
+
+    ``detect(images)`` takes the whole uint8 images (B, H, W, 3), the same
+    on every rank of the group, and runs the model on this rank's rows
+    (``parallel/spatial.py``).  The heads' outputs are then gathered from
+    the group in one all-gather and put in the one-process order (level,
+    y, x, anchor, class): the trap is stable top-k, whose picks depend on
+    that order.  ``postprocess`` runs replicated on every rank of the
+    group, the NMS kernel included, as the JAX function replicates NMS."""
+    from batchai_retinanet_horovod_coco_tpu_torch.parallel import mesh, spatial
+
+    if world is None:
+        raise ValueError("spatial detection needs a world")
+    num_space = world.size if num_space is None else num_space
+    axis = mesh.space_axis(world, num_space)
+    check_shape = getattr(model.backbone, "check_shape", None)
+    if check_shape is not None:
+        check_shape(*image_hw)
+    device = world.device
+    program = DetectProgram(model, image_hw, config).to(device).eval()
+    row0, row1 = spatial.rows_of(image_hw[0], num_space, axis.index)
+    # Rank t's entries of each level, then the permutation of the gathered
+    # (rank, local anchor) rows into global order.
+    per_location = config.anchor.num_anchors_per_location
+    counts = []
+    for level in config.anchor.levels:
+        fh, fw = config.anchor.feature_shape(image_hw, level)
+        spans = [spatial.rows_of(fh, num_space, t) for t in range(num_space)]
+        counts.append([(stop - start) * fw * per_location for start, stop in spans])
+    local = [sum(level[t] for level in counts) for t in range(num_space)]
+    width = max(local)
+    order, offsets = [], [0] * num_space
+    for level in counts:
+        for t, n in enumerate(level):
+            order.extend(range(t * width + offsets[t], t * width + offsets[t] + n))
+            offsets[t] += n
+    order = torch.tensor(order, dtype=torch.int64, device=device)
+
+    def detect(images) -> nms_lib.Detections:
+        x = to_device_images(images, device)
+        if tuple(x.shape[1:3]) != tuple(image_hw):
+            raise ValueError(f"batch of {tuple(x.shape)} for bucket {image_hw}")
+        with torch.inference_mode(), spatial.sharded(axis):
+            out = model(pipeline_lib.normalize_images(x[:, row0:row1]))
+            k = out["cls_logits"].shape[-1]
+            joined = torch.cat([out["cls_logits"], out["box_deltas"]], dim=-1)
+            if joined.shape[1] != local[axis.index]:
+                raise RuntimeError(
+                    f"space rank {axis.index} produced {joined.shape[1]} anchors' outputs; its "
+                    f"rows of the pyramid hold {local[axis.index]}"
+                )
+            padded = torch.nn.functional.pad(joined, (0, 0, 0, width - joined.shape[1]))
+            gathered = spatial.all_gather(padded, axis)  # (S, B, width, K + 4)
+            flat = gathered.transpose(0, 1).reshape(x.shape[0], num_space * width, -1)
+            flat = flat.index_select(1, order)
+            outputs = {"cls_logits": flat[..., :k], "box_deltas": flat[..., k:]}
+            return nms_lib.Detections(*postprocess(outputs, program.anchors, program.image_hw,
+                                                   config))
 
     return detect
 

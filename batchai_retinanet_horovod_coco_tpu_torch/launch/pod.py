@@ -126,6 +126,9 @@ class World:
     # The two-level tree's process groups as axes, by topology
     # (parallel/mesh.py::hop_axes): made once a world.
     hop_groups: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+    # The (data, space) axes of spatial partitioning by space size
+    # (parallel/mesh.py::space_axis): made once a world.
+    space_axes: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def is_main(self) -> bool:
@@ -208,6 +211,7 @@ def shutdown_distributed(world: World | None) -> None:
     if world is not None and dist.is_initialized():
         world.replica_slot.clear()
         world.hop_groups.clear()
+        world.space_axes.clear()
         dist.destroy_process_group()
 
 

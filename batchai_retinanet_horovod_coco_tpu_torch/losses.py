@@ -49,10 +49,23 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, x.new_zeros(()))
 
 
-def _normalize_per_image(per_image: torch.Tensor, anchor_state: torch.Tensor) -> torch.Tensor:
-    """Mean over images of ``per_image / max(#positive anchors, 1)``."""
-    num_pos = (anchor_state == matching.POSITIVE).float().sum(dim=-1)
-    return (per_image / torch.clamp_min(num_pos, 1.0)).mean()
+def _normalize_per_image(
+    per_image: torch.Tensor,
+    anchor_state: torch.Tensor,
+    num_pos: torch.Tensor | None = None,
+    batch_size: int | None = None,
+) -> torch.Tensor:
+    """Mean over images of ``per_image / max(#positive anchors, 1)``.
+
+    A space rank of spatial partitioning holds part of each image's
+    anchors: its ``num_pos`` is each image's count summed over the space
+    group first (the trap: its own positives would be the wrong
+    denominator), and it divides by the global ``batch_size``, so the sum
+    of every rank's value is the global loss."""
+    if num_pos is None:
+        num_pos = (anchor_state == matching.POSITIVE).float().sum(dim=-1)
+    per = per_image / torch.clamp_min(num_pos, 1.0)
+    return per.mean() if batch_size is None else per.sum() / batch_size
 
 
 def _focal_elementwise(
@@ -116,11 +129,14 @@ def focal_loss_compact(
     matched_labels: torch.Tensor,
     anchor_state: torch.Tensor,
     config: LossConfig = LossConfig(),
+    num_pos: torch.Tensor | None = None,
+    batch_size: int | None = None,
 ) -> torch.Tensor:
     """Scalar focal loss from integer labels.  The per-image sums come from
     ``ops.cuda.focal.focal_loss_per_image_sums``: the kernels on a card, the
     plain version on the CPU.  Leading dims are flattened into one batch
-    dim for it."""
+    dim for it.  ``num_pos`` and ``batch_size``: see
+    :func:`_normalize_per_image`."""
     a, k = cls_logits.shape[-2:]
     sums = focal_cuda.focal_loss_per_image_sums(
         cls_logits.reshape(-1, a, k).float().contiguous(),
@@ -131,7 +147,8 @@ def focal_loss_compact(
         config.focal_fwd_tile_a,
         config.focal_bwd_tile_a,
     )
-    return _normalize_per_image(sums.reshape(anchor_state.shape[:-1]), anchor_state)
+    return _normalize_per_image(sums.reshape(anchor_state.shape[:-1]), anchor_state, num_pos,
+                                batch_size)
 
 
 def _smooth_l1_elementwise(
@@ -159,10 +176,13 @@ def smooth_l1_loss(
     box_targets: torch.Tensor,
     anchor_state: torch.Tensor,
     config: LossConfig = LossConfig(),
+    num_pos: torch.Tensor | None = None,
+    batch_size: int | None = None,
 ) -> torch.Tensor:
     """Scalar smooth-L1 regression loss over positive anchors."""
     return _normalize_per_image(
-        smooth_l1_sums(box_preds, box_targets, anchor_state, config), anchor_state
+        smooth_l1_sums(box_preds, box_targets, anchor_state, config), anchor_state, num_pos,
+        batch_size,
     )
 
 
@@ -173,10 +193,15 @@ def total_loss_compact(
     box_targets: torch.Tensor,
     anchor_state: torch.Tensor,
     config: LossConfig = LossConfig(),
+    num_pos: torch.Tensor | None = None,
+    batch_size: int | None = None,
 ) -> dict[str, torch.Tensor]:
-    """:func:`total_loss` on compact (integer-label) targets: the step path."""
-    cls = focal_loss_compact(cls_logits, matched_labels, anchor_state, config)
-    box = smooth_l1_loss(box_preds, box_targets, anchor_state, config)
+    """:func:`total_loss` on compact (integer-label) targets: the step path
+    (``num_pos`` and ``batch_size`` for a space rank's share,
+    :func:`_normalize_per_image`)."""
+    cls = focal_loss_compact(cls_logits, matched_labels, anchor_state, config, num_pos,
+                             batch_size)
+    box = smooth_l1_loss(box_preds, box_targets, anchor_state, config, num_pos, batch_size)
     return {"loss": cls + config.box_loss_weight * box, "cls_loss": cls, "box_loss": box}
 
 

@@ -20,7 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from batchai_retinanet_horovod_coco_tpu_torch.models.resnet import Conv2d, NormFactory, max_pool
+from batchai_retinanet_horovod_coco_tpu_torch.models.resnet import (
+    Conv2d,
+    NormFactory,
+    avg_pool,
+    max_pool,
+)
 
 # Layers per dense block of each variant (growth 32, init 64, compression 0.5).
 DENSENET_STAGES = {
@@ -88,5 +93,5 @@ class DenseNet(nn.Module):
             if block >= 2:  # blocks 2/3/4 at strides 8/16/32
                 features[f"c{block + 1}"] = x
             if block < len(self.stage_sizes):
-                x = F.avg_pool2d(getattr(self, f"transition{block}_conv")(x), 2, 2)
+                x = avg_pool(getattr(self, f"transition{block}_conv")(x), 2, 2)
         return features

@@ -5,6 +5,10 @@ top-down pathway resized to the exact lateral shape, 3x3 output convs, P6 a
 stride-2 conv on C5 and P7 a stride-2 conv on relu(P6).  Every conv uses
 XLA's SAME padding, which for the stride-2 P6/P7 convs on an even size pads
 (0, 1) (``Conv2d(padding="same")``).
+
+Inside a ``parallel/spatial.py::sharded`` block the maps are row shards
+and the top-down resize reads its source rows through the row exchange
+(:func:`upsample_like`).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 from torch import nn
 
 from batchai_retinanet_horovod_coco_tpu_torch.models.resnet import Conv2d
+from batchai_retinanet_horovod_coco_tpu_torch.parallel import spatial
 from batchai_retinanet_horovod_coco_tpu_torch.utils.device import constant
 
 
@@ -36,6 +41,29 @@ def upsample_to(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
             idx = constant(_nearest_indices(src, dst), torch.int64, x.device)
             x = x.index_select(dim, idx)
     return x
+
+
+def upsample_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """:func:`upsample_to` ``ref``'s spatial size, on row shards too.
+
+    Trap: the source rows are ``_nearest_indices`` of the *global* heights
+    (its f32 folded constant differs from exact arithmetic on some sizes),
+    and a rank's output rows (its share of ``ref``'s height) may read
+    source rows that another rank owns: they come through the exchange,
+    which also gathers ``ref``'s row counts for its global height."""
+    axis = spatial.current()
+    if axis is None:
+        return upsample_to(x, ref.shape[2:])
+    # Source rows lie within S + 1 rows of the owner's edge: a rank's first
+    # output row maps to s * ceil(h_ref / S) * h_x / h_ref, at most s rows
+    # from s * ceil(h_x / S).
+    edges, counts = spatial.exchange(x, axis, axis.size + 2, extra=(ref.shape[2],))
+    src = spatial.height(counts, axis)
+    dst = spatial.height(counts, axis, column=1)
+    o0, o1 = spatial.rows_of(dst, axis.size, axis.index)
+    rows = _nearest_indices(src, dst)[o0:o1] if src != dst else range(o0, o1)
+    y = spatial.assemble(x, edges, counts, rows, 0.0, axis)
+    return upsample_to(y, (o1 - o0, ref.shape[3]))
 
 
 class FPN(nn.Module):
@@ -67,8 +95,8 @@ class FPN(nn.Module):
         m5 = self.lateral_c5(c5)
         m4 = self.lateral_c4(c4)
         m3 = self.lateral_c3(c3)
-        m4 = m4 + upsample_to(m5, m4.shape[2:])
-        m3 = m3 + upsample_to(m4, m3.shape[2:])
+        m4 = m4 + upsample_like(m5, m4)
+        m3 = m3 + upsample_like(m4, m3)
         p6 = self.out_p6(c5)
         return {
             "p3": self.out_p3(m3),

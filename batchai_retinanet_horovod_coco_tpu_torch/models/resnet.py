@@ -20,9 +20,17 @@ model refuses for a setting (H or W not divisible by the fold, an odd
 stage-2 width when packed) raise the same ``ValueError`` here, so a command
 line behaves the same in both packages.
 
-``Conv2d``, the norms, ``NormFactory`` and :func:`max_pool` are shared by
-the other backbones (``mobilenet.py``, ``vgg.py``, ``densenet.py``), as in
-the JAX package.
+``Conv2d``, the norms, ``NormFactory``, :func:`max_pool` and
+:func:`avg_pool` are shared by the other backbones (``mobilenet.py``,
+``vgg.py``, ``densenet.py``), as in the JAX package.  ``stem_pool="avg"``
+is the JAX package's tie-free diagnostic stem: flax's ``avg_pool`` with
+(1, 1) padding, whose pads count in the divisor (``count_include_pad``).
+
+Inside a ``parallel/spatial.py::sharded`` block each of them computes on
+this rank's rows of a map whose H axis lies over a space group: the convs
+and pools through the row exchange, the norms with their statistics summed
+over the ranks that share the images.  Outside one they are the one-process
+code, unchanged.
 
 Parameters stay f32; activations follow ``dtype`` (bf16 by default): each
 conv casts its input and weights to ``dtype``, each norm computes in f32
@@ -39,6 +47,8 @@ from collections.abc import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from batchai_retinanet_horovod_coco_tpu_torch.parallel import spatial
 
 
 def same_pads(h: int, w: int, kernel_size: int, stride: int) -> tuple[int, int, int, int]:
@@ -92,6 +102,9 @@ class Conv2d(nn.Module):
         return same_pads(h, w, self.kernel_size, self.stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axis = spatial.current()
+        if axis is not None:
+            return self._forward_rows(x, axis)
         left, right, top, bottom = self._pads(x.shape[-2], x.shape[-1])
         x = x.to(self.dtype)
         if left == right and top == bottom:
@@ -102,16 +115,98 @@ class Conv2d(nn.Module):
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x, self.weight.to(self.dtype), bias, self.stride, pad, 1, self.groups)
 
+    def _forward_rows(self, x: torch.Tensor, axis: spatial.SpaceAxis) -> torch.Tensor:
+        """This rank's output rows of the conv of the row-sharded ``x``.
+
+        Trap: SAME and symmetric padding are in global coordinates.  The
+        (top, bottom) pads come from the global height (SAME pads (0, 1) on
+        an even height, at the image's bottom only; the stem's 3 and a 3x3's
+        1 at the global edges only); between shards there are halo rows, no
+        padding (``spatial.windowed``).  W is not sharded and pads as in
+        one process."""
+        x = x.to(self.dtype)
+        weight = self.weight.to(self.dtype)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        width = x.shape[-1]
+        left, right = self._pads(1, width)[:2]
+
+        def conv(rows: torch.Tensor) -> torch.Tensor:
+            if left == right:
+                return F.conv2d(rows, weight, bias, self.stride, (0, left), 1, self.groups)
+            return F.conv2d(F.pad(rows, (left, right, 0, 0)), weight, bias, self.stride, 0, 1,
+                            self.groups)
+
+        if self.kernel_size == 1 and self.stride == 1 and self._pads(1, width)[2:] == (0, 0):
+            # A 1x1 conv needs no other rank's rows.  Trap: a rank that owns
+            # no rows still runs it, on one zero row cut away after, so its
+            # input stays in the graph (the exchanges before it must run
+            # their backward on every rank).
+            if x.shape[2]:
+                return conv(x)
+            return conv(F.pad(x, (0, 0, 0, 1)))[:, :, :0]
+        return spatial.windowed(x, axis, self.kernel_size, self.stride,
+                                lambda h: self._pads(h, width)[2:], 0.0, conv)
+
 
 def max_pool(x: torch.Tensor, kernel_size: int, stride: int, padding: str = "valid") -> torch.Tensor:
     """flax's ``nn.max_pool`` over NCHW ``x``: ``"valid"`` (no padding,
     floor(n / stride) windows) or ``"same"`` (XLA's SAME rule, padded with
     -inf so padding never wins the max)."""
+    axis = spatial.current()
+    if axis is not None:
+        if padding not in ("same", "valid"):
+            raise ValueError(f"unknown pooling padding: {padding!r}")
+        width = x.shape[-1]
+        pads = same_pads(1, width, kernel_size, stride) if padding == "same" else (0, 0)
+
+        def pool(rows: torch.Tensor) -> torch.Tensor:
+            rows = F.pad(rows, (pads[0], pads[1], 0, 0), value=float("-inf"))
+            return F.max_pool2d(rows, kernel_size, stride)
+
+        def vertical(h: int) -> tuple[int, int]:
+            return same_pads(h, width, kernel_size, stride)[2:] if padding == "same" else (0, 0)
+
+        return spatial.windowed(x, axis, kernel_size, stride, vertical, float("-inf"), pool)
     if padding == "same":
         x = F.pad(x, same_pads(x.shape[-2], x.shape[-1], kernel_size, stride), value=float("-inf"))
     elif padding != "valid":
         raise ValueError(f"unknown pooling padding: {padding!r}")
     return F.max_pool2d(x, kernel_size, stride)
+
+
+def avg_pool(x: torch.Tensor, kernel_size: int, stride: int) -> torch.Tensor:
+    """``F.avg_pool2d(x, kernel_size, stride)``: a VALID average pool (the
+    DenseNet transitions'), on row shards too."""
+    axis = spatial.current()
+    if axis is None:
+        return F.avg_pool2d(x, kernel_size, stride)
+    return spatial.windowed(x, axis, kernel_size, stride, lambda h: (0, 0), 0.0,
+                            lambda rows: F.avg_pool2d(rows, kernel_size, stride))
+
+
+#: The ResNet stem's downsample: the 3x3/2 max pool, or the JAX package's
+#: tie-free diagnostic average pool.
+STEM_POOLS = ("max", "avg")
+
+
+def stem_pool(x: torch.Tensor, kind: str = "max") -> torch.Tensor:
+    """The ResNet stem's 3x3/2 pool with (1, 1) padding: ``"max"`` pads
+    with -inf (padding never wins the max), ``"avg"`` with zeros that count
+    in the divisor (flax's ``avg_pool``, ``count_include_pad``).
+
+    Trap: a max window that straddles a shard boundary sees the same values
+    in the same order as in one process, so its gradient goes to the same
+    element there."""
+    axis = spatial.current()
+    if kind == "max":
+        if axis is None:
+            return F.max_pool2d(x, 3, 2, 1)
+        return spatial.windowed(x, axis, 3, 2, lambda h: (1, 1), float("-inf"),
+                                lambda rows: F.max_pool2d(rows, 3, 2, (0, 1)))
+    if axis is None:
+        return F.avg_pool2d(x, 3, 2, 1, count_include_pad=True)
+    return spatial.windowed(x, axis, 3, 2, lambda h: (1, 1), 0.0,
+                            lambda rows: F.avg_pool2d(rows, 3, 2, (0, 1), count_include_pad=True))
 
 
 def symmetric(k: int) -> tuple[tuple[int, int], tuple[int, int]]:
@@ -129,8 +224,32 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axis = spatial.current()
+        if axis is not None:
+            return self._forward_rows(x.float(), axis).to(self.dtype)
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, 1e-6)
         return y.to(self.dtype)
+
+    def _forward_rows(self, x: torch.Tensor, axis: spatial.SpaceAxis) -> torch.Tensor:
+        """GroupNorm of the row-sharded ``x``.  Trap: ``F.group_norm``
+        cannot be called on a shard.  Each image's statistics over (C/G, H,
+        W) are sums over the space group (f64 on the wire, the element
+        count with them): the mean first, then the centred sum of squares,
+        as ``F.group_norm`` takes them; the backward goes through both
+        sums."""
+        b, c, n, w = x.shape
+        xg = x.reshape(b, self.num_groups, -1)
+        local = torch.cat([xg.sum(-1).reshape(-1).double(),
+                           torch.tensor([float(xg.shape[-1])], dtype=torch.float64,
+                                        device=x.device)])
+        total = spatial.group_sum(local, axis)
+        count = total[-1]
+        mean = (total[:-1] / count).float().reshape(b, self.num_groups, 1)
+        centred = xg - mean
+        var = (spatial.group_sum((centred * centred).sum(-1).reshape(-1).double(), axis)
+               / count).float().reshape(b, self.num_groups, 1)
+        y = (centred * torch.rsqrt(var + 1e-6)).reshape(b, c, n, w)
+        return y * self.weight[:, None, None] + self.bias[:, None, None]
 
 
 class BatchNorm(nn.Module):
@@ -161,8 +280,12 @@ class BatchNorm(nn.Module):
         if self.frozen or not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            axis = spatial.current()
+            if axis is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            else:
+                mean, var = self._batch_statistics(xf, axis)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -170,6 +293,23 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + 1e-5) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype)
+
+    @staticmethod
+    def _batch_statistics(xf: torch.Tensor, axis: spatial.SpaceAxis
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Trap: in training the statistics are over (B, H, W) of the global
+        batch, data and space together: the sums of x and x^2 and the
+        element count summed over the whole world, in the ``E[x^2] -
+        mean^2`` form of the one-process path, so every rank makes the same
+        running-statistics update."""
+        c = xf.shape[1]
+        local = torch.cat([xf.sum(dim=(0, 2, 3)).double(), (xf * xf).sum(dim=(0, 2, 3)).double(),
+                           torch.tensor([float(xf.numel() // c)], dtype=torch.float64,
+                                        device=xf.device)])
+        total = spatial.world_sum(local, axis)
+        mean = (total[:c] / total[-1]).float()
+        var = torch.clamp_min((total[c:2 * c] / total[-1]).float() - mean * mean, 0.0)
+        return mean, var
 
 
 class NormFactory:
@@ -230,7 +370,9 @@ class ResNet(nn.Module):
 
     ``stem`` and ``pack_width`` name the JAX package's formulations; each
     is computed here with the plain stem and stage 2, after the JAX model's
-    shape checks."""
+    shape checks.  ``stem_pool`` is ``"max"`` or the diagnostic ``"avg"``
+    (:func:`stem_pool`), which the JAX model takes with ``stem="conv"``
+    only."""
 
     def __init__(
         self,
@@ -239,14 +381,24 @@ class ResNet(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         stem: str = "conv",
         pack_width: bool = False,
+        stem_pool: str = "max",
     ):
         super().__init__()
         if stem not in STEMS:
             raise ValueError(f"unknown stem: {stem!r}")
+        if stem_pool not in STEM_POOLS:
+            raise ValueError(f"unknown stem_pool: {stem_pool!r}")
+        if stem_pool == "avg" and stem != "conv":
+            raise ValueError(
+                "stem_pool='avg' (the tie-free diagnostic pool) is only "
+                "supported with stem='conv' — the packed stem layouts bake "
+                "in the maxpool (maxpool_packed_w)"
+            )
         norm = NormFactory(norm_kind, dtype)
         self.dtype = dtype
         self.stem = stem
         self.pack_width = pack_width
+        self.stem_pool = stem_pool
         self.widths = tuple(64 * 4 * 2**i for i in range(1, 4))  # C3, C4, C5
         self.stem_conv = Conv2d(3, 64, 7, 2, symmetric(7), False, dtype)
         self.stem_norm = norm(64)
@@ -268,18 +420,22 @@ class ResNet(nn.Module):
             self.stage_names.append(names)
             filters *= 2
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def check_shape(self, h: int, w: int) -> None:
+        """The JAX model's refusal of an image shape its ``stem`` cannot
+        fold; the spatial factories call it with the global shape."""
         if self.stem != "conv":
             block = 4 if self.stem == "space_to_depth4" else 2
-            h, w = x.shape[-2:]
             if h % block or w % block:
                 raise ValueError(
                     f"space_to_depth({block}) stem needs H, W divisible by "
                     f"{block}; got {(h, w)}"
                 )
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        if spatial.current() is None:  # a shard's H is not the image's
+            self.check_shape(*x.shape[-2:])
         x = F.relu(self.stem_norm(self.stem_conv(x.to(self.dtype))))
-        # -inf padding: padding never wins the max.
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = stem_pool(x, self.stem_pool)
         if self.pack_width and x.shape[-1] % 2:
             raise ValueError(
                 f"pack_width needs an even stage2 width; got "

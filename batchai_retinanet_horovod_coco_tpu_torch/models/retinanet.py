@@ -48,6 +48,9 @@ class RetinaNetConfig:
     # checks (models/resnet.py).  ResNet backbones only.
     stem: str = DEFAULT_STEM
     pack_width: bool = False
+    # The ResNet stem's downsample: "max", or the JAX package's tie-free
+    # diagnostic "avg" (models/resnet.py::stem_pool; stem="conv" only).
+    stem_pool: str = "max"
     fpn_channels: int = 256
     head_width: int = 256
     head_depth: int = 4
@@ -79,9 +82,9 @@ def build_backbone(config: RetinaNetConfig) -> nn.Module:
     """The backbone registry, as the JAX package's: a module producing
     {"c3", "c4", "c5"} at strides 8/16/32 in NCHW, with their widths in
     ``.widths``.  ``norm_kind`` applies where the architecture has norms
-    (not VGG); ``stem`` and ``pack_width`` are ResNet settings, and
-    ``pack_width`` raises the JAX package's ``ValueError`` on any other
-    backbone."""
+    (not VGG); ``stem``, ``pack_width`` and ``stem_pool`` are ResNet
+    settings, and ``pack_width`` and a ``stem_pool`` other than ``"max"``
+    raise the JAX package's ``ValueError`` on any other backbone."""
     name = config.backbone
     stages = BACKBONE_STAGES.get(name)
     if config.pack_width and stages is None:
@@ -89,8 +92,14 @@ def build_backbone(config: RetinaNetConfig) -> nn.Module:
             f"pack_width is a ResNet-stage2 reformulation; backbone "
             f"{name!r} does not support it"
         )
+    if config.stem_pool != "max" and stages is None:
+        raise ValueError(
+            f"stem_pool={config.stem_pool!r} is only supported by ResNet "
+            f"backbones, not {name!r}"
+        )
     if stages is not None:
-        return ResNet(stages, config.norm_kind, config.dtype, config.stem, config.pack_width)
+        return ResNet(stages, config.norm_kind, config.dtype, config.stem, config.pack_width,
+                      config.stem_pool)
     if name in ("mobilenet", "mobilenet050"):
         return mobilenet.MobileNetV1(0.5 if name == "mobilenet050" else 1.0, config.norm_kind, config.dtype)
     if name in vgg.VGG_STAGES:

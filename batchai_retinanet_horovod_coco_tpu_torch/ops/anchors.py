@@ -121,3 +121,34 @@ def anchors_for_image_shape(
     """
     config = config or AnchorConfig()
     return _anchors_cached((int(image_hw[0]), int(image_hw[1])), config)
+
+
+def anchors_for_rows(
+    image_hw: tuple[int, int],
+    config: AnchorConfig,
+    num_space: int,
+    index: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """The anchors of space rank ``index`` of ``num_space`` under spatial
+    partitioning: ``(anchors (A_local, 4), global_index (A_local,) int64)``.
+
+    Level by level, the rank owns the rows of each feature map that the
+    row split gives it (``parallel/spatial.py::rows_of``), and its anchors
+    are the global anchors of those rows (:func:`anchors_for_image_shape`),
+    in the order the heads flatten a shard: level, then local (y, x), then
+    anchor.  Trap: they are never regenerated from the shard's own shape,
+    whose anchor centres would start again at row 0.  ``global_index``
+    is each one's index in the global anchors, increasing."""
+    from batchai_retinanet_horovod_coco_tpu_torch.parallel.spatial import rows_of
+
+    full = anchors_for_image_shape(image_hw, config)
+    per_location = config.num_anchors_per_location
+    parts, offset = [], 0
+    for level in config.levels:
+        fh, fw = config.feature_shape(image_hw, level)
+        r0, r1 = rows_of(fh, num_space, index)
+        per_row = fw * per_location
+        parts.append(np.arange(offset + r0 * per_row, offset + r1 * per_row, dtype=np.int64))
+        offset += fh * per_row
+    global_index = np.concatenate(parts)
+    return full[global_index], global_index

@@ -209,3 +209,59 @@ def anchor_targets_compact_batched(
         gt_labels.to(torch.int32).contiguous(), gt_mask.contiguous(), matching.tile_a,
     )
     return finish_fused(anchors, gt_boxes, gt_labels, gt_mask, assigned, matching, codec)
+
+
+def _best_anchor_over_group(
+    gt_best_iou: torch.Tensor,
+    gt_best_anchor: torch.Tensor,
+    anchor_index: torch.Tensor,
+    axis,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each gt's best anchor over the whole image, as this rank's
+    ``(gt_best_iou, gt_best_anchor)``: the global best IoU and the local
+    index where this rank owns the best anchor, else IoU 0 (not forced
+    here).
+
+    Trap: ``force_match_best`` is a reduction over the whole image.  A
+    rank's first argmax over its own anchors is the lowest global index
+    among its local ties (local order is monotone in global order), so the
+    group reduces (max IoU, then min global index), the single-device
+    argmax's tie rule."""
+    from batchai_retinanet_horovod_coco_tpu_torch.parallel import spatial
+
+    local = torch.stack([gt_best_iou.double(), anchor_index[gt_best_anchor.long()].double()])
+    ious, index = spatial.all_gather(local, axis).unbind(1)
+    best = ious.max(dim=0).values
+    winner = torch.where(ious == best, index, float("inf")).min(dim=0).values.long()
+    at = torch.searchsorted(anchor_index, winner).clamp_max(anchor_index.numel() - 1)
+    owned = anchor_index[at] == winner
+    return (torch.where(owned, best.float(), 0.0),
+            torch.where(owned, at, 0).to(gt_best_anchor.dtype))
+
+
+def anchor_targets_compact_spatial(
+    anchors: torch.Tensor,
+    anchor_index: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_mask: torch.Tensor,
+    axis,
+    matching: MatchingConfig = MatchingConfig(),
+    codec: BoxCodecConfig = BoxCodecConfig(),
+) -> CompactTargets:
+    """The targets of a space rank's own anchors (``anchors`` (A_local, 4),
+    their global indices ``anchor_index``, increasing) against the whole
+    image's gts: the matching kernel on a card (its plain version on the
+    CPU) over this rank's anchors, the per-gt best reduced over the space
+    group (:func:`_best_anchor_over_group`), then :func:`finish_fused`, so
+    each rank force-matches only the anchors it owns.  Equal to the
+    one-process targets at those anchors."""
+    assigned = matching_cuda.assign_fused(
+        anchors.float().contiguous(), gt_boxes.float().contiguous(),
+        gt_labels.to(torch.int32).contiguous(), gt_mask.contiguous(), matching.tile_a,
+    )
+    if matching.force_match_best:
+        *rows, gt_best_iou, gt_best_anchor = assigned
+        assigned = (*rows, *_best_anchor_over_group(gt_best_iou, gt_best_anchor, anchor_index,
+                                                    axis))
+    return finish_fused(anchors, gt_boxes, gt_labels, gt_mask, assigned, matching, codec)

@@ -36,7 +36,14 @@ one replica and the axis is the process group (``launch/pod.py::World``).
   and ``RETINANET_COMM_SLICES`` override it, so one host can stand for
   several.  The mesh position of a rank is ``local * S + node`` (the JAX
   package's interleaved convention: position ``d`` in slice ``d % S``),
-  the chunk of every flat it owns.
+  the chunk of every flat it owns;
+- :func:`space_axis`: the (data, space) grid of spatial partitioning, the
+  JAX package's ``make_mesh_2d`` with the space axis minor: rank ``r =
+  d * S + s`` is data index d and space index s.  Its groups (the space
+  groups and the data groups) are made on every rank in the same order,
+  and a space group must not span hosts
+  (:func:`assert_space_rows_single_host`, the JAX package's
+  ``_assert_space_rows_single_process``).
 """
 
 from __future__ import annotations
@@ -56,6 +63,14 @@ from batchai_retinanet_horovod_coco_tpu_torch.utils.device import resolve_device
 #: The step's metrics that are averaged over the ranks; ``num_pos`` is summed.
 MEAN_METRICS = ("loss", "cls_loss", "box_loss")
 _STAT_NAMES = ("running_mean", "running_var")
+
+
+def visible_devices(device: str | torch.device = "cuda") -> int:
+    """The cards ``--num-devices 0`` would take (0 without any), one on the
+    CPU; never raises."""
+    if torch.device(device).type != "cuda":
+        return 1
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 def world_devices(num_devices: int, device: str | torch.device = "cuda") -> int:
@@ -331,3 +346,51 @@ def hop_axes(world, topology: CommTopology) -> tuple[DataAxis, DataAxis]:
         world.hop_groups[topology] = (DataAxis(world, ici[node], L, local),
                                       DataAxis(world, dcn[local], S, node))
     return world.hop_groups[topology]
+
+
+#: The JAX package's name of the image-H axis of a 2-D mesh.
+SPACE_AXIS = "space"
+
+
+def assert_space_rows_single_host(world_size: int, num_space: int,
+                                  environ: Mapping[str, str] | None = None) -> None:
+    """Each space row (the ranks that hold one image's H shards) must live
+    on one host, as the JAX package's ``_assert_space_rows_single_process``
+    demands of a mesh row: every rank of a row reads the same images from
+    its own host's pipeline.  torchrun numbers ranks host-major with
+    ``LOCAL_WORLD_SIZE`` ranks a host, so the rows stay on their hosts
+    exactly when the space size divides it.  A world started without
+    torchrun is one host."""
+    env = os.environ if environ is None else environ
+    local = int(env.get("LOCAL_WORLD_SIZE", "0") or 0)
+    if 0 < local < world_size and local % num_space:
+        row = list(range(local - local % num_space, local - local % num_space + num_space))
+        raise ValueError(
+            f"space axis row {row} spans hosts {sorted({r // local for r in row})} — the space "
+            "axis cannot span hosts: each image's H shards must sit on one host's ranks (pick "
+            f"num_space dividing the per-host rank count {local})"
+        )
+
+
+def space_axis(world, num_space: int):
+    """This rank's ``parallel/spatial.py::SpaceAxis`` in ``world`` as a
+    (world.size // num_space) x num_space grid, space minor.  Every rank
+    makes every space group, then every data group, in order, once per
+    world (``torch.distributed.new_group`` is collective); the axis is kept
+    in ``world.space_axes``."""
+    from batchai_retinanet_horovod_coco_tpu_torch.parallel.spatial import SpaceAxis
+
+    if num_space < 1 or world.size % num_space:
+        raise ValueError(f"space size {num_space} does not divide the world's {world.size} ranks")
+    if num_space not in world.space_axes:
+        assert_space_rows_single_host(world.size, num_space)
+        num_data = world.size // num_space
+        space = [dist.new_group([d * num_space + s for s in range(num_space)])
+                 for d in range(num_data)]
+        data = [dist.new_group([d * num_space + s for d in range(num_data)])
+                for s in range(num_space)]
+        d, s = divmod(world.rank, num_space)
+        world.space_axes[num_space] = SpaceAxis(
+            world=world, group=space[d], index=s, size=num_space,
+            data_group=data[s], data_index=d, data_size=num_data)
+    return world.space_axes[num_space]

@@ -32,6 +32,17 @@ eval is sharded the same way and its detections gathered.  Adam's LR
 scales with the ranks (the reference's ``hvd.size()``).  The ``dp8`` and
 ``pod`` presets are the JAX package's.
 
+Spatial partitioning (``--spatial-shards S``, ``train/step.py::
+make_train_step_spatial``): the world is a (N / S) x S grid, and the S
+ranks of a space group read the same images (``shard_index`` rank // S of
+N / S) and each trains on its rows of them; the eval stays batch-parallel
+over the whole world, each rank ``ceil(batch / N)`` images a batch.  The
+JAX command line's refusals, with its messages: S must divide
+``--num-devices``; S is exclusive with ZeRO and compression; S needs
+``--f32``; the strided-conv envelope over every bucket; the space axis
+cannot span hosts; the data-axis envelope (``--allow-data-axis-divergence``
+overrides it).
+
 The obs flags are the JAX command line's (``utils/cli.py::add_obs_flags``):
 ``--obs-trace``/``--obs-dir`` trace the run into the obs directory
 (``trace.json``, watchdog stack dumps; ``--log-dir`` defaults to it),
@@ -67,7 +78,7 @@ stderr).  Each needs a world (``--num-devices`` > 1, or a joined world);
 world, or ``--comm-slices``.
 
 Refused with a message naming ``ROADMAP.md``, since what they need is not
-ported: spatial sharding, TensorBoard and ``--debug-nans``.
+ported: TensorBoard and ``--debug-nans``.
 ``--platform`` is left out.
 """
 
@@ -96,7 +107,11 @@ from batchai_retinanet_horovod_coco_tpu_torch.models.resnet import STEMS
 from batchai_retinanet_horovod_coco_tpu_torch.models.retinanet import BACKBONES, DEFAULT_STEM
 from batchai_retinanet_horovod_coco_tpu_torch.obs import trace
 from batchai_retinanet_horovod_coco_tpu_torch.obs.events import EventSink, emit_event
-from batchai_retinanet_horovod_coco_tpu_torch.parallel.mesh import local_batch_size, world_devices
+from batchai_retinanet_horovod_coco_tpu_torch.parallel.mesh import (
+    local_batch_size,
+    visible_devices,
+    world_devices,
+)
 from batchai_retinanet_horovod_coco_tpu_torch.utils.cli import (
     add_anchor_flags,
     add_comm_flags,
@@ -262,7 +277,13 @@ def build_parser() -> argparse.ArgumentParser:
                        help="DEPRECATED alias for --comm-compress int8; emits one structured "
                             "deprecation warning")
         add_comm_flags(g)
-        g.add_argument("--spatial-shards", type=int, default=1, help="not ported: only 1")
+        g.add_argument("--spatial-shards", type=int, default=1,
+                       help="shard every image's H axis over this many cards on a 2-D data x "
+                            "space grid (the row exchange of parallel/spatial.py); must divide "
+                            "--num-devices; exclusive with --shard-weight-update/--comm-compress")
+        g.add_argument("--allow-data-axis-divergence", action="store_true",
+                       help="accept the JAX package's data-axis envelope of deep-backbone "
+                            "spatial training with a data axis >= 2 (make_train_step_spatial)")
         g.add_argument("--distributed-auto", action="store_true",
                        help="join the world torchrun started (RANK, WORLD_SIZE, LOCAL_RANK, "
                             "MASTER_ADDR, MASTER_PORT)")
@@ -315,11 +336,83 @@ def refuse_without_world(args) -> None:
         )
 
 
+def refuse_spatial(args, num_devices: int, environ=None) -> None:
+    """The JAX command line's guards of ``--spatial-shards`` (after the
+    exclusivity of :func:`refuse_exclusive`), in its order and with its
+    messages, for a world of ``num_devices`` ranks."""
+    spatial_shards = args.spatial_shards
+    if spatial_shards <= 1:
+        return
+    from batchai_retinanet_horovod_coco_tpu_torch.train.step import (
+        _SPATIAL_GRAD_VALIDATED_BACKBONES,
+        _data_axis_risky_stage_heights,
+        _degenerate_strided_conv_heights,
+    )
+
+    if num_devices % spatial_shards:
+        raise SystemExit(
+            f"--spatial-shards {spatial_shards} must divide "
+            f"--num-devices {num_devices}"
+        )
+    if not args.f32:
+        raise SystemExit(
+            "--spatial-shards requires --f32: bf16 spatial train "
+            "steps are miscompiled by XLA's SPMD partitioner "
+            "(validated on the CPU mesh rig; TPU unvalidated — see "
+            "make_train_step_spatial's docstring)"
+        )
+    buckets = default_buckets(args.image_min_side, args.image_max_side)
+    bad = {f"{h}x{w}": _degenerate_strided_conv_heights(h, spatial_shards)
+           for h, w in buckets if _degenerate_strided_conv_heights(h, spatial_shards)}
+    if bad:
+        raise SystemExit(
+            f"--spatial-shards {spatial_shards} puts bucket(s) "
+            f"{sorted(bad)} inside the XLA strided-conv weight-grad "
+            "bug envelope (conv input heights "
+            f"{sorted(set(sum(bad.values(), [])))} at ~[0.5, 2) rows "
+            "per shard; see make_train_step_spatial).  Use "
+            "--spatial-shards 4 or fewer, which is always outside "
+            "the envelope"
+        )
+    env = os.environ if environ is None else environ
+    local = int(env.get("LOCAL_WORLD_SIZE", "0") or 0)
+    if 0 < local < num_devices and local % spatial_shards:
+        # The space axis stays within one host: each rank of a space group
+        # reads the same images from its own host's pipeline.
+        raise SystemExit(
+            f"--spatial-shards {spatial_shards} must divide the "
+            f"per-host device count {local} on "
+            "multi-host runs (the space axis cannot span hosts)"
+        )
+    data_size = num_devices // spatial_shards
+    risky = {f"{h}x{w}": _data_axis_risky_stage_heights(h, spatial_shards)
+             for h, w in buckets if _data_axis_risky_stage_heights(h, spatial_shards)}
+    if (
+        data_size > 1
+        and risky
+        and args.backbone not in _SPATIAL_GRAD_VALIDATED_BACKBONES
+        and not args.allow_data_axis_divergence
+    ):
+        raise SystemExit(
+            f"--spatial-shards {spatial_shards} on {num_devices} "
+            f"devices gives a (data={data_size}, space="
+            f"{spatial_shards}) mesh, and bucket(s) "
+            f"{sorted(risky)} put backbone-stage maps at "
+            "<= 1 row per shard, where deep-backbone spatial "
+            "training with a data axis >= 2 computes measurably "
+            "divergent gradients (see make_train_step_spatial's "
+            "'Data-axis envelope').  Use --num-devices == "
+            "--spatial-shards for the pure-spatial mode, larger "
+            "--image-min/max-side, plain DP, or pass "
+            "--allow-data-axis-divergence to accept the measured "
+            "error"
+        )
+
+
 def refuse_unported(args) -> None:
     """Raise ``SystemExit`` naming every flag whose setting needs what the
     port does not have yet."""
     unported = {
-        f"--spatial-shards {args.spatial_shards}": args.spatial_shards != 1,
         "--tensorboard": args.tensorboard,
         "--debug-nans": args.debug_nans,
     }
@@ -578,10 +671,13 @@ def main(argv=None) -> dict[str, float]:
     refuse_unported(args)
     config = distributed_config(args)
     if not config.joins:
+        # The JAX command line's spatial guards read the asked-for device
+        # count before any card is looked for.
+        refuse_spatial(args, args.num_devices or visible_devices(args.device))
         ranks = 1 if args.num_devices == 1 else world_devices(args.num_devices, args.device)
         if ranks == 1:
             refuse_without_world(args)
-        local_batch_size(args.batch_size, ranks)
+        local_batch_size(args.batch_size, ranks // max(args.spatial_shards, 1))
         if ranks > 1:
             # One process a card: this command line again as each rank.
             return run_local_world("batchai_retinanet_horovod_coco_tpu_torch.train", argv, ranks)[0]
@@ -590,6 +686,7 @@ def main(argv=None) -> dict[str, float]:
         if world is not None and args.num_devices not in (0, world.size):
             raise SystemExit(f"--num-devices {args.num_devices} in a world of {world.size} "
                              f"processes (one a card): pass {world.size} or 0")
+        refuse_spatial(args, 1 if world is None else world.size)
         if world is not None:
             trace.set_process_index(world.rank)
         out = _observed(args, world)
@@ -663,9 +760,15 @@ def _run(args, world) -> dict[str, float]:
     from batchai_retinanet_horovod_coco_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device) if world is None else world.device
+    # The world's ranks (logging, checkpoints, the eval) and, for training,
+    # the data shards: under --spatial-shards S the S ranks of a space
+    # group read the same images.
     shard_index, shard_count = shard_info(world)
     is_main = shard_index == 0
-    local_batch = local_batch_size(args.batch_size, shard_count)
+    spatial_shards = args.spatial_shards if world is not None else 1
+    data_index, data_count = shard_index // spatial_shards, shard_count // spatial_shards
+    local_batch = local_batch_size(args.batch_size, data_count)
+    eval_batch = -(-args.batch_size // shard_count) if spatial_shards > 1 else local_batch
     shard_update = bool(args.shard_weight_update)
     # The gradient-communication policy: the flags and the deprecated
     # --quantized-allreduce resolve to one CommConfig (rank 0 announces the
@@ -708,7 +811,7 @@ def _run(args, world) -> dict[str, float]:
         optimizer=args.optimizer,
         base_lr=args.lr,
         global_batch_size=args.batch_size,
-        world_size=shard_count,
+        world_size=data_count,
         warmup_steps=args.warmup_steps,
         total_steps=args.steps,
         schedule=args.schedule,
@@ -732,7 +835,8 @@ def _run(args, world) -> dict[str, float]:
             import_pretrained_backbone(model, args.pretrained_backbone)
             print(f"imported backbone weights from {args.pretrained_backbone}")
         return create_train_state(model, opt_config, device, world=world, comm=comm_cfg,
-                                  shard_weight_update=shard_update, topology=comm_topology)
+                                  shard_weight_update=shard_update, topology=comm_topology,
+                                  spatial_shards=spatial_shards)
 
     state = build_state()
     pipe_common = dict(
@@ -754,7 +858,7 @@ def _run(args, world) -> dict[str, float]:
     def eval_fn(model: torch.nn.Module) -> dict[str, float]:
         val_batches = build_pipeline(
             val_ds,
-            PipelineConfig(batch_size=local_batch, shuffle=False, hflip_prob=0.0,
+            PipelineConfig(batch_size=eval_batch, shuffle=False, hflip_prob=0.0,
                            seed=args.seed, shard_index=shard_index, shard_count=shard_count,
                            **pipe_common),
             train=False,
@@ -793,7 +897,7 @@ def _run(args, world) -> dict[str, float]:
         ckpt_metadata = {
             "global_batch_size": args.batch_size,
             "data_seed": args.seed,
-            "shard_count": shard_count,
+            "shard_count": data_count,
             "stream_base_step": 0,
             "exclude_ids": [],
         }
@@ -820,6 +924,8 @@ def _run(args, world) -> dict[str, float]:
             comm=comm_cfg,
             shard_weight_update=shard_update,
             topology=comm_topology,
+            spatial_shards=spatial_shards,
+            allow_data_axis_divergence=args.allow_data_axis_divergence,
         )
         run_eval = args.eval_every or args.dataset_type in ("coco", "pascal") or (
             args.dataset_type == "csv" and val_ds is not None
@@ -832,7 +938,7 @@ def _run(args, world) -> dict[str, float]:
                 train_ds,
                 PipelineConfig(batch_size=local_batch, shuffle=True, transform=transform,
                                seed=data_seed, skip_batches=skip_batches, exclude_ids=exclude_ids,
-                               shard_index=shard_index, shard_count=shard_count, **pipe_common),
+                               shard_index=data_index, shard_count=data_count, **pipe_common),
                 train=True,
             )
             batches = train_batches

@@ -35,6 +35,11 @@ global batch, gathered from the ranks, and rank 0 writes it.  An
 thread's gather of detections could interleave with the steps'
 all-reduces.
 
+``LoopConfig.spatial_shards`` > 1 selects the spatially partitioned step
+(``train/step.py::make_train_step_spatial``, exclusive with the
+gradient-communication flavors): each rank's batch is then its data
+index's, the whole images, of which the step trains on its rows.
+
 ``LoopConfig.comm``, ``shard_weight_update`` and ``topology`` select the
 gradient-communication flavors of the world's step (``train/step.py``);
 the state comes from ``create_train_state`` with the same flags, so its
@@ -74,7 +79,10 @@ from batchai_retinanet_horovod_coco_tpu_torch.ops import anchors as anchors_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as matching_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import optim
 from batchai_retinanet_horovod_coco_tpu_torch.train.state import TrainState
-from batchai_retinanet_horovod_coco_tpu_torch.train.step import make_train_step
+from batchai_retinanet_horovod_coco_tpu_torch.train.step import (
+    make_train_step,
+    make_train_step_spatial,
+)
 from batchai_retinanet_horovod_coco_tpu_torch.utils.checkpoint import CheckpointManager
 from batchai_retinanet_horovod_coco_tpu_torch.utils.device import Staged, stage, take, to_device_images
 
@@ -124,6 +132,11 @@ class LoopConfig:
     comm: Any = None
     shard_weight_update: bool = False
     topology: Any = None
+    # Spatial partitioning: each image's H over this many ranks of the world
+    # (train/step.py::make_train_step_spatial), and its override of the JAX
+    # data-axis envelope.
+    spatial_shards: int = 1
+    allow_data_axis_divergence: bool = False
 
 
 def device_batch(batch: Batch, device: torch.device) -> dict[str, torch.Tensor]:
@@ -412,6 +425,13 @@ def run_training(
             "--shard-weight-update and --comm-compress/--comm-overlap/--quantized-allreduce "
             "need a data-parallel world"
         )
+    spatial = config.spatial_shards > 1
+    if spatial and (world is None or config.shard_weight_update or comm_on):
+        raise ValueError(
+            "spatial partitioning is exclusive with --shard-weight-update "
+            "and --comm-compress/--quantized-allreduce"
+            if world is not None else "spatial partitioning needs a world"
+        )
     is_main = world is None or world.is_main
     if not is_main:
         log = _Silent()
@@ -466,7 +486,8 @@ def run_training(
                           "(an eval thread's gather could interleave with the steps' all-reduces)")
         else:
             eval_runner = _AsyncEvalRunner(eval_fn, log, device)
-    images_per_batch = 1 if world is None else world.size
+    # Images a step: the batch of each data index (a space group shares one).
+    images_per_batch = 1 if world is None else world.size // config.spatial_shards
     window_t0, window_images, window_steps, window_wait = monotonic_s(), 0, 0, 0.0
     check_every = config.log_every or _FINITE_CHECK_EVERY
     cadence = f"every {check_every} steps and before each checkpoint save"
@@ -501,12 +522,20 @@ def run_training(
             step_fn = step_fns.get(hw)
             if step_fn is None:
                 t_build = monotonic_s()
-                step_fn = step_fns[hw] = make_train_step(
-                    state.model, hw, num_classes, loss_config, matching_config,
-                    anchor_config, device, numerics=numerics_config, world=world,
-                    comm=config.comm, shard_weight_update=config.shard_weight_update,
-                    topology=config.topology,
-                )
+                if spatial:
+                    step_fn = step_fns[hw] = make_train_step_spatial(
+                        state.model, hw, num_classes, world, config.spatial_shards,
+                        loss_config, matching_config, anchor_config,
+                        allow_data_axis_divergence=config.allow_data_axis_divergence,
+                        numerics=numerics_config,
+                    )
+                else:
+                    step_fn = step_fns[hw] = make_train_step(
+                        state.model, hw, num_classes, loss_config, matching_config,
+                        anchor_config, device, numerics=numerics_config, world=world,
+                        comm=config.comm, shard_weight_update=config.shard_weight_update,
+                        topology=config.topology,
+                    )
                 telemetry.record_compile(f"{hw[0]}x{hw[1]}", monotonic_s() - t_build)
                 # A traced run records the step's FLOPs, the perf doctor's
                 # MFU numerator (obs/analyze).

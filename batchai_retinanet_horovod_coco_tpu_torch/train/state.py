@@ -81,9 +81,14 @@ def create_train_state(
     comm=None,
     shard_weight_update: bool = False,
     topology=None,
+    spatial_shards: int = 1,
 ) -> TrainState:
     """``model`` moved to ``device`` (CUDA unless the caller asks for the
     CPU; raises without a card) with a fresh optimizer over its parameters.
+
+    In a ``world`` with ``spatial_shards`` > 1 (``train/step.py::
+    make_train_step_spatial``, which runs the model itself, no DDP replica)
+    the model first takes rank 0's parameters and buffers.
 
     In a ``world`` with ``shard_weight_update`` or a compressing ``comm``
     (``comm/config.py::CommConfig``): the model first takes rank 0's
@@ -101,7 +106,7 @@ def create_train_state(
             raise ValueError("shard_weight_update requires a mesh: pass world=")
         if comm_on:
             raise ValueError("comm compression requires a mesh: pass world=")
-    elif shard_weight_update or comm_on:
+    elif shard_weight_update or comm_on or spatial_shards > 1:
         mesh.copy_from_rank0(model, world)
     if shard_weight_update:
         optimizer, shards = zero_lib.init_sharded_opt_state(model, optimizer_config,

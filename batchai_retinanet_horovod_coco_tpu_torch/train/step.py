@@ -51,6 +51,10 @@ reduce.  A NaN or Inf gradient poisons its block's scale, so the world's
 loss metrics and norms go non-finite together and the loop stops every
 rank at the same step.
 
+:func:`make_train_step_spatial` is the JAX package's spatially partitioned
+step (``make_train_step_spatial``): each image's H axis over the S ranks of
+a space group (``parallel/spatial.py``), with the JAX factory's refusals.
+
 The kernels' launch shapes (the matching kernel's ``tile_a``, the focal
 kernels' ``focal_fwd_tile_a``/``focal_bwd_tile_a``) left None in the configs
 are the schedule registry's for the step's device
@@ -65,6 +69,7 @@ import warnings
 from collections.abc import Callable
 from typing import Any
 
+import numpy as np
 import torch
 
 from batchai_retinanet_horovod_coco_tpu_torch import losses as losses_lib
@@ -78,6 +83,7 @@ from batchai_retinanet_horovod_coco_tpu_torch.ops import anchors as anchors_lib
 from batchai_retinanet_horovod_coco_tpu_torch.ops import matching as matching_lib
 from batchai_retinanet_horovod_coco_tpu_torch.models.convert import flax_params, to_flax
 from batchai_retinanet_horovod_coco_tpu_torch.parallel import mesh
+from batchai_retinanet_horovod_coco_tpu_torch.parallel import spatial
 from batchai_retinanet_horovod_coco_tpu_torch.parallel import zero as zero_lib
 from batchai_retinanet_horovod_coco_tpu_torch.train import optim
 from batchai_retinanet_horovod_coco_tpu_torch.train.state import TrainState
@@ -407,6 +413,259 @@ def _make_comm_step(model, image_hw, anchors, loss_config, matching_config, nume
             metrics.update(compress_lib.comm_metrics(plan, new_comm, sat.to(device), axis,
                                                      zero=zero, topology=topology))
             state.comm_state = dict(new_comm)
+        if mark is not None:
+            mark("optimizer")
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def _degenerate_strided_conv_heights(image_h: int, num_space: int) -> list[int]:
+    """The JAX package's envelope of XLA's strided-conv weight-gradient
+    bug (its ``train/step.py``): the input heights of the family's stride-2
+    3x3 convs (ceil(H/4) .. ceil(H/64)) at [num_space/2, 2*num_space) rows
+    for >= 8 shards.  The port computes those gradients exactly; it keeps
+    the envelope so that both packages accept and refuse the same runs."""
+    if num_space < 8:
+        return []
+    heights = [-(-image_h // d) for d in (4, 8, 16, 32, 64)]
+    return [h for h in heights if num_space / 2 <= h < 2 * num_space]
+
+
+# The JAX package's backbones whose spatial-step gradients it measured exact
+# with a data axis (its train/step.py).
+_SPATIAL_GRAD_VALIDATED_BACKBONES = frozenset({"resnet_test"})
+
+
+def _data_axis_risky_stage_heights(image_h: int, num_space: int) -> list[int]:
+    """The JAX package's data-axis envelope: backbone-stage heights
+    ceil(H/4) .. ceil(H/32) at <= 1 row per shard (its ``train/step.py``)."""
+    if num_space < 2:
+        return []
+    heights = [-(-image_h // d) for d in (4, 8, 16, 32)]
+    return [h for h in heights if h <= num_space]
+
+
+def check_spatial_config(
+    model: torch.nn.Module,
+    image_hw: tuple[int, int],
+    num_data: int,
+    num_space: int,
+    allow_degenerate_spatial_sharding: bool = False,
+    allow_unvalidated_bf16: bool = False,
+    allow_data_axis_divergence: bool = False,
+) -> None:
+    """The JAX ``make_train_step_spatial``'s refusals, with its messages:
+    a model that is not f32, a space size whose strided-conv heights fall in
+    the JAX envelope, and a data axis >= 2 on a deep backbone whose stages
+    reach <= 1 row a shard.  The port's gradients are exact in all three
+    (no partitioner); the refusals keep the two packages' envelopes one."""
+    dtype = model.config.dtype
+    if dtype != torch.float32 and not allow_unvalidated_bf16:
+        raise ValueError(
+            f"spatial partitioning with a {str(dtype).removeprefix('torch.')} model is "
+            "refused: the SPMD partitioner miscompiles the bf16 train "
+            "step at flagship width (wrong cls_loss values, 14-60x wrong "
+            "gradients — see make_train_step_spatial's docstring and the "
+            "bf16 spatial canary test).  Train spatially in f32 "
+            "(--f32 with --spatial-shards), or pass "
+            "allow_unvalidated_bf16=True after validating one step "
+            "against the single-device step on your backend"
+        )
+    if not allow_degenerate_spatial_sharding:
+        risky = _degenerate_strided_conv_heights(image_hw[0], num_space)
+        if risky:
+            raise ValueError(
+                f"space axis size {num_space} is too large for image "
+                f"height {image_hw[0]}: stride-2 3x3 conv input maps of "
+                f"height {risky} would land in the measured envelope "
+                "where XLA's SPMD partitioner mis-computes strided-conv "
+                "weight gradients (~[0.5, 2) rows per shard at >= 8 "
+                "shards; see make_train_step_spatial docstring).  Use a "
+                "smaller --spatial-shards for this bucket (space <= 4 is "
+                "always outside the envelope), or pass "
+                "allow_degenerate_spatial_sharding=True to accept "
+                "1e-3-class gradient error in the affected conv kernels"
+            )
+    risky_stage = _data_axis_risky_stage_heights(image_hw[0], num_space)
+    if (
+        num_space > 1
+        and num_data > 1
+        and risky_stage
+        and model.config.backbone not in _SPATIAL_GRAD_VALIDATED_BACKBONES
+        and not allow_data_axis_divergence
+    ):
+        raise ValueError(
+            f"spatial mesh (data={num_data}, space={num_space}) with "
+            f"backbone {model.config.backbone!r} at image height "
+            f"{image_hw[0]} is refused: backbone-stage maps of height "
+            f"{risky_stage} land at <= 1 row per shard, where the "
+            "partitioned backward of deep (residual-chain) backbones "
+            "diverges from the single-device gradients once the data "
+            "axis exceeds 1 (measured f64: 2.8e-4 per-step param L2 at "
+            "data=2 growing ~3x per doubling — see "
+            "make_train_step_spatial's 'Data-axis envelope').  Use a "
+            "pure-spatial (1, space) mesh (device count equal to the "
+            "spatial shard count), larger images (flagship 800-class "
+            "buckets keep every stage >= 3 rows/shard at space <= 4 and "
+            "measure clean), a plain DP mesh, or pass "
+            "allow_data_axis_divergence=True to accept the measured "
+            "gradient error"
+        )
+
+
+def spatial_anchors(
+    image_hw: tuple[int, int], config: anchors_lib.AnchorConfig, axis: spatial.SpaceAxis,
+    device: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """This space rank's anchors and their global indices on ``device``
+    (``ops/anchors.py::anchors_for_rows``).  Raises, on every rank alike,
+    when some rank of the group would own no anchor at all (the matching
+    needs one)."""
+    for index in range(axis.size):
+        if anchors_lib.anchors_for_rows(image_hw, config, axis.size, index)[1].size == 0:
+            raise ValueError(
+                f"image height {image_hw[0]} leaves space rank {index} of {axis.size} no "
+                "anchor rows at any pyramid level: use fewer --spatial-shards"
+            )
+    anchors, index = anchors_lib.anchors_for_rows(image_hw, config, axis.size, axis.index)
+    return torch.from_numpy(np.array(anchors)).to(device), torch.from_numpy(index).to(device)
+
+
+def make_train_step_spatial(
+    model: torch.nn.Module,
+    image_hw: tuple[int, int],
+    num_classes: int,
+    world,
+    num_space: int,
+    loss_config: losses_lib.LossConfig = losses_lib.LossConfig(),
+    matching_config: matching_lib.MatchingConfig = matching_lib.MatchingConfig(),
+    anchor_config: anchors_lib.AnchorConfig | None = None,
+    allow_degenerate_spatial_sharding: bool = False,
+    allow_unvalidated_bf16: bool = False,
+    allow_data_axis_divergence: bool = False,
+    numerics: numerics_lib.NumericsConfig = numerics_lib.NumericsConfig(),
+) -> Callable[..., dict[str, torch.Tensor]]:
+    """The train step with each image's H axis over ``num_space`` ranks
+    (the JAX package's ``make_train_step_spatial``), as one rank of
+    ``world``, a (world.size // num_space) x num_space grid
+    (``parallel/mesh.py::space_axis``), on the world's device.
+
+    ``step(state, batch, mark=None)`` takes the batch of this rank's data
+    index, the whole images (B, H, W, 3), and slices its own rows; the gts
+    are the whole image's.  The model runs on the rows inside a
+    ``spatial.sharded`` block (the halo exchanges, the norms' statistics
+    over the group); the matching kernel runs on the rank's own anchors
+    with the per-gt best reduced over the group, and the focal kernels on
+    its own anchors, each image's loss divided by its positives summed over
+    the group and by the global batch.  No DDP: the ranks of a space group
+    hold partial sums of the same images, so the gradients are summed over
+    the world (one all-reduce), which with that scaling is the exact
+    gradient of the global mean loss; every rank applies the same update.
+    The metrics are the JAX spatial step's: ``loss``, ``cls_loss``,
+    ``box_loss``, ``num_pos``, ``grad_norm``, ``param_norm`` and, with
+    ``numerics``, the numerics summary without ``replica_agreement`` (the
+    JAX path has none).  The ``state`` should come from
+    ``create_train_state(..., world=world, spatial_shards=num_space)``,
+    which gives every rank rank 0's weights.
+
+    The refusals are the JAX factory's (:func:`check_spatial_config`); with
+    the ``allow_*`` overrides this step still computes the exact gradient.
+    """
+    if world is None:
+        raise ValueError("spatial partitioning needs a world: pass world=")
+    if num_space < 1 or world.size % num_space:
+        raise ValueError(
+            f"space size {num_space} does not divide the world's {world.size} ranks"
+        )
+    if model.config.num_classes != num_classes:
+        raise ValueError(
+            f"the model has {model.config.num_classes} classes, the step {num_classes}"
+        )
+    num_data = world.size // num_space
+    check_spatial_config(model, image_hw, num_data, num_space, allow_degenerate_spatial_sharding,
+                         allow_unvalidated_bf16, allow_data_axis_divergence)
+    check_shape = getattr(model.backbone, "check_shape", None)
+    if check_shape is not None:
+        check_shape(*image_hw)
+    device = world.device
+    loss_config, matching_config = resolve_kernel_schedule(loss_config, matching_config, device)
+    axis = mesh.space_axis(world, num_space)
+    anchors, anchor_index = spatial_anchors(
+        image_hw, anchor_config or anchors_lib.AnchorConfig(), axis, device)
+    row0, row1 = spatial.rows_of(image_hw[0], num_space, axis.index)
+    named = list(model.named_parameters())
+    params = [p for _, p in named if p.requires_grad]
+    groups = [numerics_lib.group_of(n) for n, p in named if p.requires_grad]
+    before = flat = None
+    if numerics.enabled:
+        before = [torch.empty_like(p) for p in params]
+        flat = torch.empty(sum(p.numel() for p in params), dtype=params[0].dtype, device=device)
+
+    def step(
+        state: TrainState,
+        batch: dict[str, Any],
+        mark: Callable[[str], None] | None = None,
+    ) -> dict[str, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("the state holds another model than this step's")
+        images = batch["images"]
+        if tuple(images.shape[1:3]) != tuple(image_hw):
+            raise ValueError(
+                f"images {tuple(images.shape)} do not match the step's {image_hw}"
+            )
+        model.train()
+        model.zero_grad(set_to_none=True)
+        global_batch = images.shape[0] * num_data
+        with spatial.sharded(axis):
+            outputs = model(pipeline_lib.normalize_images(images[:, row0:row1]))
+            if mark is not None:
+                mark("forward")
+            with torch.no_grad():
+                targets = matching_lib.anchor_targets_compact_spatial(
+                    anchors, anchor_index, batch["gt_boxes"], batch["gt_labels"],
+                    batch["gt_mask"], axis, matching_config,
+                )
+                positive = (targets.state == matching_lib.POSITIVE).float()
+                image_pos = spatial.psum(positive.sum(dim=-1), axis)
+            if mark is not None:
+                mark("targets")
+            metrics = losses_lib.total_loss_compact(
+                outputs["cls_logits"], outputs["box_deltas"], targets.matched_labels,
+                targets.box_targets, targets.state, loss_config, image_pos, global_batch,
+            )
+            if mark is not None:
+                mark("loss")
+            metrics["loss"].backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        # One all-reduce: the gradients summed over the world, then the loss
+        # metrics and the positives (each rank's share sums to the global).
+        reduced = torch.cat([g.reshape(-1) for g in grads] + [torch.stack(
+            [metrics[k].detach().float() for k in mesh.MEAN_METRICS] + [positive.sum()])])
+        world.all_reduce(reduced)
+        offset = 0
+        with torch.no_grad():
+            for g in grads:
+                g.copy_(reduced[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+        metrics = dict(zip(mesh.MEAN_METRICS, reduced[offset:offset + 3]))
+        metrics["num_pos"] = reduced[offset + 3]
+        if mark is not None:
+            mark("backward")
+        norms = optim.tensor_norms(grads)
+        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(norms))
+        if before is not None:
+            metrics.update(numerics_lib.step_summary(grads, norms, groups, flat))
+            torch._foreach_copy_(before, params)
+        state.apply_gradients(metrics["grad_norm"], metrics["loss"])
+        with torch.no_grad():
+            metrics["param_norm"] = optim.global_norm(params)
+            if before is not None:
+                metrics[numerics_lib.UPDATE_RATIO] = numerics_lib.update_ratio(
+                    before, params, metrics["param_norm"])
         if mark is not None:
             mark("optimizer")
         return {k: v.detach() for k, v in metrics.items()}

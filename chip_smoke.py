@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives ``batchai_retinanet_horovod_coco_tpu_torch`` on the card, in
-nineteen phases, and fails (non-zero exit, no result line) if any of them fails:
+twenty phases, and fails (non-zero exit, no result line) if any of them fails:
 
 1. device: the card's name and power limit;
 2. build: compiles every CUDA kernel (NMS, matching, focal) from the
@@ -291,7 +291,26 @@ nineteen phases, and fails (non-zero exit, no result line) if any of them fails:
    measures its winner again and prints a verdict (a timing verdict, which
    does not fail the smoke); (e) ``tune --from-report`` on phase 13's
    ``PERF_REPORT.json`` prints the ops it derived.  The phase must take at
-   most 150 s.
+   most 150 s;
+20. spatial partitioning on one card (``parallel/spatial.py``): a world
+   of 2 gloo ranks on the card as one space group, ResNet-50 RetinaNet at
+   full width (FPN 256, heads 256 x 4, 80 classes, GroupNorm), f32 with
+   TF32 off, 2 of phase 8's images at (800, 1344), each image's rows split
+   over the two ranks.  (a) ``make_detect_fn_spatial`` against
+   ``make_detect_fn`` in one process on the same weights (the class
+   logits' kernel scaled by 1000, so the top scores saturate at 1.0 and
+   the picks do not hang on the last bits of a score): ``valid`` and
+   ``labels`` equal, scores within 1e-6 and boxes within 1e-2 px; each
+   rank's NMS launches.  (b) one ``make_train_step_spatial`` step of the
+   (1 x 2) world against ``make_train_step`` in one process from the same
+   weights: ``loss`` and ``grad_norm`` within rel 3e-5, every parameter
+   within 3e-5 (the JAX spatial test's bounds), the ranks' parameters
+   equal; each rank's matching and focal launches, step ms (a first and a
+   second step), and the bytes the row exchanges carried, reckoned from
+   their shapes.  (c) the command line's refusals in this process:
+   ``--spatial-shards 2`` without ``--f32`` and on ``--num-devices 3``
+   give the JAX command line's messages.  The phase must take at most
+   150 s.
 
 Then it prints one JSON line with each kernel's launches, error, times,
 bound and its variants' device ms, and as its last line ``{"ok": true,
@@ -906,20 +925,23 @@ def main() -> int:
         schedule_launches = schedule_phase(root, device, kind)
         phase(19, "the schedule search over the kernels' launch shapes")
         tune_launches, variants = tune_phase(root, device, kind, smi, anchors, batches[0])
+        phase(20, "spatial partitioning on one card")
+        spatial_launches = spatial_phase(root, batches, device, kind, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row, key in ((match_row, "matching"), (fwd_row, "focal_fwd"), (bwd_row, "focal_bwd")):
         row["launches"] = (launches_by_kernel[key] + run_launches[key] + file_launches[key]
                            + obs_launches[key] + family_launches[key] + dp_launches[key]
-                           + comm_launches[key] + schedule_launches[key] + tune_launches[key])
+                           + comm_launches[key] + schedule_launches[key] + tune_launches[key]
+                           + spatial_launches[key])
     nms_row["launches"] = (launches + run_launches["nms"] + file_launches["nms"] + served["launches"]
                            + obs_launches["nms"] + fleet_launches + family_launches["nms"]
                            + dp_launches["nms"] + comm_launches["nms"] + schedule_launches["nms"]
-                           + tune_launches["nms"])
+                           + tune_launches["nms"] + spatial_launches["nms"])
     for row in (nms_row, match_row, fwd_row, bwd_row):
         row["variants"] = variants[row["name"]]
     end_phases()
-    print(f"chip_smoke: all 19 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
+    print(f"chip_smoke: all 20 phases in {time.perf_counter() - _SCRIPT_START:.1f} s (the build included)")
 
     print(smi)
     print(json.dumps({"kernels": [nms_row, match_row, fwd_row, bwd_row]}))
@@ -4501,6 +4523,253 @@ def tune_phase(root: str, device, kind: str, smi: str, anchors: torch.Tensor,
     print(f"phase 19 in {phase_s:.1f} s (limit {TUNE_DEADLINE_S} s); launches {launches}")
     require(phase_s <= TUNE_DEADLINE_S, f"phase 19 took {phase_s:.1f} s")
     return launches, variants
+
+
+SP_SPACE = 2  # phase 20: one space group of gloo ranks on the one card
+SP_BATCH = 2
+SP_DEADLINE_S = 150
+SP_LOGIT_SCALE = 1000.0  # the class logits' kernel, for phase 20's detections
+SP_SCORE_ATOL = 1e-6
+SP_BOX_ATOL = 1e-2  # px, on an (800, 1344) image
+SP_RTOL = 3e-5  # loss and grad_norm: the JAX spatial test's bound
+SP_PARAM_ATOL = 3e-5
+
+
+def _spatial_weights(model: torch.nn.Module, initial: dict, detect: bool) -> None:
+    """The shared initial weights; for the detections, the class logits'
+    kernel scaled (the same op on both sides)."""
+    model.load_state_dict(initial)
+    if detect:
+        with torch.no_grad():
+            model.cls_head.logits.weight.mul_(SP_LOGIT_SCALE)
+
+
+def spatial_rank(job_path: str, rank: int) -> None:
+    """Phase 20, one rank of the space group: join the world over gloo on
+    the card, detect on its rows (timed after a first call), then take two
+    spatial train steps from the shared weights, and write the detections,
+    the first step's metrics, each step's ms, the kernels' launches, the
+    row exchanges' shapes, the parameters' digest after the first step and,
+    on rank 0, their largest gap to the one-process step's."""
+    from batchai_retinanet_horovod_coco_tpu_torch.launch import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from batchai_retinanet_horovod_coco_tpu_torch.parallel import spatial
+
+    with open(job_path) as f:
+        job = json.load(f)
+    out_dir = os.path.dirname(job_path)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = initialize_distributed(DistributedConfig(
+        coordinator_address=f"file://{job['store']}", num_processes=job["ranks"], process_id=rank,
+        local_rank=0, backend="gloo", device=job["device"], timeout_s=job["timeout_s"],
+    ))
+    try:
+        device = world.device
+        hw = tuple(job["hw"])
+        model = build_retinanet(RetinaNetConfig(**job["model"], dtype=torch.float32), device=device,
+                                seed=0)
+        initial = torch.load(job["initial"], map_location=device)
+        _spatial_weights(model, initial, detect=True)
+        batch = dict(np.load(job["batch"]))
+        detect = detect_lib.make_detect_fn_spatial(model, hw, detect_lib.DetectConfig(), world,
+                                                   job["ranks"])
+        detect(batch["images"])  # the first call builds what a call needs
+        reset_all_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        det = detect(batch["images"])
+        _sync(device)
+        det_ms = (time.perf_counter() - t0) * 1e3
+        det_launches = counts()
+        np.savez(os.path.join(out_dir, f"det{rank}.npz"),
+                 **{f: getattr(det, f).cpu().numpy() for f in nms_lib.Detections._fields})
+
+        _spatial_weights(model, initial, detect=False)
+        state = state_lib.create_train_state(model, optim_lib.OptimizerConfig(**DP_OPT), device,
+                                             world=world, spatial_shards=job["ranks"])
+        step = step_lib.make_train_step_spatial(model, hw, 80, world, job["ranks"])
+        arrays = loop_lib.device_batch(pipeline_lib.Batch(**batch), device)
+        shapes_seen = []
+        exchange = spatial.exchange
+
+        def recording(x, axis, margin, extra=()):
+            shapes_seen.append((tuple(x.shape), int(margin), len(tuple(extra))))
+            return exchange(x, axis, margin, extra)
+
+        spatial.exchange = recording
+        reset_all_counts()
+        ms, metrics = [], None
+        for i in range(2):
+            _sync(device)
+            t0 = time.perf_counter()
+            got = step(state, arrays)
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                spatial.exchange = exchange
+                metrics = {k: float(v) for k, v in got.items()}
+                digest = hashlib.sha256()
+                for key, value in sorted(model.state_dict().items()):
+                    digest.update(value.detach().cpu().contiguous().numpy().tobytes())
+                gap = None
+                if rank == 0:
+                    reference = torch.load(job["reference"], map_location=device)
+                    gap = max((float((value - reference[key]).abs().max()), key)
+                              for key, value in model.state_dict().items())
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"det_ms": det_ms, "det_launches": det_launches, "metrics": metrics,
+                       "ms": ms, "launches": counts(), "exchanges": shapes_seen,
+                       "digest": digest.hexdigest(), "gap": gap,
+                       "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                                    if device.type == "cuda" else 0.0)}, f)
+    finally:
+        shutdown_distributed(world)
+
+
+def exchange_bytes(shapes_seen: list, space: int) -> tuple[float, float]:
+    """Bytes one rank's row exchanges carried in a step, from their shapes
+    (``parallel/spatial.py::exchange``): forward, the all-gather of every
+    rank's f32 buffer (its counts and its first and last ``margin`` rows),
+    received by each rank; backward, the all-reduce of the gathered rows'
+    gradients, ``space`` buffers of rows."""
+    fwd = bwd = 0.0
+    for (b, c, _, w), margin, extra in shapes_seen:
+        rows = b * c * 2 * margin * w
+        fwd += space * (1 + extra + rows) * 4
+        bwd += space * rows * 4
+    return fwd, bwd
+
+
+def spatial_phase(root: str, batches, device, kind: str, smi: str, hw=TRAIN_HW,
+                  model: dict | None = None) -> dict[str, int]:
+    """Phase 20: (a) spatial detection and (b) one spatial train step in a
+    world of SP_SPACE gloo ranks on the card, each against one process on
+    the same weights and images; (c) the command line's refusals.  Returns
+    the kernels' launches in the world's runs."""
+    t_phase = time.perf_counter()
+    model = model or {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = os.path.join(root, "spatial")
+    os.makedirs(work, exist_ok=True)
+    batch = cut_batch(batches[0], SP_BATCH)
+    np.savez(os.path.join(work, "batch.npz"), **batch._asdict())
+    single = build_retinanet(RetinaNetConfig(**model, dtype=torch.float32), device=device, seed=0)
+    initial = {k: v.detach().clone() for k, v in single.state_dict().items()}
+    torch.save(initial, os.path.join(work, "initial.pt"))
+
+    _spatial_weights(single, initial, detect=True)
+    detect = detect_lib.make_detect_fn(single, hw, detect_lib.DetectConfig(), device)
+    detect(batch.images)
+    _sync(device)
+    t0 = time.perf_counter()
+    want_det = detect(batch.images)
+    _sync(device)
+    single_det_ms = (time.perf_counter() - t0) * 1e3
+    want_det = {f: getattr(want_det, f).cpu().numpy() for f in nms_lib.Detections._fields}
+
+    arrays = loop_lib.device_batch(batch, device)
+    _spatial_weights(single, initial, detect=False)
+    state = state_lib.create_train_state(single, optim_lib.OptimizerConfig(**DP_OPT), device)
+    step = step_lib.make_train_step(single, hw, 80, device=device)
+    step(state, arrays)  # the first call builds what a step needs
+    _spatial_weights(single, initial, detect=False)
+    state = state_lib.create_train_state(single, optim_lib.OptimizerConfig(**DP_OPT), device)
+    step = step_lib.make_train_step(single, hw, 80, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    want = {k: float(v) for k, v in step(state, arrays).items()}
+    _sync(device)
+    single_ms = (time.perf_counter() - t0) * 1e3
+    torch.save(single.state_dict(), os.path.join(work, "reference.pt"))
+    del single, state, step, arrays, initial, detect
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    job = os.path.join(work, "job.json")
+    with open(job, "w") as f:
+        json.dump({"store": os.path.join(work, "store"), "ranks": SP_SPACE, "device": device.type,
+                   "timeout_s": SP_DEADLINE_S, "model": model, "hw": list(hw),
+                   "initial": os.path.join(work, "initial.pt"),
+                   "reference": os.path.join(work, "reference.pt"),
+                   "batch": os.path.join(work, "batch.npz")}, f)
+    t0 = time.perf_counter()
+    ranks = _run_ranks(job, SP_SPACE, work, target="spatial_rank", deadline_s=SP_DEADLINE_S)
+    world_s = time.perf_counter() - t0
+    launches = dict.fromkeys(("matching", "focal_fwd", "focal_bwd", "nms"), 0)
+
+    # (a) The detections.
+    kept = int(want_det["valid"].sum())
+    for r, res in enumerate(ranks):
+        got = dict(np.load(os.path.join(work, f"det{r}.npz")))
+        score_gap = float(np.abs(got["scores"] - want_det["scores"]).max())
+        box_gap = float(np.abs(got["boxes"] - want_det["boxes"]).max())
+        print(f"(a) rank {r}: detect {res['det_ms']:.1f} ms (one process {single_det_ms:.1f} ms), "
+              f"NMS launches {res['det_launches']['nms']}, {kept} kept; score gap {score_gap:.3e} "
+              f"(limit {SP_SCORE_ATOL}), box gap {box_gap:.3e} px (limit {SP_BOX_ATOL}); {kind}, {smi}")
+        require(np.array_equal(got["valid"], want_det["valid"])
+                and np.array_equal(got["labels"], want_det["labels"]),
+                f"rank {r}'s spatial detections keep other boxes than one process's")
+        require(score_gap <= SP_SCORE_ATOL and box_gap <= SP_BOX_ATOL,
+                f"rank {r}'s spatial detections differ from one process's")
+        require(res["det_launches"]["nms"] >= 1 and res["det_launches"]["plain"] == 0,
+                f"rank {r}'s detection launches {res['det_launches']}")
+        launches["nms"] += res["det_launches"]["nms"]
+    require(kept > 0, "no detection kept")
+
+    # (b) The train step.
+    gap, gap_key = ranks[0]["gap"]
+    fwd, bwd = exchange_bytes(ranks[0]["exchanges"], SP_SPACE)
+    for r, res in enumerate(ranks):
+        m = res["metrics"]
+        rel = {k: abs(m[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm")}
+        print(f"(b) rank {r}: step ms {[round(x, 1) for x in res['ms']]} (one process "
+              f"{single_ms:.1f} ms), loss {m['loss']:.6f} against {want['loss']:.6f} (rel "
+              f"{rel['loss']:.3e}), grad_norm {m['grad_norm']:.6f} against {want['grad_norm']:.6f} "
+              f"(rel {rel['grad_norm']:.3e}; limit {SP_RTOL}), num_pos {m['num_pos']:.0f} against "
+              f"{want['num_pos']:.0f}, launches {res['launches']}, peak {res['peak_gib']:.2f} GiB, "
+              f"digest {res['digest'][:16]}; {kind}, {smi}")
+        require(max(rel.values()) <= SP_RTOL and m["num_pos"] == want["num_pos"],
+                f"rank {r}'s spatial step differs from one process's")
+        used = res["launches"]
+        require(used["plain"] == 0 and all(used[k] >= 2 for k in ("matching", "focal_fwd",
+                                                                    "focal_bwd")),
+                f"rank {r}'s training launches {used}")
+        for k in ("matching", "focal_fwd", "focal_bwd", "nms"):
+            launches[k] += used[k]
+    print(f"(b) largest parameter gap after one step {gap:.3e} ({gap_key}; limit "
+          f"{SP_PARAM_ATOL}); {len(ranks[0]['exchanges'])} row exchanges a forward, carrying "
+          f"{fwd / 2**20:.1f} MiB forward and {bwd / 2**20:.1f} MiB backward a rank a step; world "
+          f"{world_s:.1f} s with start-up; {kind}, {smi}")
+    require(gap <= SP_PARAM_ATOL, f"the spatial step's parameters differ: {gap_key}")
+    require(len({r["digest"] for r in ranks}) == 1, "the space ranks' parameters differ")
+
+    # (c) The command line's refusals, in this process, before any world.
+    refusals = [
+        (["--spatial-shards", "2", "--num-devices", "2"],
+         "--spatial-shards requires --f32: bf16 spatial train steps are miscompiled by XLA's SPMD "
+         "partitioner (validated on the CPU mesh rig; TPU unvalidated — see "
+         "make_train_step_spatial's docstring)"),
+        (["--spatial-shards", "2", "--num-devices", "3", "--f32"],
+         "--spatial-shards 2 must divide --num-devices 3"),
+    ]
+    for flags, message in refusals:
+        try:
+            train_cli.main(["synthetic", "--synthetic-root", os.path.join(root, "sp_refused"),
+                            *flags])
+            got = None
+        except SystemExit as e:
+            got = str(e)
+        print(f"(c) {' '.join(flags)}: {got}")
+        require(got == message, f"{flags} gave {got!r}, not the JAX command line's message")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 20 in {phase_s:.1f} s (limit {SP_DEADLINE_S} s); launches {launches}")
+    require(phase_s <= SP_DEADLINE_S, f"phase 20 took {phase_s:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

@@ -122,7 +122,9 @@ def test_unported_flags_are_refused(flags, tmp_path, monkeypatch, capsys):
     gradient-communication flags ``--shard-weight-update`` and
     ``--quantized-allreduce``, which need a world: one process refuses them
     with the JAX command line's message (their world runs are in
-    tests/test_torch_comm_cli.py)."""
+    tests/test_torch_comm_cli.py).  ``--spatial-shards``, refused before,
+    is ported: on one device it meets the JAX command line's first guard
+    and message (its world runs are in tests/test_torch_spatial_cli.py)."""
     if flags[0] in LAUNCH_FLAGS:
         args = t_train.parse_args(["synthetic", "--device", "cpu", *flags, *LAUNCH_FLAGS[flags[0]]])
         t_train.refuse_unported(args)
@@ -167,6 +169,12 @@ def test_unported_flags_are_refused(flags, tmp_path, monkeypatch, capsys):
             "num_worker_procs" if flags[0] == "--data-worker-procs" else "worker_timeout"] == float(flags[1])
         assert len(built) == (flags[0] == "--data-worker-procs")
         assert all(p.exitcode is not None for pipe in built for p in pipe.processes)
+        return
+    if flags[0] == "--spatial-shards":
+        t_train.refuse_unported(t_train.parse_args(["synthetic", "--device", "cpu", *flags]))
+        with pytest.raises(SystemExit) as info:
+            t_train.main(["synthetic", "--device", "cpu", *flags])
+        assert str(info.value) == "--spatial-shards 2 must divide --num-devices 1"
         return
     if flags[0] in ("--shard-weight-update", "--quantized-allreduce"):
         t_train.refuse_unported(t_train.parse_args(["synthetic", "--device", "cpu", *flags]))

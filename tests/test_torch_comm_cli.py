@@ -96,17 +96,25 @@ def test_a_policy_the_config_refuses_is_refused_as_jax():
     (["--comm-overlap"],
      "--comm-compress/--comm-overlap need --num-devices > 1 (compression rides the mesh "
      "collectives)"),
-    (["--spatial-shards", "2"], "ROADMAP.md"),
+    (["--spatial-shards", "2"], "--spatial-shards 2 must divide --num-devices 1"),
 ], ids=["spatial-comm", "spatial-zero", "zero-alone", "compress-alone", "overlap-alone",
         "spatial"])
 def test_refusals_carry_the_jax_messages(flags, message, tmp_path):
-    """Each message is the JAX command line's (``train.py``); only spatial
-    sharding, TensorBoard and ``--debug-nans`` remain unported."""
+    """Each message is the JAX command line's (``train.py``).  Spatial
+    sharding is ported: alone on one device it meets the JAX guards' first
+    refusal, ``--spatial-shards`` must divide ``--num-devices`` (before
+    "requires --f32"), word for word; only TensorBoard and
+    ``--debug-nans`` remain unported."""
     with pytest.raises(SystemExit) as info:
         t_train.main(["synthetic", "--device", "cpu", "--synthetic-root", str(tmp_path), *flags])
     assert message in str(info.value)
     source = (Path(__file__).resolve().parents[1] / "train.py").read_text()
-    if message != "ROADMAP.md":
+    if flags == ["--spatial-shards", "2"]:
+        with pytest.raises(SystemExit) as want:
+            j_train._run(j_train.parse_args(["synthetic", "--synthetic-root", str(tmp_path),
+                                             *flags]))
+        assert str(info.value) == str(want.value)
+    else:
         assert message.split(" (")[0].split(" and ")[0] in source
 
 
